@@ -1,0 +1,327 @@
+"""CLIP dual tower in PyTorch, the port of ``clip_finegrained_alignment_tpu/
+models/clip.py``.
+
+Parameters carry HF ``CLIPModel`` names (``vision_model.pre_layrnorm``
+spelling included), so an HF-named state dict loads with ``strict=True``
+once its ``position_ids`` buffers are dropped. The modules hold the
+parameters; the arithmetic is in plain functions that follow the JAX
+package's numerics step by step, with explicit casts (no autocast):
+
+* ``linear`` casts x and the weight to the compute dtype, multiplies, then
+  adds the bias cast to the product's dtype (``clip.py:198-206``);
+* ``layer_norm`` takes statistics and applies scale and bias in fp32, then
+  casts back (``clip.py:184-195``);
+* ``quick_gelu`` multiplies by 1.702 rounded to x's dtype, as JAX's weakly
+  typed Python scalar does;
+* the residual stream stays in the compute dtype;
+* the patch embedding is patchify + matmul (``clip.py:492-503``), so no
+  cuDNN convolution (and no TF32) is involved;
+* attention is ``ops/attention.py::flash_attention`` on bshd views of the
+  projections, with the text tower's causal bias at the finite -1e9.
+
+:meth:`CLIPModel.cast_matmul_weights` casts every weight except the
+LayerNorms and ``logit_scale`` to the compute dtype once, at load; the
+casts in the functions are then no-ops and the numbers are unchanged.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..config import CLIPConfig, TextConfig, VisionConfig
+from ..ops.attention import flash_attention
+
+# Large negative additive bias (never -inf: no NaN in fully-masked rows).
+_NEG_INF = -1e9
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a ``torch.device``; raises if CUDA is asked for and
+    there is none (nothing falls back to the CPU)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "device 'cuda' requested but torch.cuda.is_available() is False; "
+            "pass device='cpu' to run the plain PyTorch path")
+    return dev
+
+
+# ---------------------------------------------------------------------------
+# Primitive ops
+# ---------------------------------------------------------------------------
+
+def quick_gelu(x: torch.Tensor) -> torch.Tensor:
+    """HF CLIP activation: x * sigmoid(1.702 x)."""
+    return x * torch.sigmoid(x * float(torch.tensor(1.702, dtype=x.dtype)))
+
+
+def layer_norm(ln: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
+    """LayerNorm with fp32 statistics, scale and bias; returns x's dtype."""
+    y = F.layer_norm(x.float(), ln.normalized_shape, ln.weight.float(),
+                     ln.bias.float(), ln.eps)
+    return y.to(x.dtype)
+
+
+def linear(x: torch.Tensor, weight: torch.Tensor,
+           bias: Optional[torch.Tensor], dtype: torch.dtype) -> torch.Tensor:
+    """x @ Wᵀ in ``dtype``, then + bias cast to the product's dtype."""
+    y = x.to(dtype) @ weight.to(dtype).t()
+    if bias is not None:
+        y = y + bias.to(y.dtype)
+    return y
+
+
+def _apply(lin: nn.Linear, x: torch.Tensor, dtype) -> torch.Tensor:
+    return linear(x, lin.weight, lin.bias, dtype)
+
+
+def patchify(pixel_values: torch.Tensor, patch_size: int) -> torch.Tensor:
+    """[B, H, W, 3] NHWC → [B, num_patches, p²·3], flattened in (row in
+    patch, column in patch, channel) order."""
+    B, H, W, C = pixel_values.shape
+    p = patch_size
+    x = pixel_values.reshape(B, H // p, p, W // p, p, C)
+    x = x.permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(B, (H // p) * (W // p), p * p * C)
+
+
+def patch_kernel(conv_weight: torch.Tensor) -> torch.Tensor:
+    """HF conv weight [D, 3, p, p] → the [D, p·p·3] matrix that
+    :func:`patchify`'s rows multiply (as a linear weight)."""
+    D = conv_weight.shape[0]
+    return conv_weight.permute(0, 2, 3, 1).reshape(D, -1)
+
+
+# ---------------------------------------------------------------------------
+# Modules (parameter containers with HF names)
+# ---------------------------------------------------------------------------
+
+class Attention(nn.Module):
+    def __init__(self, d: int, num_heads: int):
+        super().__init__()
+        self.num_heads = num_heads
+        self.q_proj = nn.Linear(d, d)
+        self.k_proj = nn.Linear(d, d)
+        self.v_proj = nn.Linear(d, d)
+        self.out_proj = nn.Linear(d, d)
+
+    def forward(self, x, bias, dtype):
+        B, S, D = x.shape
+        H = self.num_heads
+        heads = (lambda y: y.view(B, S, H, D // H))
+        q = heads(_apply(self.q_proj, x, dtype))
+        k = heads(_apply(self.k_proj, x, dtype))
+        v = heads(_apply(self.v_proj, x, dtype))
+        out = flash_attention(q, k, v, bias, (D // H) ** -0.5)
+        return _apply(self.out_proj, out.reshape(B, S, D), dtype)
+
+
+class MLP(nn.Module):
+    def __init__(self, d: int, d_ff: int):
+        super().__init__()
+        self.fc1 = nn.Linear(d, d_ff)
+        self.fc2 = nn.Linear(d_ff, d)
+
+    def forward(self, x, dtype):
+        return _apply(self.fc2, quick_gelu(_apply(self.fc1, x, dtype)), dtype)
+
+
+class EncoderLayer(nn.Module):
+    """Pre-LN block: x + attn(ln1(x)), then + mlp(ln2(·))."""
+
+    def __init__(self, d: int, d_ff: int, num_heads: int, eps: float):
+        super().__init__()
+        self.self_attn = Attention(d, num_heads)
+        self.layer_norm1 = nn.LayerNorm(d, eps=eps)
+        self.mlp = MLP(d, d_ff)
+        self.layer_norm2 = nn.LayerNorm(d, eps=eps)
+
+    def forward(self, x, bias, dtype):
+        x = x + self.self_attn(layer_norm(self.layer_norm1, x), bias, dtype)
+        return x + self.mlp(layer_norm(self.layer_norm2, x), dtype)
+
+
+class Encoder(nn.Module):
+    def __init__(self, d, d_ff, num_heads, eps, num_layers):
+        super().__init__()
+        self.layers = nn.ModuleList(
+            EncoderLayer(d, d_ff, num_heads, eps) for _ in range(num_layers))
+
+    def forward(self, x, bias, dtype):
+        for layer in self.layers:
+            x = layer(x, bias, dtype)
+        return x
+
+
+class TowerOutput(NamedTuple):
+    last_hidden_state: torch.Tensor  # [B, S, D] (vision: before post-LN)
+    pooled: torch.Tensor             # [B, D]
+
+
+class VisionEmbeddings(nn.Module):
+    def __init__(self, cfg: VisionConfig):
+        super().__init__()
+        p = cfg.patch_size
+        self.patch_embedding = nn.Conv2d(3, cfg.hidden_size, p, stride=p,
+                                         bias=False)
+        self.class_embedding = nn.Parameter(torch.empty(cfg.hidden_size))
+        self.position_embedding = nn.Embedding(cfg.seq_len, cfg.hidden_size)
+
+
+class VisionTransformer(nn.Module):
+    def __init__(self, cfg: VisionConfig):
+        super().__init__()
+        self.cfg = cfg
+        d, eps = cfg.hidden_size, cfg.layer_norm_eps
+        self.embeddings = VisionEmbeddings(cfg)
+        self.pre_layrnorm = nn.LayerNorm(d, eps=eps)  # HF's spelling
+        self.encoder = Encoder(d, cfg.intermediate_size, cfg.num_heads, eps,
+                               cfg.num_layers)
+        self.post_layernorm = nn.LayerNorm(d, eps=eps)
+
+    def forward(self, pixel_values, dtype) -> TowerOutput:
+        """``pixel_values``: [B, H, W, 3] NHWC, normalized."""
+        e = self.embeddings
+        x = patchify(pixel_values.to(dtype), self.cfg.patch_size)
+        x = linear(x, patch_kernel(e.patch_embedding.weight), None, dtype)
+        cls = e.class_embedding.to(dtype).expand(x.shape[0], 1, -1)
+        x = torch.cat([cls, x], dim=1)
+        x = x + e.position_embedding.weight.to(dtype)[None]
+        x = layer_norm(self.pre_layrnorm, x)
+        x = self.encoder(x, None, dtype)
+        pooled = layer_norm(self.post_layernorm, x[:, 0])
+        return TowerOutput(last_hidden_state=x, pooled=pooled)
+
+
+class TextEmbeddings(nn.Module):
+    def __init__(self, cfg: TextConfig):
+        super().__init__()
+        self.token_embedding = nn.Embedding(cfg.vocab_size, cfg.hidden_size)
+        self.position_embedding = nn.Embedding(cfg.max_position_embeddings,
+                                               cfg.hidden_size)
+
+
+def text_attention_bias(seq_len: int, attention_mask: Optional[torch.Tensor],
+                        device) -> torch.Tensor:
+    """Causal + optional padding additive bias, fp32 [B or 1, 1, S, S]."""
+    causal = torch.full((seq_len, seq_len), _NEG_INF, dtype=torch.float32,
+                        device=device).triu(1)
+    bias = causal[None, None]
+    if attention_mask is not None:
+        pad = (1.0 - attention_mask.to(torch.float32)) * _NEG_INF
+        bias = bias + pad[:, None, None, :]
+    return bias
+
+
+class TextTransformer(nn.Module):
+    def __init__(self, cfg: TextConfig):
+        super().__init__()
+        self.cfg = cfg
+        d, eps = cfg.hidden_size, cfg.layer_norm_eps
+        self.embeddings = TextEmbeddings(cfg)
+        self.encoder = Encoder(d, cfg.intermediate_size, cfg.num_heads, eps,
+                               cfg.num_layers)
+        self.final_layer_norm = nn.LayerNorm(d, eps=eps)
+
+    def forward(self, input_ids, dtype, attention_mask=None) -> TowerOutput:
+        """``input_ids``: [B, T] int. Pools the hidden state at the FIRST
+        EOS token, as HF does."""
+        e = self.embeddings
+        B, T = input_ids.shape
+        ids = input_ids.long()
+        x = F.embedding(ids, e.token_embedding.weight.to(dtype))
+        x = x + e.position_embedding.weight.to(dtype)[None, :T]
+        bias = text_attention_bias(T, attention_mask, x.device)
+        x = self.encoder(x, bias, dtype)
+        x = layer_norm(self.final_layer_norm, x)
+        eos_pos = (ids == self.cfg.eos_token_id).int().argmax(dim=-1)
+        pooled = x[torch.arange(B, device=x.device), eos_pos]
+        return TowerOutput(last_hidden_state=x, pooled=pooled)
+
+
+class CLIPOutput(NamedTuple):
+    """As HF ``CLIPModel.forward``: the ``*_embeds`` are L2-normalized."""
+    image_embeds: torch.Tensor            # [B, P]
+    text_embeds: torch.Tensor             # [Bt, P]
+    logits_per_image: torch.Tensor        # [B, Bt]
+    logits_per_text: torch.Tensor         # [Bt, B]
+    vision_last_hidden_state: torch.Tensor
+    text_last_hidden_state: torch.Tensor
+    vision_pooled: torch.Tensor
+    text_pooled: torch.Tensor
+
+
+class CLIPModel(nn.Module):
+    def __init__(self, cfg: CLIPConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.vision_model = VisionTransformer(cfg.vision)
+        self.text_model = TextTransformer(cfg.text)
+        self.visual_projection = nn.Linear(cfg.vision.hidden_size,
+                                           cfg.projection_dim, bias=False)
+        self.text_projection = nn.Linear(cfg.text.hidden_size,
+                                         cfg.projection_dim, bias=False)
+        self.logit_scale = nn.Parameter(torch.tensor(cfg.logit_scale_init))
+
+    def cast_matmul_weights(self, dtype: torch.dtype) -> "CLIPModel":
+        """Cast every parameter but the LayerNorms' and ``logit_scale`` to
+        ``dtype`` in place: what the forward would cast on every call."""
+        keep = {id(p) for m in self.modules() if isinstance(m, nn.LayerNorm)
+                for p in m.parameters()}
+        keep.add(id(self.logit_scale))
+        for p in self.parameters():
+            if id(p) not in keep:
+                p.data = p.data.to(dtype)
+        return self
+
+
+def encode_image(model: CLIPModel, pixel_values: torch.Tensor, *,
+                 dtype=torch.float32) -> torch.Tensor:
+    """Projected image embedding (not normalized), in ``dtype``."""
+    out = model.vision_model(pixel_values, dtype)
+    return _apply(model.visual_projection, out.pooled, dtype)
+
+
+def encode_text(model: CLIPModel, input_ids: torch.Tensor, *,
+                attention_mask=None, dtype=torch.float32) -> torch.Tensor:
+    """Projected text embedding (not normalized), in ``dtype``."""
+    out = model.text_model(input_ids, dtype, attention_mask)
+    return _apply(model.text_projection, out.pooled, dtype)
+
+
+def clip_forward(model: CLIPModel, pixel_values: torch.Tensor,
+                 input_ids: torch.Tensor, *, attention_mask=None,
+                 dtype=torch.float32) -> CLIPOutput:
+    """Both towers; normalization and logits in fp32 (unguarded norm)."""
+    v = model.vision_model(pixel_values, dtype)
+    t = model.text_model(input_ids, dtype, attention_mask)
+    ie = _apply(model.visual_projection, v.pooled, dtype).float()
+    te = _apply(model.text_projection, t.pooled, dtype).float()
+    ie = ie / ie.norm(dim=-1, keepdim=True)
+    te = te / te.norm(dim=-1, keepdim=True)
+    logits_per_text = (te @ ie.t()) * model.logit_scale.float().exp()
+    return CLIPOutput(
+        image_embeds=ie, text_embeds=te,
+        logits_per_image=logits_per_text.t(),
+        logits_per_text=logits_per_text,
+        vision_last_hidden_state=v.last_hidden_state,
+        text_last_hidden_state=t.last_hidden_state,
+        vision_pooled=v.pooled, text_pooled=t.pooled)
+
+
+def build_model(cfg: CLIPConfig, state_dict, *, device="cuda",
+                dtype: torch.dtype = torch.float32) -> CLIPModel:
+    """A :class:`CLIPModel` holding ``state_dict`` (HF names, loaded with
+    ``strict=True``) on ``device``, frozen, its matmul weights in
+    ``dtype``."""
+    dev = resolve_device(device)
+    with torch.device("meta"):
+        model = CLIPModel(cfg)
+    model.load_state_dict(state_dict, strict=True, assign=True)
+    model = model.to(device=dev, dtype=torch.float32)
+    model.requires_grad_(False).eval()
+    return model.cast_matmul_weights(dtype)

@@ -1,0 +1,180 @@
+"""Weights into the port: the JAX package's param tree, random weights from
+a seed, and HF-named reference ``.pt`` checkpoints.
+
+``state_dict_from_jax`` is the port's copy of ``clip_finegrained_alignment_
+tpu/models/hf_export.py::hf_state_dict_from_params`` (same names, same
+values, as torch tensors); it reads the tree through ``numpy.asarray``, so
+it takes numpy arrays, or JAX arrays without importing JAX here.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping, Tuple
+
+import numpy as np
+import torch
+
+from ..config import CLIPConfig
+
+
+def _np(x) -> np.ndarray:
+    return np.asarray(x, dtype=np.float32)
+
+
+def _t(x) -> torch.Tensor:
+    return torch.from_numpy(np.require(x, np.float32, requirements="CW"))
+
+
+def _per_layer(layers) -> list:
+    """Stacked [L, ...] leaves (or an unstacked tuple) → per-layer trees."""
+    if isinstance(layers, (list, tuple)):
+        return list(layers)
+
+    def index(tree, i):
+        return {k: index(v, i) if isinstance(v, Mapping) else v[i]
+                for k, v in tree.items()}
+
+    first = layers
+    while isinstance(first, Mapping):
+        first = next(iter(first.values()))
+    return [index(layers, i) for i in range(first.shape[0])]
+
+
+def _linear_out(sd, prefix: str, p) -> None:
+    sd[prefix + ".weight"] = _t(_np(p["kernel"]).T)  # torch: [out, in]
+    if "bias" in p:
+        sd[prefix + ".bias"] = _t(_np(p["bias"]))
+
+
+def _layernorm_out(sd, prefix: str, p) -> None:
+    sd[prefix + ".weight"] = _t(_np(p["scale"]))
+    sd[prefix + ".bias"] = _t(_np(p["bias"]))
+
+
+def _encoder_layers_out(sd, prefix: str, layers) -> None:
+    for i, lp in enumerate(_per_layer(layers)):
+        pre = f"{prefix}.layers.{i}"
+        _layernorm_out(sd, f"{pre}.layer_norm1", lp["ln1"])
+        _linear_out(sd, f"{pre}.self_attn.q_proj", lp["q"])
+        _linear_out(sd, f"{pre}.self_attn.k_proj", lp["k"])
+        _linear_out(sd, f"{pre}.self_attn.v_proj", lp["v"])
+        _linear_out(sd, f"{pre}.self_attn.out_proj", lp["out"])
+        _layernorm_out(sd, f"{pre}.layer_norm2", lp["ln2"])
+        _linear_out(sd, f"{pre}.mlp.fc1", lp["fc1"])
+        _linear_out(sd, f"{pre}.mlp.fc2", lp["fc2"])
+
+
+def state_dict_from_jax(params: Mapping[str, Any],
+                        cfg: CLIPConfig) -> Dict[str, torch.Tensor]:
+    """The JAX package's param tree → the port's state dict (HF names,
+    fp32 CPU tensors)."""
+    sd: Dict[str, torch.Tensor] = {}
+    v, t = params["vision"], params["text"]
+    ps = cfg.vision.patch_size
+    # matmul kernel [ps*ps*3, D] → conv weight [D, 3, ps, ps]; the
+    # flattening is (row in patch, column in patch, channel).
+    kernel = _np(v["patch_embedding"]["kernel"])
+    sd["vision_model.embeddings.patch_embedding.weight"] = _t(
+        kernel.reshape(ps, ps, 3, -1).transpose(3, 2, 0, 1))
+    sd["vision_model.embeddings.class_embedding"] = _t(
+        _np(v["class_embedding"]))
+    sd["vision_model.embeddings.position_embedding.weight"] = _t(
+        _np(v["position_embedding"]))
+    _layernorm_out(sd, "vision_model.pre_layrnorm", v["pre_layernorm"])
+    _layernorm_out(sd, "vision_model.post_layernorm", v["post_layernorm"])
+    _encoder_layers_out(sd, "vision_model.encoder", v["layers"])
+
+    sd["text_model.embeddings.token_embedding.weight"] = _t(
+        _np(t["token_embedding"]))
+    sd["text_model.embeddings.position_embedding.weight"] = _t(
+        _np(t["position_embedding"]))
+    _layernorm_out(sd, "text_model.final_layer_norm", t["final_layernorm"])
+    _encoder_layers_out(sd, "text_model.encoder", t["layers"])
+
+    _linear_out(sd, "visual_projection", params["visual_projection"])
+    _linear_out(sd, "text_projection", params["text_projection"])
+    sd["logit_scale"] = _t(_np(params["logit_scale"]).reshape(()))
+    return sd
+
+
+def random_params(cfg: CLIPConfig, seed: int = 0) -> Dict[str, Any]:
+    """Random weights in the JAX package's tree layout (numpy, layers
+    stacked [L, ...]), drawn with numpy from ``seed``.
+
+    The scales follow ``clip_finegrained_alignment_tpu/models/clip.py::
+    init_clip_params`` (kernels N(0, 1/d_in), embeddings N(0, 0.02²),
+    class embedding N(0, 1/D)); biases are N(0, 0.02²) and LayerNorm
+    scales 1 + N(0, 0.02²) instead of exact zeros and ones, so that every
+    parameter reaches the output."""
+    rng = np.random.default_rng(seed)
+
+    def normal(shape, std):
+        return (rng.standard_normal(shape, dtype=np.float32)
+                * np.float32(std))
+
+    def lin(d_in, d_out, bias=True):
+        p = {"kernel": normal((d_in, d_out), d_in ** -0.5)}
+        if bias:
+            p["bias"] = normal((d_out,), 0.02)
+        return p
+
+    def ln(d):
+        return {"scale": 1.0 + normal((d,), 0.02), "bias": normal((d,), 0.02)}
+
+    def layers(n, d, d_ff):
+        per = [{"ln1": ln(d), "q": lin(d, d), "k": lin(d, d), "v": lin(d, d),
+                "out": lin(d, d), "ln2": ln(d), "fc1": lin(d, d_ff),
+                "fc2": lin(d_ff, d)} for _ in range(n)]
+
+        def stack(*trees):
+            if isinstance(trees[0], Mapping):
+                return {k: stack(*(t[k] for t in trees)) for k in trees[0]}
+            return np.stack(trees)
+        return stack(*per)
+
+    v, t = cfg.vision, cfg.text
+    patch_dim = v.patch_size * v.patch_size * 3
+    return {
+        "vision": {
+            "patch_embedding": {"kernel": normal((patch_dim, v.hidden_size),
+                                                 patch_dim ** -0.5)},
+            "class_embedding": normal((v.hidden_size,), v.hidden_size ** -0.5),
+            "position_embedding": normal((v.seq_len, v.hidden_size), 0.02),
+            "pre_layernorm": ln(v.hidden_size),
+            "post_layernorm": ln(v.hidden_size),
+            "layers": layers(v.num_layers, v.hidden_size,
+                             v.intermediate_size),
+        },
+        "text": {
+            "token_embedding": normal((t.vocab_size, t.hidden_size), 0.02),
+            "position_embedding": normal((t.max_position_embeddings,
+                                          t.hidden_size), 0.02),
+            "final_layernorm": ln(t.hidden_size),
+            "layers": layers(t.num_layers, t.hidden_size,
+                             t.intermediate_size),
+        },
+        "visual_projection": lin(v.hidden_size, cfg.projection_dim,
+                                 bias=False),
+        "text_projection": lin(t.hidden_size, cfg.projection_dim,
+                               bias=False),
+        "logit_scale": np.asarray(cfg.logit_scale_init, np.float32),
+    }
+
+
+def load_reference_checkpoint(path: str) -> Tuple[Dict[str, torch.Tensor],
+                                                  Dict[str, Any]]:
+    """A reference torch checkpoint (``model_state_dict`` + metadata, or a
+    bare state dict) in HF ``CLIPModel`` naming → (state dict, metadata).
+    ``position_ids`` buffers are dropped. Loaded with ``weights_only``:
+    tensors and plain containers only."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    sd = ckpt.get("model_state_dict", ckpt)
+    if "visual.conv1.weight" in sd:
+        raise NotImplementedError(
+            f"{path}: OpenAI clip-package naming is not supported by the "
+            "port yet; export the checkpoint with HF naming")
+    sd = {k: v.float() for k, v in sd.items()
+          if not k.endswith("position_ids")}
+    meta = {k: v for k, v in ckpt.items() if k != "model_state_dict"} \
+        if "model_state_dict" in ckpt else {}
+    return sd, meta
