@@ -6,10 +6,11 @@
 Phases, each of which fails the script (non-zero exit, no "ok" line):
 
 1. the card's name and power limit (``nvidia-smi``);
-2. build every CUDA kernel of the serving path from ``csrc/`` (one nvcc
-   per source, started together);
+2. build the CUDA kernel of the serving path from ``csrc/``;
 3. each kernel against its plain PyTorch version on the card, at the
-   shapes serving gives it (B=64 and B=1, bf16 and fp32), with its time,
+   shapes serving gives it (B=64 and B=1, bf16 and fp32; q, k, v both as
+   contiguous per-projection tensors, as the model passes them, and as
+   strided slices of one fused projection), with its time,
    the plain version's, the one-call PyTorch yardstick's
    (``scaled_dot_product_attention``, never called by the port) and the
    least time the card could take (its bound);
@@ -53,10 +54,12 @@ BUCKET = 64
 #   bf16: 2e-2 — the output is rounded to bf16: half a step at |o| < 4 is
 #     2^-7 ≈ 0.008; inputs are the same bf16 values on both sides.
 KERNEL_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
-# Served bf16 embeddings vs the port in fp32 on the CPU (unit vectors):
-# 12 layers of bf16 rounding per tower.
-EMBED_MIN_COSINE = 0.99
-EMBED_MAX_ABS = 3e-2
+# Served bf16 embeddings vs the port in fp32 on the CPU (unit vectors of
+# 512): two runs on an H100 read min cosine 0.99993 and max abs 1.85e-3 at
+# worst over both towers. The limits are about 8x the cosine gap and 3x the
+# abs error, so 12 layers of bf16 rounding pass and a wrong layer does not.
+EMBED_MIN_COSINE = 0.9995
+EMBED_MAX_ABS = 5e-3
 
 
 class SmokeFailure(RuntimeError):
@@ -134,29 +137,41 @@ def check_attention(results: dict) -> dict:
         for B in (BUCKET, 1):
             for dtype in (torch.bfloat16, torch.float32):
                 dname = str(dtype).split(".")[-1]
-                # q, k, v as bshd views of one fused projection output, as
-                # strided as the model's could be.
                 x = torch.randn(B, S, 3 * H * D, device="cuda",
                                 generator=gen).to(dtype)
-                q, k, v = (x[..., i * H * D:(i + 1) * H * D]
-                           .view(B, S, H, D) for i in range(3))
                 bias = (torch.full((S, S), -1e9, device="cuda").triu(1)
                         [None, None] if causal else None)
                 scale = D ** -0.5
-                out = ta.flash_attention(q, k, v, bias, scale)
-                torch.cuda.synchronize()
-                ref = ta.attention_reference(q.float(), k.float(), v.float(),
-                                             bias, scale)
-                err = (out.float() - ref).abs().max().item()
+                layouts = {
+                    # As the model passes them: one contiguous [B, S, H*D]
+                    # output per projection, viewed as bshd.
+                    "separate": [x[..., i * H * D:(i + 1) * H * D]
+                                 .contiguous().view(B, S, H, D)
+                                 for i in range(3)],
+                    # Strided slices of one fused projection output.
+                    "fused": [x[..., i * H * D:(i + 1) * H * D]
+                              .view(B, S, H, D) for i in range(3)]}
+                errs = {}
+                for layout, (q, k, v) in layouts.items():
+                    out = ta.flash_attention(q, k, v, bias, scale)
+                    torch.cuda.synchronize()
+                    ref = ta.attention_reference(q.float(), k.float(),
+                                                 v.float(), bias, scale)
+                    errs[layout] = (out.float() - ref).abs().max().item()
+                    check(bool(torch.isfinite(out).all()),
+                          f"attention {what} B={B} {dname} {layout}: "
+                          f"non-finite output")
+                err = max(errs.values())
                 row = {"shape": what, "B": B, "S": S, "H": H, "Dh": D,
                        "dtype": dname, "max_abs_err": err,
+                       "max_abs_err_by_layout": errs,
                        "tol": KERNEL_TOL[dname]}
-                check(bool(torch.isfinite(out).all()),
-                      f"attention {what} B={B} {dname}: non-finite output")
                 check(err <= KERNEL_TOL[dname],
-                      f"attention {what} B={B} {dname}: max abs err {err} "
+                      f"attention {what} B={B} {dname}: max abs err {errs} "
                       f"> {KERNEL_TOL[dname]}")
                 if B == BUCKET:
+                    # Timed on the main path's layout.
+                    q, k, v = layouts["separate"]
                     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
                     mask = None if bias is None else bias.to(dtype)
                     row["ms"] = cuda_time_ms(
@@ -208,10 +223,9 @@ def check_rows(name, emb, n, dim):
     return emb
 
 
-def serve_main_path(results: dict, cfg=None, device="cuda",
-                    measure=True) -> dict:
-    """Serve ``cfg`` (default ViT-B/16) on ``device`` and check every
-    endpoint; with ``measure``, time it as well (phase 5)."""
+def serve_main_path(results: dict) -> dict:
+    """Serve ViT-B/16 on the card, check every endpoint (phase 4) and
+    time it (phase 5)."""
     import numpy as np
     import torch
     from PIL import Image
@@ -225,7 +239,7 @@ def serve_main_path(results: dict, cfg=None, device="cuda",
         CLIPInference
     from clip_finegrained_alignment_tpu_torch.ops import attention as ta
 
-    cfg = cfg or CLIPConfig.vit_b16()
+    cfg = CLIPConfig.vit_b16()
     t0 = time.time()
     sd = convert.state_dict_from_jax(convert.random_params(cfg, SEED), cfg)
     log(f"weights: {sum(v.numel() for v in sd.values())} params "
@@ -235,7 +249,7 @@ def serve_main_path(results: dict, cfg=None, device="cuda",
                         eos_token_id=t.eos_token_id,
                         pad_token_id=t.pad_token_id)
     clip = ClipServer(sd, cfg, tok, model_name="ViT-B/16", bucket=BUCKET,
-                      window_ms=2.0, device=device)
+                      window_ms=2.0, device="cuda")
     srv = make_server(clip, "127.0.0.1", 0)
     thread = threading.Thread(target=srv.serve_forever, daemon=True)
     thread.start()
@@ -311,8 +325,7 @@ def serve_main_path(results: dict, cfg=None, device="cuda",
         results["main_path"] = {"forwards": forwards, "launches": launches,
                                 "expected_launches": expected,
                                 "vs_cpu_fp32": agree, "stats": stats}
-        if measure:
-            results["rates"] = measure_rates(clip, port, cfg, images)
+        results["rates"] = measure_rates(clip, port, cfg, images)
         return {"launches": launches}
     finally:
         srv.shutdown()
@@ -455,7 +468,7 @@ def main(argv=None) -> int:
     log(f"torch {results['torch']}, python {sys.version.split()[0]}")
 
     t0 = time.time()
-    _build.build_all()
+    _build.load("attention_fwd")
     results["build_s"] = time.time() - t0
     log(f"build: {results['build_s']:.1f} s")
     for name, text in _build.build_logs.items():

@@ -238,8 +238,10 @@ cudaError_t launch(const void* q, const void* k, const void* v, const float* bia
                    int64_t v_sb, int64_t v_ss, int64_t v_sh,
                    int64_t bias_sb, float scale, cudaStream_t stream) {
   constexpr size_t smem = smem_floats<DH>() * sizeof(float);
-  // Above 48 KB dynamic shared memory needs the opt-in; once per instantiation.
-  static const cudaError_t attr = cudaFuncSetAttribute(
+  // Above 48 KB dynamic shared memory needs the opt-in, which holds for the
+  // current device only; it is a cheap host call, so it is made on every
+  // launch and holds on whichever device the caller made current.
+  const cudaError_t attr = cudaFuncSetAttribute(
       attention_fwd_kernel<T, DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (attr != cudaSuccess) return attr;
   const dim3 grid((S + BQ - 1) / BQ, H, B);

@@ -55,11 +55,12 @@ def nvcc_command(nvcc: str, name: str, out: Path) -> list:
     return [nvcc, *NVCC_FLAGS, "-o", str(out), str(CSRC / SOURCES[name])]
 
 
-def _start(name: str) -> Optional[subprocess.Popen]:
-    """Start nvcc for ``name`` unless its library is built already."""
+def _build(name: str) -> None:
+    """Compile ``name`` unless its library is built already; raises if
+    nvcc is missing or fails."""
     out = library_path(name)
     if out.exists():
-        return None
+        return
     nvcc = find_nvcc()
     if nvcc is None:
         raise RuntimeError(
@@ -67,38 +68,15 @@ def _start(name: str) -> Optional[subprocess.Popen]:
             "in $CUDA_HOME/bin or in /usr/local/cuda/bin")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    return subprocess.Popen(nvcc_command(nvcc, name, tmp),
-                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                            text=True)
-
-
-def _finish(name: str, proc: subprocess.Popen) -> None:
-    log, _ = proc.communicate()
-    build_logs[name] = log
-    out = library_path(name)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    proc = subprocess.run(nvcc_command(nvcc, name, tmp),
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                          text=True)
+    build_logs[name] = proc.stdout
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed to build {name!r} "
-                           f"(exit {proc.returncode}):\n{log}")
+                           f"(exit {proc.returncode}):\n{proc.stdout}")
     os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
-
-
-def build_all() -> None:
-    """Build every kernel, one nvcc process per source, all started
-    together; raises if any build fails."""
-    with _lock:
-        procs = {n: _start(n) for n in SOURCES}
-        errors = []
-        for name, proc in procs.items():
-            if proc is None:
-                continue
-            try:
-                _finish(name, proc)
-            except RuntimeError as e:
-                errors.append(str(e))
-        if errors:
-            raise RuntimeError("\n".join(errors))
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -108,8 +86,6 @@ def load(name: str) -> ctypes.CDLL:
         return lib
     with _lock:
         if name not in _libs:
-            proc = _start(name)
-            if proc is not None:
-                _finish(name, proc)
+            _build(name)
             _libs[name] = ctypes.CDLL(str(library_path(name)))
         return _libs[name]

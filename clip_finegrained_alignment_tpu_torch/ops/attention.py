@@ -131,14 +131,16 @@ def _launch(q, k, v, bias, scale) -> torch.Tensor:
         bias = bias.to(torch.float32).expand(bb, 1, S, S) \
             .reshape(bb, S, S).contiguous()
         bias_ptr, bias_sb = bias.data_ptr(), (S * S if bb > 1 else 0)
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_ptr,
-             out.data_ptr(), B, S, H, D,
-             0 if q.dtype == torch.float32 else 1,
-             q.stride(0), q.stride(1), q.stride(2),
-             k.stride(0), k.stride(1), k.stride(2),
-             v.stride(0), v.stride(1), v.stride(2),
-             bias_sb, rounded_scale(scale, q.dtype),
-             torch.cuda.current_stream(q.device).cuda_stream)
+    # The C entry launches on the current device: make it q's.
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_ptr,
+                 out.data_ptr(), B, S, H, D,
+                 0 if q.dtype == torch.float32 else 1,
+                 q.stride(0), q.stride(1), q.stride(2),
+                 k.stride(0), k.stride(1), k.stride(2),
+                 v.stride(0), v.stride(1), v.stride(2),
+                 bias_sb, rounded_scale(scale, q.dtype),
+                 torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{KERNEL} kernel launch failed: CUDA error {err}")
     _count_launch()

@@ -61,4 +61,4 @@ def test_kernel_build_targets_hopper_and_refuses_without_nvcc(monkeypatch):
     monkeypatch.setattr(_build, "library_path",
                         lambda name: _build.BUILD_DIR / "never-built.so")
     with pytest.raises(RuntimeError, match="nvcc"):
-        _build.build_all()
+        _build.load("attention_fwd")
