@@ -6,21 +6,38 @@
 Phases, each of which fails the script (non-zero exit, no "ok" line):
 
 1. the card's name and power limit (``nvidia-smi``);
-2. build the CUDA kernel of the serving path from ``csrc/``;
-3. each kernel against its plain PyTorch version on the card, at the
-   shapes serving gives it (B=64 and B=1, bf16 and fp32; q, k, v both as
-   contiguous per-projection tensors, as the model passes them, and as
-   strided slices of one fused projection), with its time,
-   the plain version's, the one-call PyTorch yardstick's
-   (``scaled_dot_product_attention``, never called by the port) and the
-   least time the card could take (its bound);
-4. the main path: ViT-B/16 at full width with random weights from a numpy
-   seed, served by ``ClipServer`` on the card behind its HTTP server on
-   127.0.0.1; every endpoint must answer 200 with finite unit-norm rows,
-   the kernels' launch counts must equal the encoder layers the bucket
-   forwards ran, and the served embeddings must match the port run in
-   fp32 on the CPU;
-5. device rates of ``CLIPInference`` at bucket 64 and the HTTP p50.
+2. build every CUDA kernel from ``csrc/`` (one ``nvcc`` per source, all
+   started together);
+3. each kernel against its plain PyTorch version on the card, with its
+   time, the plain version's, the one-call PyTorch yardstick's where there
+   is one (never called by the port) and the least time the card could
+   take (its bound):
+   - the attention forward at the serving shapes (B=64 and B=1, bf16 and
+     fp32; q, k, v both as contiguous per-projection tensors, as the model
+     passes them, and as strided slices of one fused projection), against
+     ``scaled_dot_product_attention``;
+   - the attention backward at the train shapes (B=32: ViT-B/16 vision and
+     the causal text tower, bf16 and fp32, both layouts), against the
+     backward alone of ``scaled_dot_product_attention``;
+   - the SPARC pooling forward and backward at the train shapes (B=32,
+     T=77, P=197 and P=50, D=512, fp32) and on an edge batch (fully masked
+     rows, a zero patch, duplicated patches), with no library yardstick;
+4. the serving main path: ViT-B/16 at full width with random weights from
+   a numpy seed, served by ``ClipServer`` on the card behind its HTTP
+   server on 127.0.0.1; every endpoint must answer 200 with finite
+   unit-norm rows, the forward kernel's launch count must equal the encoder
+   layers the bucket forwards ran, and the served embeddings must match
+   the port run in fp32 on the CPU;
+5. device rates of ``CLIPInference`` at bucket 64 and the HTTP p50;
+6. the train main path: SPARC + AdamSPD train steps on ViT-B/16 at full
+   width (random weights from the same seed), microbatch 32 x accum 8,
+   inverse temperature 0.07, as ``bench.py`` runs the JAX package. One step
+   counted: 24 x accum attention forward and backward launches and accum
+   SPARC forward and backward launches; every step's loss and gradient
+   norm finite and the parameters moved; one microbatch of 4 pairs on the
+   card in bf16 against the port in fp32 on the CPU (loss, gradient norm,
+   per-tensor gradient cosine); then the step time, pairs/s, model-FLOP
+   utilization and a profile of one step.
 
 The last lines are the kernels' JSON line, the ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -34,6 +51,7 @@ import argparse
 import base64
 import io
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -60,6 +78,39 @@ KERNEL_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # abs error, so 12 layers of bf16 rounding pass and a wrong layer does not.
 EMBED_MIN_COSINE = 0.9995
 EMBED_MAX_ABS = 5e-3
+# Attention backward vs its plain version (same inputs), per element:
+# |err| <= rtol·|ref| + atol·max|ref|.
+#   bf16: rtol 1e-2 (one bf16 step is at most 2^-7 ≈ 0.8 % of the value: the
+#     two sides round the same fp32 math at the same places and differ where
+#     a value lands near a rounding boundary) + atol 1e-3 of the largest
+#     gradient (elements the fp32 sums move across zero);
+#   fp32: 1e-4 and 1e-5 (other summation order; dq is formed as
+#     (Σ p·dp·k − r·Σ p·k)/l, which cancels in fp32).
+BWD_TOL = {"bfloat16": (1e-2, 1e-3), "float32": (1e-4, 1e-5)}
+# SPARC kernels vs their plain versions, fp32, absolute. Outputs and
+# gradients are O(1); the two sides differ by summation order (~1e-7). A
+# token row whose threshold decision (|z − τ| < 1e-5) or min/max choice
+# (two distinct masked similarities within 1e-6) lies within fp32 rounding
+# can flip between the two sides and change that row's weights by a whole
+# entry; such rows (and, for dv, their batch elements) are left out of the
+# comparison, counted, and may be at most 1 % of the rows.
+SPARC_TOL = 1e-4
+SPARC_MAX_NEAR_SHARE = 0.01
+TRAIN_B, TRAIN_ACCUM = 32, 8
+# Train step, one microbatch of 4 pairs: the card in bf16 against the port
+# in fp32 on the CPU, same weights and batch. The first readings on an
+# H100 (PERF.md): loss relative difference 3.3e-7, gradient norm 4.2e-4,
+# smallest per-tensor gradient cosine 0.99949 (median 0.99985) over 371
+# tensors, key-projection bias gradients 3.2e-6 of the global norm. The
+# limits are ~30x, ~5x, ~8x the cosine gap and ~30x those readings: bf16
+# rounding through 12 + 12 layers passes, a wrong gradient path does not.
+# (The key projections' biases are zero by math, so they are held below a
+# share of the global norm instead of to a cosine.)
+TRAIN_CHECK_PAIRS = 4
+TRAIN_MAX_LOSS_REL = 1e-5
+TRAIN_MAX_GNORM_REL = 2e-3
+TRAIN_MIN_GRAD_COSINE = 0.996
+TRAIN_MAX_ZERO_GRAD_SHARE = 1e-4
 
 
 class SmokeFailure(RuntimeError):
@@ -115,15 +166,26 @@ ATTENTION_SHAPES = [  # (what, S, H, Dh, causal)
 ]
 
 
-def attention_bound_ms(B, S, H, D, dtype_name, causal) -> dict:
-    item = 2 if dtype_name == "bfloat16" else 4
-    nbytes = 4 * B * S * H * D * item + (S * S * 4 if causal else 0)
-    flops = 4.0 * B * H * S * S * D
+def bound_ms(nbytes: float, flops: float, dtype_name: str) -> dict:
+    """The least time for ``nbytes`` of device memory traffic and ``flops``
+    operations at the card's peak rates for ``dtype_name``."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes": nbytes, "flops": flops}
+
+
+def attention_bound_ms(B, S, H, D, dtype_name, causal, tensors=4,
+                       products=2) -> dict:
+    """``tensors`` [B, S, H, D] tensors read or written once (forward: q,
+    k, v, o; backward: q, k, v, do, dq, dk, dv) plus the fp32 causal bias,
+    and ``products`` [S, S, D] matrix products per (batch, head), 2 flops
+    per multiply-add (forward: q·kᵀ, p·v; backward: q·kᵀ again, do·vᵀ,
+    pᵀ·do, ds·k, dsᵀ·q)."""
+    item = 2 if dtype_name == "bfloat16" else 4
+    nbytes = tensors * B * S * H * D * item + (S * S * 4 if causal else 0)
+    return bound_ms(nbytes, 2.0 * products * B * H * S * S * D, dtype_name)
 
 
 def check_attention(results: dict) -> dict:
@@ -190,6 +252,188 @@ def check_attention(results: dict) -> dict:
                 and r["B"] == BUCKET and r["dtype"] == "bfloat16")
 
 
+def bwd_excess(got, ref, dname) -> float:
+    """The largest |err| / (rtol·|ref| + atol·max|ref|) over a gradient;
+    at most 1 passes."""
+    rtol, atol = BWD_TOL[dname]
+    ref = ref.float()
+    lim = rtol * ref.abs() + atol * ref.abs().max()
+    return ((got.float() - ref).abs() / lim.clamp_min(1e-30)).max().item()
+
+
+def check_attention_backward(results: dict) -> dict:
+    """The backward kernel at the train shapes (B=32), both layouts."""
+    import torch
+    import torch.nn.functional as F
+    from clip_finegrained_alignment_tpu_torch.ops import attention as ta
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    rows = []
+    B = TRAIN_B
+    for what, S, H, D, causal in ATTENTION_SHAPES[:2]:
+        for dtype in (torch.bfloat16, torch.float32):
+            dname = str(dtype).split(".")[-1]
+            x = torch.randn(B, S, 3 * H * D, device="cuda",
+                            generator=gen).to(dtype)
+            do = torch.randn(B, S, H, D, device="cuda", generator=gen).to(dtype)
+            bias = (torch.full((S, S), -1e9, device="cuda").triu(1)
+                    [None, None] if causal else None)
+            scale = D ** -0.5
+            layouts = {
+                "separate": [x[..., i * H * D:(i + 1) * H * D]
+                             .contiguous().view(B, S, H, D) for i in range(3)],
+                "fused": [x[..., i * H * D:(i + 1) * H * D]
+                          .view(B, S, H, D) for i in range(3)]}
+            errs, excess = {}, {}
+            for layout, (q, k, v) in layouts.items():
+                got = ta._launch_backward(q, k, v, bias, scale, do)
+                torch.cuda.synchronize()
+                ref = ta.attention_backward_reference(q, k, v, bias, scale, do)
+                for name, a, b in zip(("dq", "dk", "dv"), got, ref):
+                    check(bool(torch.isfinite(a).all()),
+                          f"attention backward {what} {dname} {layout} "
+                          f"{name}: non-finite")
+                    errs[f"{layout} {name}"] = \
+                        (a.float() - b.float()).abs().max().item()
+                    excess[f"{layout} {name}"] = bwd_excess(a, b, dname)
+            row = {"shape": what, "B": B, "S": S, "H": H, "Dh": D,
+                   "dtype": dname, "max_abs_err": max(errs.values()),
+                   "max_abs_err_by": errs,
+                   "max_err_over_tol": max(excess.values()),
+                   "tol": "|err| <= %g·|ref| + %g·max|ref|" % BWD_TOL[dname]}
+            check(row["max_err_over_tol"] <= 1.0,
+                  f"attention backward {what} {dname}: error over its "
+                  f"tolerance {excess}")
+            q, k, v = layouts["separate"]
+            row["ms"] = cuda_time_ms(
+                lambda: ta._launch_backward(q, k, v, bias, scale, do))
+            row["plain_ms"] = cuda_time_ms(
+                lambda: ta.attention_backward_reference(q, k, v, bias, scale,
+                                                        do), reps=5)
+            # Yardstick: the backward alone of PyTorch's fused attention
+            # on the same inputs (bhsd views), through a retained graph.
+            qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                          for t in (q, k, v))
+            mask = None if bias is None else bias.to(dtype)
+            out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                 scale=scale)
+            dot = do.transpose(1, 2)
+            row["library_ms"] = cuda_time_ms(lambda: torch.autograd.grad(
+                out, (qt, kt, vt), dot, retain_graph=True))
+            row.update(attention_bound_ms(B, S, H, D, dname, causal,
+                                          tensors=7, products=5))
+            log("attention backward", json.dumps(row))
+            rows.append(row)
+    results["attention_backward"] = rows
+    return next(r for r in rows if r["shape"] == "ViT-B/16 vision"
+                and r["dtype"] == "bfloat16")
+
+
+def sparc_inputs(gen, B, T, P, D, edge=False):
+    """fp32 v [B, P, D], l [B, T, D], g [B, T, D] and a caption-like mask
+    (each row a prefix of random length). ``edge``: also a fully masked
+    sample, a fully masked row, an exactly zero patch row and duplicated
+    patches (ties of the min and max)."""
+    import torch
+    v = torch.randn(B, P, D, device="cuda", generator=gen)
+    l = torch.randn(B, T, D, device="cuda", generator=gen)
+    g = torch.randn(B, T, D, device="cuda", generator=gen)
+    lens = torch.randint(5, T + 1, (B, 1), device="cuda", generator=gen)
+    mask = (torch.arange(T, device="cuda")[None] < lens).float()
+    if edge:
+        mask[0] = 0.0
+        mask[1, 2] = 0.0
+        v[1, 3] = 0.0
+        v[:, 7] = v[:, 5]
+        v[:, 9] = v[:, 5]
+        v[:, 11] = -v[:, 5]
+    return v, l, mask, g
+
+
+def sparc_near_rows(v, l, mask, tau):
+    """[B, T] bool: masked-in token rows whose threshold decision or
+    min/max choice lies within fp32 rounding (the plain version's numbers):
+    some |z − τ| < 1e-5, or two distinct masked similarities at the bottom
+    or the top of the row within 1e-6 of each other."""
+    import torch
+    from clip_finegrained_alignment_tpu_torch.ops import sparc_kernel as sk
+    sim = torch.einsum("btd,bpd->btp", sk.l2_normalize(l), sk.l2_normalize(v))
+    sm = sim * mask[:, :, None]
+    srt = sm.sort(dim=-1).values
+    mn, mx = srt[..., :1], srt[..., -1:]
+    z = (sm - mn) / (mx - mn + sk.EPS)
+    near = ((z - tau).abs() < 1e-5).any(-1)
+    for end in (srt - mn, mx - srt):       # distances from the min / the max
+        gap = torch.where(end > 0, end, torch.full_like(end, 1.0))
+        near |= gap.amin(-1) < 1e-6
+    return near & (mask > 0)
+
+
+def check_sparc(results: dict) -> tuple:
+    """Both SPARC kernels at the train shapes and on an edge batch."""
+    import torch
+    from clip_finegrained_alignment_tpu_torch.ops import sparc_kernel as sk
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    T, D, tau = 77, 512, 0.5
+    rows = {"fwd": [], "bwd": []}
+    for what, B, P, edge in (("ViT-B/16", TRAIN_B, 197, False),
+                             ("ViT-B/32", TRAIN_B, 50, False),
+                             ("ViT-B/16 edge batch", 4, 197, True)):
+        v, l, mask, g = sparc_inputs(gen, B, T, P, D, edge)
+        near = sparc_near_rows(v, l, mask, tau)
+        keep_row = ~near[:, :, None]
+        keep_b = ~near.any(-1)[:, None, None]
+        out = sk._launch(v, l, mask, tau)
+        dv, dl = sk._launch_backward(v, l, mask, tau, g)
+        torch.cuda.synchronize()
+        ref = sk.sparc_pooling_reference(v, l, mask, tau)
+        rdv, rdl = sk.sparc_pooling_backward_reference(v, l, mask, tau, g)
+        for t in (out, dv, dl):
+            check(bool(torch.isfinite(t).all()), f"SPARC {what}: non-finite")
+        errs = {"out": ((out - ref).abs() * keep_row).max().item(),
+                "dl": ((dl - rdl).abs() * keep_row).max().item(),
+                "dv": ((dv - rdv).abs() * keep_b).max().item()}
+        n_near, n_rows = int(near.sum()), int((mask > 0).sum())
+        common = {"shape": what, "B": B, "T": T, "P": P, "D": D, "tau": tau,
+                  "tol": SPARC_TOL, "near_decision_rows": n_near,
+                  "rows": n_rows, "near_decision_samples":
+                  int(near.any(-1).sum())}
+        check(n_near <= SPARC_MAX_NEAR_SHARE * n_rows,
+              f"SPARC {what}: {n_near} of {n_rows} rows near a decision")
+        fwd = dict(common, max_abs_err=errs["out"])
+        bwd = dict(common, max_abs_err=max(errs["dl"], errs["dv"]),
+                   max_abs_err_by={"dl": errs["dl"], "dv": errs["dv"]})
+        for kind, row in (("forward", fwd), ("backward", bwd)):
+            check(row["max_abs_err"] <= SPARC_TOL,
+                  f"SPARC {kind} {what}: max abs err {row['max_abs_err']} "
+                  f"> {SPARC_TOL}")
+        if not edge:
+            fwd["ms"] = cuda_time_ms(lambda: sk._launch(v, l, mask, tau))
+            bwd["ms"] = cuda_time_ms(
+                lambda: sk._launch_backward(v, l, mask, tau, g))
+            fwd["plain_ms"] = cuda_time_ms(
+                lambda: sk.sparc_pooling_reference(v, l, mask, tau), reps=5)
+            bwd["plain_ms"] = cuda_time_ms(
+                lambda: sk.sparc_pooling_backward_reference(v, l, mask, tau,
+                                                            g), reps=5)
+            # No single PyTorch call computes this chain.
+            fwd["library_ms"] = bwd["library_ms"] = None
+            # Reads v, l, mask (and g), writes out (dv, dl) once; fp32
+            # products: sim and pooling in the forward; sim again,
+            # g·vᵀ, wᵀ·g, dsim·v_norm and dsimᵀ·l_norm in the backward.
+            f4 = 4.0
+            fwd.update(bound_ms(f4 * (B * P * D + 2 * B * T * D + B * T),
+                                2.0 * 2 * B * T * P * D, "float32"))
+            bwd.update(bound_ms(f4 * (2 * B * P * D + 3 * B * T * D + B * T),
+                                2.0 * 5 * B * T * P * D, "float32"))
+        for kind, row in (("fwd", fwd), ("bwd", bwd)):
+            log(f"sparc {kind}", json.dumps(row))
+            rows[kind].append(row)
+    results["sparc"] = rows
+    return rows["fwd"][0], rows["bwd"][0]
+
+
 # ---------------------------------------------------------------------------
 # Phase 4: the main path
 # ---------------------------------------------------------------------------
@@ -237,7 +481,7 @@ def serve_main_path(results: dict) -> dict:
     from clip_finegrained_alignment_tpu_torch.models import convert
     from clip_finegrained_alignment_tpu_torch.models.inference import \
         CLIPInference
-    from clip_finegrained_alignment_tpu_torch.ops import attention as ta
+    from clip_finegrained_alignment_tpu_torch.ops import _build
 
     cfg = CLIPConfig.vit_b16()
     t0 = time.time()
@@ -265,7 +509,7 @@ def serve_main_path(results: dict) -> dict:
         clip.embed_images({"pixels": images[:1]})
 
         before = dict(clip.batcher.stats["batches_by_kind"])
-        ta.reset_launch_count()
+        _build.reset_launch_counts()
         txt = post_json(port, "/v1/embed/text", {"texts": texts})
         img = post_json(port, "/v1/embed/image", {"pixels": images.tolist()})
         buf = io.BytesIO()
@@ -282,7 +526,7 @@ def serve_main_path(results: dict) -> dict:
                         {"pixels": images[:1].tolist(), "labels": labels})
         status, _, body = http_request(port, "GET", "/stats")
         check(status == 200, f"GET /stats answered {status}")
-        launches = ta.launch_count()
+        launches = _build.launch_counts()["attention_fwd"]
         stats = json.loads(body)
         forwards = {k: v - before[k]
                     for k, v in stats["batches_by_kind"].items()}
@@ -398,38 +642,240 @@ def measure_rates(clip, port, cfg, images) -> dict:
     return out
 
 
-def profile_forward(inf, pix, ids) -> dict:
-    """Device time by kernel over one bucket forward of each tower
-    (``torch.profiler``); empty where the profiler reports no device
+def kernel_table(run) -> dict:
+    """Device time by kernel over one call of ``run`` (``torch.profiler``):
+    the total and the top rows; empty where the profiler reports no device
     time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    # Kernels only: the CPU-side aten ops carry the same device time
+    # again, and so do the GPU-timeline annotations named after them.
+    avgs = prof.key_averages()
+    cpu_ops = {e.key for e in avgs if e.device_type == DeviceType.CPU}
+    rows = [(e.self_device_time_total, e.key, e.count) for e in avgs
+            if e.device_type == DeviceType.CUDA and e.key not in cpu_ops
+            and e.self_device_time_total > 0]
+    rows.sort(reverse=True)
+    total = sum(r[0] for r in rows)
+    return {"device_ms": total / 1e3,
+            "top": [{"kernel": k[:90], "ms": us / 1e3, "calls": c,
+                     "share": us / total if total else None}
+                    for us, k, c in rows[:12]]}
+
+
+def profile_forward(inf, pix, ids) -> dict:
+    """Device time by kernel over one bucket forward of each tower."""
     inf.embed_images_device(pix)
     inf.embed_texts_device(ids)
-    torch.cuda.synchronize()
     out = {}
     for name, fn, arg in (("image", inf.embed_images_device, pix),
                           ("text", inf.embed_texts_device, ids)):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            fn(arg)
-            torch.cuda.synchronize()
-        # Kernels only: the CPU-side aten ops carry the same device time
-        # again, and so do the GPU-timeline annotations named after them.
-        avgs = prof.key_averages()
-        cpu_ops = {e.key for e in avgs if e.device_type == DeviceType.CPU}
-        rows = [(e.self_device_time_total, e.key, e.count) for e in avgs
-                if e.device_type == DeviceType.CUDA and e.key not in cpu_ops
-                and e.self_device_time_total > 0]
-        rows.sort(reverse=True)
-        total = sum(r[0] for r in rows)
-        out[name] = {"device_ms": total / 1e3,
-                     "top": [{"kernel": k[:90], "ms": us / 1e3, "calls": c,
-                              "share": us / total if total else None}
-                             for us, k, c in rows[:8]]}
+        out[name] = kernel_table(lambda: fn(arg))
         log(f"profile {name}:", json.dumps(out[name]))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: the train main path
+# ---------------------------------------------------------------------------
+
+def train_batch(cfg, accum, B, seed):
+    """``bench.py``'s batch: normal pixels [accum, B, S, S, 3] fp32 and
+    random ids with EOS last, made with numpy from ``seed``."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    v, t = cfg.vision, cfg.text
+    ids = rng.integers(1, t.vocab_size - 2,
+                       size=(accum, B, t.max_position_embeddings)
+                       ).astype(np.int32)
+    ids[..., -1] = t.eos_token_id
+    pix = rng.normal(size=(accum, B, v.image_size, v.image_size, 3)
+                     ).astype(np.float32)
+    return {"pixel_values": pix, "input_ids": ids}
+
+
+def grads_vs_cpu(sd, cfg, tcfg, batch) -> dict:
+    """One microbatch's loss, gradient norm and gradients on the card
+    (bf16 compute) against the port in fp32 on the CPU."""
+    import torch
+    from clip_finegrained_alignment_tpu_torch.models import clip as tm
+    from clip_finegrained_alignment_tpu_torch.optim.factory import \
+        global_norm
+    from clip_finegrained_alignment_tpu_torch.train.engine import \
+        accumulate_grads
+
+    side = {}
+    for device, dtype in (("cuda", torch.bfloat16), ("cpu", torch.float32)):
+        model = tm.build_train_model(cfg, sd, device=device)
+        mb = {k: torch.from_numpy(x[:1, :TRAIN_CHECK_PAIRS]).to(device)
+              for k, x in batch.items()}
+        losses = accumulate_grads(model, mb, tcfg, cfg, dtype=dtype)
+        grads = {n: (p.grad if p.grad is not None
+                     else torch.zeros_like(p)).detach().float().cpu()
+                 for n, p in model.named_parameters()}
+        side[device] = (losses["total_loss"].item(),
+                        global_norm(grads.values()).item(), grads)
+        del model
+    (l_gpu, n_gpu, g_gpu), (l_cpu, n_cpu, g_cpu) = side["cuda"], side["cpu"]
+    cos, zero, noise = {}, [], 0.0
+    for n, want in g_cpu.items():
+        got = g_gpu[n]
+        if not want.any():
+            check(not got.any(), f"train vs CPU: {n} has a gradient on the "
+                  "card only")
+            zero.append(n)
+        elif n.endswith("self_attn.k_proj.bias"):
+            # Zero by math (softmax ignores a constant added to a row's
+            # scores): what both sides hold is rounding noise, so it is
+            # held to be small, not to agree.
+            noise = max(noise, got.norm().item() / n_gpu,
+                        want.norm().item() / n_cpu)
+        else:
+            cos[n] = (torch.nn.functional.cosine_similarity(
+                got.flatten(), want.flatten(), dim=0)).item()
+    check(noise <= TRAIN_MAX_ZERO_GRAD_SHARE,
+          f"train vs CPU: a key-projection bias gradient is {noise} of the "
+          "global norm; it is zero by math")
+    worst = min(cos, key=cos.get)
+    return {"pairs": TRAIN_CHECK_PAIRS, "loss_card": l_gpu, "loss_cpu": l_cpu,
+            "loss_rel": abs(l_gpu - l_cpu) / abs(l_cpu),
+            "grad_norm_card": n_gpu, "grad_norm_cpu": n_cpu,
+            "grad_norm_rel": abs(n_gpu - n_cpu) / n_cpu,
+            "min_grad_cosine": cos[worst], "min_grad_cosine_tensor": worst,
+            "median_grad_cosine": sorted(cos.values())[len(cos) // 2],
+            "tensors_compared": len(cos), "zero_grad_tensors": zero,
+            "k_proj_bias_grad_share_of_norm": noise}
+
+
+def train_main_path(results: dict) -> dict:
+    """SPARC + AdamSPD train steps of ViT-B/16 on the card (phase 6)."""
+    import torch
+    from clip_finegrained_alignment_tpu_torch.config import (CLIPConfig,
+                                                             TrainConfig)
+    from clip_finegrained_alignment_tpu_torch.models import clip as tm
+    from clip_finegrained_alignment_tpu_torch.models import convert
+    from clip_finegrained_alignment_tpu_torch.ops import _build
+    from clip_finegrained_alignment_tpu_torch.optim.factory import \
+        make_optimizer
+    from clip_finegrained_alignment_tpu_torch.train.engine import (
+        accumulate_grads, make_train_step)
+    from clip_finegrained_alignment_tpu_torch.utils import flops
+
+    cfg = CLIPConfig.vit_b16()
+    tcfg = TrainConfig(loss_type="sparc",
+                       optimizer_type="adamspd", inverse_temperature=0.07,
+                       batch_size=TRAIN_B,
+                       gradient_accumulation_steps=TRAIN_ACCUM, use_amp=True)
+    sd = convert.state_dict_from_jax(convert.random_params(cfg, SEED), cfg)
+    host_batch = train_batch(cfg, TRAIN_ACCUM, TRAIN_B, SEED)
+    out = {"config": {"model": "ViT-B/16", "loss": "sparc",
+                      "optimizer": "adamspd", "microbatch": TRAIN_B,
+                      "accum": TRAIN_ACCUM, "inverse_temperature": 0.07,
+                      "lr": tcfg.lr, "weight_decay": tcfg.weight_decay,
+                      "max_grad_norm": tcfg.max_grad_norm}}
+
+    model = tm.build_train_model(cfg, sd, device="cuda")
+    opt = make_optimizer(tcfg, model.named_parameters())
+    step = make_train_step(tcfg, cfg, model, opt)
+    batch = {k: torch.from_numpy(x).cuda() for k, x in host_batch.items()}
+    watch = ["vision_model.encoder.layers.0.self_attn.q_proj.weight",
+             "text_model.encoder.layers.11.mlp.fc2.weight",
+             "visual_projection.weight"]
+    params = dict(model.named_parameters())
+    first = {n: params[n].detach().clone() for n in watch}
+
+    def checked_step(i):
+        m = step(batch)
+        vals = {k: x.item() for k, x in m.items()}
+        check(all(map(math.isfinite, vals.values())),
+              f"train step {i}: non-finite metrics {vals}")
+        return vals
+
+    steps = [checked_step(0)]             # warm-up: cuBLAS, allocator
+    _build.reset_launch_counts()
+    steps.append(checked_step(1))
+    launches = _build.launch_counts()
+    expected = {"attention_fwd": (cfg.vision.num_layers + cfg.text.num_layers)
+                * TRAIN_ACCUM,
+                "attention_bwd": (cfg.vision.num_layers + cfg.text.num_layers)
+                * TRAIN_ACCUM,
+                "sparc_fwd": TRAIN_ACCUM, "sparc_bwd": TRAIN_ACCUM}
+    log(f"train main path: launches {launches}, expected {expected}")
+    check(launches == expected,
+          f"train step launches {launches} != {expected}")
+    for n in watch:
+        check(not torch.equal(first[n], params[n].detach()),
+              f"train steps left {n} unchanged")
+
+    # Timed steps: CUDA events around each, the metrics read after it.
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for i in range(3):
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        m = step(batch)
+        t1.record()
+        torch.cuda.synchronize()
+        times.append(t0.elapsed_time(t1))
+        steps.append({k: x.item() for k, x in m.items()})
+        check(all(map(math.isfinite, steps[-1].values())),
+              f"train step {len(steps) - 1}: non-finite metrics")
+    step_ms = statistics.median(times)
+    # One more step, split: forward + backward of the microbatches, then
+    # the norm, clip and AdamSPD update (device events and host clock).
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    h0 = time.perf_counter()
+    marks[0].record()
+    accumulate_grads(model, batch, tcfg, cfg, dtype=torch.bfloat16)
+    marks[1].record()
+    h1 = time.perf_counter()
+    opt.step()
+    marks[2].record()
+    h2 = time.perf_counter()
+    torch.cuda.synchronize()
+    split = {"fwd_bwd_ms": marks[0].elapsed_time(marks[1]),
+             "optimizer_ms": marks[1].elapsed_time(marks[2]),
+             "fwd_bwd_host_enqueue_ms": (h1 - h0) * 1e3,
+             "optimizer_host_enqueue_ms": (h2 - h1) * 1e3}
+    pairs = TRAIN_B * TRAIN_ACCUM
+    flops_per_step = flops.sparc_train_step_flops(cfg, pairs)
+    out.update({
+        "launches": launches, "expected_launches": expected,
+        "losses": [s["total_loss"] for s in steps],
+        "grad_norms": [s["grad_norm"] for s in steps],
+        "step_ms_each": times, "step_ms": step_ms,
+        "pairs_per_s": pairs / step_ms * 1e3,
+        "model_flops_per_step": flops_per_step,
+        "mfu_vs_989T_bf16": flops_per_step / (step_ms / 1e3) / PEAK_FLOPS[
+            "bfloat16"],
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "split_step": split,
+    })
+    out["profile"] = kernel_table(lambda: step(batch))
+    out["busy_share"] = out["profile"]["device_ms"] / step_ms
+    out["gpu"] = gpu_line()
+    log("train:", json.dumps({k: v for k, v in out.items()
+                              if k != "profile"}))
+    log("profile train step:", json.dumps(out["profile"]))
+    del step, opt, model, batch
+    torch.cuda.empty_cache()
+
+    agree = grads_vs_cpu(sd, cfg, tcfg, host_batch)
+    log("train vs CPU fp32:", json.dumps(agree))
+    check(agree["loss_rel"] <= TRAIN_MAX_LOSS_REL
+          and agree["grad_norm_rel"] <= TRAIN_MAX_GNORM_REL
+          and agree["min_grad_cosine"] >= TRAIN_MIN_GRAD_COSINE,
+          f"train step on the card vs CPU fp32 out of limits: {agree}")
+    out["vs_cpu_fp32"] = agree
+    results["train"] = out
     return out
 
 
@@ -468,7 +914,8 @@ def main(argv=None) -> int:
     log(f"torch {results['torch']}, python {sys.version.split()[0]}")
 
     t0 = time.time()
-    _build.load("attention_fwd")
+    for name in _build.SOURCES:     # the first load builds them all at once
+        _build.load(name)
     results["build_s"] = time.time() - t0
     log(f"build: {results['build_s']:.1f} s")
     for name, text in _build.build_logs.items():
@@ -476,21 +923,42 @@ def main(argv=None) -> int:
                 if "registers" in ln or "spill" in ln]
         log(f"build {name}: " + " | ".join(regs[:12]))
 
-    head = check_attention(results)
-    main_path = serve_main_path(results)
+    fwd = check_attention(results)
+    bwd = check_attention_backward(results)
+    sparc_fwd, sparc_bwd = check_sparc(results)
+    serve = serve_main_path(results)
+    train = train_main_path(results)
 
-    kernels = [{
-        "name": "attention_fwd", "route": "cuda",
-        "source": "clip_finegrained_alignment_tpu_torch/csrc/attention_fwd.cu",
-        "replaces": "clip_finegrained_alignment_tpu/ops/attention.py:115",
-        "launches": main_path["launches"],
-        "max_abs_err": max(r["max_abs_err"] for r in results["attention"]
-                           if r["dtype"] == "bfloat16"),
-        "ms": head["ms"], "plain_ms": head["plain_ms"],
-        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-        "library_ms": head["library_ms"],
-        "shape": "B=64 S=197 H=12 Dh=64 bf16 (ViT-B/16 vision)",
-    }]
+    csrc = "clip_finegrained_alignment_tpu_torch/csrc/"
+    ref = "clip_finegrained_alignment_tpu/ops/"
+    entries = [
+        ("attention_fwd", ref + "attention.py:115", fwd,
+         max(r["max_abs_err"] for r in results["attention"]
+             if r["dtype"] == "bfloat16"),
+         "B=64 S=197 H=12 Dh=64 bf16 (ViT-B/16 vision, serving bucket)"),
+        ("attention_bwd", ref + "attention.py:126", bwd,
+         max(r["max_abs_err"] for r in results["attention_backward"]
+             if r["dtype"] == "bfloat16"),
+         "B=32 S=197 H=12 Dh=64 bf16 (ViT-B/16 vision, train microbatch)"),
+        ("sparc_fwd", ref + "sparc_kernel.py:49", sparc_fwd,
+         max(r["max_abs_err"] for r in results["sparc"]["fwd"]),
+         "B=32 T=77 P=197 D=512 fp32 (ViT-B/16 SPARC, train microbatch)"),
+        ("sparc_bwd", ref + "sparc_kernel.py:102", sparc_bwd,
+         max(r["max_abs_err"] for r in results["sparc"]["bwd"]),
+         "B=32 T=77 P=197 D=512 fp32 (ViT-B/16 SPARC, train microbatch)"),
+    ]
+    by_path = {"serve": {"attention_fwd": serve["launches"]},
+               "train": train["launches"]}
+    kernels = []
+    for name, replaces, row, err, shape in entries:
+        counts = {path: c.get(name, 0) for path, c in by_path.items()}
+        kernels.append({
+            "name": name, "route": "cuda", "source": csrc + name + ".cu",
+            "replaces": replaces, "launches": sum(counts.values()),
+            "launches_by_path": counts, "max_abs_err": err,
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"], "shape": shape})
     results["kernels"] = kernels
     results["seconds"] = time.time() - t_start
     if args.out:

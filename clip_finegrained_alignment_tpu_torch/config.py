@@ -2,13 +2,18 @@
 
 The port's own copy of ``clip_finegrained_alignment_tpu/config.py``'s
 ``VisionConfig``, ``TextConfig`` and ``CLIPConfig`` (same fields, same
-defaults, same named models). The training config comes with the
-training slice.
+defaults, same named models), and of the ``PrecisionConfig`` and
+``TrainConfig`` fields the training step reads (same names and defaults).
+The TPU-only knobs (``remat``, ``unroll*``, ``unstack_layers``,
+``use_pallas_attention``, ``use_fused_sparc``, ``quant``) are not carried:
+the port always runs its kernels. Mesh and parallel fields come with the
+multi-GPU slice.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field, replace
+from typing import Tuple
 
 
 @dataclass(frozen=True)
@@ -118,3 +123,42 @@ class CLIPConfig:
             raise ValueError(f"Unknown CLIP model name: {name!r}. "
                              f"Known: {sorted(table)}")
         return table[name]()
+
+
+@dataclass(frozen=True)
+class PrecisionConfig:
+    """bf16 compute with fp32 master parameters; losses reduce in fp32."""
+    compute_dtype: str = "bfloat16"   # activations & matmuls
+    param_dtype: str = "float32"      # master weights & optimizer state
+
+
+@dataclass
+class TrainConfig:
+    """Training hyperparameters the train step reads (the JAX package's
+    ``TrainConfig`` fields of the same names and defaults)."""
+    lr: float = 1e-5
+    batch_size: int = 32
+    max_grad_norm: float = 1.0
+    weight_decay: float = 0.2
+    use_amp: bool = True                  # bf16 compute
+    gradient_accumulation_steps: int = 4
+    loss_type: str = "count"              # clip | sparc | count | clip_count
+    similarity_threshold: float = 0.5
+    global_loss_weight: float = 1.0
+    local_loss_weight: float = 1.0
+    inverse_temperature: float = 1.0
+    optimizer_type: str = "adamw"         # adamw | adamspd
+    betas: Tuple[float, float] = (0.9, 0.98)
+    eps: float = 5e-6
+    amsgrad: bool = False
+    count_alpha: float = 1.0
+    seed: int = 42
+    precision: PrecisionConfig = field(default_factory=PrecisionConfig)
+
+    def __post_init__(self):
+        if self.loss_type not in ("clip", "sparc", "count", "clip_count"):
+            raise ValueError(f"invalid loss_type {self.loss_type!r}")
+        if self.optimizer_type not in ("adamw", "adamspd"):
+            raise ValueError(f"invalid optimizer_type {self.optimizer_type!r}")
+        if self.gradient_accumulation_steps < 1:
+            raise ValueError("gradient_accumulation_steps must be >= 1")

@@ -22,6 +22,9 @@ package's numerics step by step, with explicit casts (no autocast):
 :meth:`CLIPModel.cast_matmul_weights` casts every weight except the
 LayerNorms and ``logit_scale`` to the compute dtype once, at load; the
 casts in the functions are then no-ops and the numbers are unchanged.
+Training (:func:`build_train_model`) keeps fp32 master parameters and lets
+the per-call casts run, as the JAX package does; their gradients flow back
+through the casts to fp32.
 """
 
 from __future__ import annotations
@@ -313,15 +316,41 @@ def clip_forward(model: CLIPModel, pixel_values: torch.Tensor,
         vision_pooled=v.pooled, text_pooled=t.pooled)
 
 
+def sparc_embeddings(model: CLIPModel, out: CLIPOutput, *,
+                     dtype=torch.float32):
+    """Both towers' full hidden sequences projected into the shared space
+    (the SPARC input): (v_patch_embed [B, S_v, P], l_token_embed
+    [B, T, P]) in ``dtype``. The vision sequence is taken before the
+    post-LayerNorm and keeps the class token."""
+    v = _apply(model.visual_projection, out.vision_last_hidden_state, dtype)
+    l = _apply(model.text_projection, out.text_last_hidden_state, dtype)
+    return v, l
+
+
+def _load(cfg: CLIPConfig, state_dict, dev) -> CLIPModel:
+    with torch.device("meta"):
+        model = CLIPModel(cfg)
+    model.load_state_dict(state_dict, strict=True, assign=True)
+    return model.to(device=dev, dtype=torch.float32)
+
+
+def build_train_model(cfg: CLIPConfig, state_dict, *,
+                      device="cuda") -> CLIPModel:
+    """A trainable :class:`CLIPModel` holding a copy of ``state_dict``
+    (HF names, ``strict=True``) on ``device``: fp32 master parameters that
+    require grad, never cast (the forward casts per call). The optimizer
+    updates them in place, so they never alias the caller's tensors."""
+    dev = resolve_device(device)
+    model = _load(cfg, {k: v.detach().clone() for k, v in state_dict.items()},
+                  dev)
+    return model.requires_grad_(True).train()
+
+
 def build_model(cfg: CLIPConfig, state_dict, *, device="cuda",
                 dtype: torch.dtype = torch.float32) -> CLIPModel:
     """A :class:`CLIPModel` holding ``state_dict`` (HF names, loaded with
     ``strict=True``) on ``device``, frozen, its matmul weights in
     ``dtype``."""
-    dev = resolve_device(device)
-    with torch.device("meta"):
-        model = CLIPModel(cfg)
-    model.load_state_dict(state_dict, strict=True, assign=True)
-    model = model.to(device=dev, dtype=torch.float32)
+    model = _load(cfg, state_dict, resolve_device(device))
     model.requires_grad_(False).eval()
     return model.cast_matmul_weights(dtype)

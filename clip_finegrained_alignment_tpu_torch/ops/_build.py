@@ -3,9 +3,14 @@
 Each source is compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared
 library with a plain C interface and loaded with ``ctypes``. The library
 lands in ``_build/`` inside this package (git-ignored), named by a hash of
-the source and the flags, so an edited source is rebuilt and an unchanged
-one is loaded as it is. Nothing here runs at import time: the CPU tests
+the source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
+source is rebuilt and an unchanged one is loaded as it is. The first
+:func:`load` starts one ``nvcc`` for every library not built yet, all at
+once, and waits for them. Nothing here runs at import time: the CPU tests
 import every module on a host with no ``nvcc``.
+
+Each kernel's wrapper counts its launches in :data:`LAUNCHES` (one count
+per kernel name), so a run can show which kernels its path went through.
 """
 
 from __future__ import annotations
@@ -24,7 +29,12 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 
 # kernel name -> source under csrc/
-SOURCES = {"attention_fwd": "attention_fwd.cu"}
+SOURCES = {
+    "attention_fwd": "attention_fwd.cu",
+    "attention_bwd": "attention_bwd.cu",
+    "sparc_fwd": "sparc_fwd.cu",
+    "sparc_bwd": "sparc_bwd.cu",
+}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -33,6 +43,39 @@ _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 # kernel name -> nvcc's output (ptxas register / shared-memory report)
 build_logs: Dict[str, str] = {}
+
+
+class LaunchCounter:
+    """Launches of one kernel since the last :meth:`reset`."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self._n = 0
+
+    def add(self) -> None:
+        with self._lock:
+            self._n += 1
+
+    def reset(self) -> None:
+        with self._lock:
+            self._n = 0
+
+    @property
+    def value(self) -> int:
+        return self._n
+
+
+LAUNCHES: Dict[str, LaunchCounter] = {name: LaunchCounter()
+                                      for name in SOURCES}
+
+
+def launch_counts() -> Dict[str, int]:
+    return {name: c.value for name, c in LAUNCHES.items()}
+
+
+def reset_launch_counts() -> None:
+    for c in LAUNCHES.values():
+        c.reset()
 
 
 def find_nvcc() -> Optional[str]:
@@ -46,46 +89,59 @@ def find_nvcc() -> Optional[str]:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / SOURCES[name]).read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    h = hashlib.sha256((CSRC / SOURCES[name]).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def nvcc_command(nvcc: str, name: str, out: Path) -> list:
     return [nvcc, *NVCC_FLAGS, "-o", str(out), str(CSRC / SOURCES[name])]
 
 
-def _build(name: str) -> None:
-    """Compile ``name`` unless its library is built already; raises if
-    nvcc is missing or fails."""
-    out = library_path(name)
-    if out.exists():
+def _build_missing() -> None:
+    """Compile every kernel whose library is not built yet, one ``nvcc``
+    each, all started together; raises if nvcc is missing or any build
+    fails (after every build has ended)."""
+    missing = [n for n in SOURCES if not library_path(n).exists()]
+    if not missing:
         return
     nvcc = find_nvcc()
     if nvcc is None:
         raise RuntimeError(
-            f"cannot build the CUDA kernel {name!r}: nvcc not found on PATH, "
-            "in $CUDA_HOME/bin or in /usr/local/cuda/bin")
+            f"cannot build the CUDA kernels {missing}: nvcc not found on "
+            "PATH, in $CUDA_HOME/bin or in /usr/local/cuda/bin")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run(nvcc_command(nvcc, name, tmp),
-                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                          text=True)
-    build_logs[name] = proc.stdout
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed to build {name!r} "
-                           f"(exit {proc.returncode}):\n{proc.stdout}")
-    os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+    procs = {}
+    for name in missing:
+        tmp = library_path(name).with_suffix(f".{os.getpid()}.tmp")
+        procs[name] = (tmp, subprocess.Popen(
+            nvcc_command(nvcc, name, tmp), stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    failed = []
+    for name, (tmp, proc) in procs.items():
+        build_logs[name] = proc.communicate()[0]
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failed.append(f"{name!r} (exit {proc.returncode}):\n"
+                          f"{build_logs[name]}")
+        else:
+            # atomic: a concurrent loader sees all or nothing
+            os.replace(tmp, library_path(name))
+    if failed:
+        raise RuntimeError("nvcc failed to build " + "\n".join(failed))
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for kernel ``name``, built first if needed."""
+    """The loaded library for kernel ``name``; the first call builds every
+    library that is not built yet."""
     lib = _libs.get(name)
     if lib is not None:
         return lib
     with _lock:
         if name not in _libs:
-            _build(name)
+            if not library_path(name).exists():
+                _build_missing()
             _libs[name] = ctypes.CDLL(str(library_path(name)))
         return _libs[name]

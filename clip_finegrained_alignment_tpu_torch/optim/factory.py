@@ -1,0 +1,102 @@
+"""Optimizer construction, the port of
+``clip_finegrained_alignment_tpu/optim/factory.py``: clip by global norm,
+then AdamW (decay masked) or AdamSPD, at a constant learning rate.
+
+* :func:`decay_mask`: decay every parameter but the biases. The reference
+  matches ``("ln", "bn", "bias")`` against HF names, where only ``bias``
+  ever matches, so LayerNorm scales are decayed; the JAX package keeps that.
+* Clipping is optax's ``clip_by_global_norm``: ``g / ‖g‖ · max_norm``
+  when ``‖g‖ ≥ max_norm``, else ``g`` (not ``clip_grad_norm_``'s
+  ``max / (‖g‖ + 1e-6)``).
+* Gradients that are None (under SPARC, ``vision_model.post_layernorm``
+  and ``logit_scale`` get none) are made zeros before the clip and the
+  step: optax decays and moves every leaf, and ``torch.optim.AdamW``
+  would skip them.
+* optax's AdamW ``p − lr·(m̂ / (√v̂ + eps) + wd·p)`` equals torch's
+  ``p·(1 − lr·wd) − lr·m̂ / (√v̂ + eps)``.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Iterable, List, Optional, Tuple
+
+import torch
+
+from ..config import TrainConfig
+from .adamspd import AdamSPD
+
+
+def decay_mask(names: Iterable[str]) -> Dict[str, bool]:
+    """True = apply weight decay: every parameter not named ``*bias``."""
+    return {n: "bias" not in n.rsplit(".", 1)[-1] for n in names}
+
+
+def make_schedule(cfg: TrainConfig) -> float:
+    """The learning rate: constant (the reference builds no scheduler)."""
+    return cfg.lr
+
+
+def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
+    """sqrt(Σ‖t‖²) in fp32 over all tensors (optax's ``global_norm``)."""
+    return torch.stack([t.float().pow(2).sum() for t in tensors]).sum().sqrt()
+
+
+class ClippedOptimizer:
+    """Clip by global norm, then step the inner optimizer (the optax
+    chain of ``make_optimizer``)."""
+
+    def __init__(self, optimizer: torch.optim.Optimizer,
+                 max_grad_norm: float):
+        self.optimizer = optimizer
+        self.max_grad_norm = max_grad_norm
+
+    @property
+    def params(self) -> List[torch.Tensor]:
+        return [p for g in self.optimizer.param_groups for p in g["params"]]
+
+    def zero_grad(self) -> None:
+        self.optimizer.zero_grad(set_to_none=True)
+
+    @torch.no_grad()
+    def step(self) -> torch.Tensor:
+        """Clip and update; returns the global norm before clipping."""
+        params = self.params
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        grads = [p.grad for p in params]
+        norm = global_norm(grads)
+        if self.max_grad_norm and self.max_grad_norm > 0:
+            keep = norm < self.max_grad_norm
+            for g in grads:
+                g.copy_(torch.where(keep, g,
+                                    g / norm.to(g.dtype) * self.max_grad_norm))
+        self.optimizer.step()
+        return norm
+
+
+def make_optimizer(cfg: TrainConfig,
+                   named_params: Iterable[Tuple[str, torch.Tensor]],
+                   anchors: Optional[Dict[str, torch.Tensor]] = None
+                   ) -> ClippedOptimizer:
+    """Clip by ``cfg.max_grad_norm`` (0 = no clip), then AdamSPD (one
+    group, anchors = ``anchors`` or the parameters now) or AdamW with
+    :func:`decay_mask`."""
+    named = [(n, p) for n, p in named_params if p.requires_grad]
+    lr = make_schedule(cfg)
+    if cfg.optimizer_type == "adamspd":
+        opt = AdamSPD([p for _, p in named], lr=lr, betas=cfg.betas,
+                      eps=cfg.eps, weight_decay=cfg.weight_decay,
+                      amsgrad=cfg.amsgrad,
+                      anchors=None if anchors is None
+                      else [anchors[n] for n, _ in named])
+    else:
+        mask = decay_mask(n for n, _ in named)
+        groups = [
+            {"params": [p for n, p in named if mask[n]],
+             "weight_decay": cfg.weight_decay},
+            {"params": [p for n, p in named if not mask[n]],
+             "weight_decay": 0.0}]
+        opt = torch.optim.AdamW([g for g in groups if g["params"]], lr=lr,
+                                betas=cfg.betas, eps=cfg.eps)
+    return ClippedOptimizer(opt, cfg.max_grad_norm)

@@ -1,7 +1,8 @@
 """Analytic FLOP counts for model-FLOP rates.
 
 The port's own copy of ``clip_finegrained_alignment_tpu/utils/flops.py``'s
-forward counts (same conventions, same numbers). Counted: every GEMM in
+forward and train-step counts (same conventions, same numbers; a train
+step counts forward + 2× backward). Counted: every GEMM in
 both towers (qkv/out/mlp projections, attention score and weighted-sum
 products, patch embedding), the projections, and with ``sparc`` the SPARC
 projection of both full hidden sequences and the SPARC loss products. Not
@@ -59,3 +60,18 @@ def clip_forward_flops(cfg: CLIPConfig, *, sparc: bool = True) -> float:
         T, P, D = t.max_position_embeddings, v.seq_len, cfg.projection_dim
         total += 2.0 * (2 * T * P * D + 2 * T * T * D)
     return total
+
+
+def sparc_train_step_flops(cfg: CLIPConfig, pairs_per_step: int) -> float:
+    """Model FLOPs for one SPARC train step over ``pairs_per_step`` pairs
+    (forward + 2× backward; recompute excluded by convention)."""
+    return 3.0 * clip_forward_flops(cfg, sparc=True) * pairs_per_step
+
+
+def count_train_step_flops(cfg: CLIPConfig, pairs_per_step: int,
+                           n_cf: int = 9) -> float:
+    """Model FLOPs for one counterfactual count-loss train step: the CLIP
+    forward plus ``n_cf`` extra text-tower passes per pair (one batched
+    [B·n_cf, T] forward), times 3."""
+    return 3.0 * (clip_forward_flops(cfg, sparc=False)
+                  + n_cf * text_forward_flops(cfg)) * pairs_per_step

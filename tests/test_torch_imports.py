@@ -62,3 +62,58 @@ def test_kernel_build_targets_hopper_and_refuses_without_nvcc(monkeypatch):
                         lambda name: _build.BUILD_DIR / "never-built.so")
     with pytest.raises(RuntimeError, match="nvcc"):
         _build.load("attention_fwd")
+
+
+@pytest.mark.parametrize("name", sorted(_build.SOURCES))
+def test_every_kernel_source_exists_with_its_c_entry(name):
+    src = _build.CSRC / _build.SOURCES[name]
+    assert src.exists()
+    assert f'extern "C" int cfa_{name}(' in src.read_text()
+    assert _build.library_path(name).name.startswith(f"lib{name}-")
+
+
+def test_first_load_starts_every_missing_build_at_once(monkeypatch, tmp_path):
+    """One nvcc per source, all started before any is waited on; a failed
+    build raises with its log after the others have ended."""
+    events = []
+
+    class FakeProc:
+        def __init__(self, cmd, **kw):
+            self.out = cmd[cmd.index("-o") + 1]
+            self.name = next(n for n in _build.SOURCES
+                             if cmd[-1].endswith(_build.SOURCES[n]))
+            events.append(("start", self.name))
+            self.returncode = 1 if self.name == "sparc_bwd" else 0
+
+        def communicate(self):
+            events.append(("wait", self.name))
+            if self.returncode == 0:
+                open(self.out, "w").close()
+            return ("ptxas info: Used 64 registers", None)
+
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "find_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(_build.subprocess, "Popen", FakeProc)
+    with pytest.raises(RuntimeError, match="sparc_bwd"):
+        _build._build_missing()
+    starts = [i for i, (kind, _) in enumerate(events) if kind == "start"]
+    waits = [i for i, (kind, _) in enumerate(events) if kind == "wait"]
+    assert len(starts) == len(_build.SOURCES) and max(starts) < min(waits)
+    built = {n for n in _build.SOURCES if _build.library_path(n).exists()}
+    assert built == set(_build.SOURCES) - {"sparc_bwd"}
+    # The next attempt builds only what is missing.
+    events.clear()
+    with pytest.raises(RuntimeError):
+        _build._build_missing()
+    assert events == [("start", "sparc_bwd"), ("wait", "sparc_bwd")]
+
+
+def test_a_header_edit_renames_the_libraries(monkeypatch, tmp_path):
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for name in ("attention_fwd.cu", "sparc_common.cuh"):
+        (csrc / name).write_text("// v1\n")
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    before = _build.library_path("attention_fwd")
+    (csrc / "sparc_common.cuh").write_text("// v2\n")
+    assert _build.library_path("attention_fwd") != before

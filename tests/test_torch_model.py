@@ -32,7 +32,7 @@ from clip_finegrained_alignment_tpu_torch.config import (
 from clip_finegrained_alignment_tpu_torch.models import clip as tm
 from clip_finegrained_alignment_tpu_torch.models.convert import (
     load_reference_checkpoint, random_params, state_dict_from_jax)
-from clip_finegrained_alignment_tpu_torch.ops import attention as ta
+from clip_finegrained_alignment_tpu_torch.ops import _build
 
 
 def _perturb(tree, rng):
@@ -140,9 +140,10 @@ def test_clip_forward_matches_jax_fp32(tiny):
     jcfg, cfg, params, sd = tiny
     pix, ids = _inputs(cfg, 3, seed=1)
     ref = _jax_out(params, pix, ids, jcfg)
-    ta.reset_launch_count()
+    _build.reset_launch_counts()
     out = _torch_out(sd, cfg, pix, ids)
-    assert ta.launch_count() == 0          # the CPU runs the plain version
+    # The CPU runs the plain version.
+    assert _build.launch_counts()["attention_fwd"] == 0
     for f in ref._fields:
         _close(getattr(ref, f), getattr(out, f), rtol=1e-4, atol=1e-5)
 

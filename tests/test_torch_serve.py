@@ -44,7 +44,7 @@ from clip_finegrained_alignment_tpu_torch.models.convert import \
     state_dict_from_jax
 from clip_finegrained_alignment_tpu_torch.models.inference import (
     CLIPInference, ZeroShotClassifier)
-from clip_finegrained_alignment_tpu_torch.ops import attention as ta
+from clip_finegrained_alignment_tpu_torch.ops import _build
 
 BF16_TOL = dict(rtol=0, atol=2e-2)
 
@@ -275,12 +275,12 @@ def test_inference_fp32_matches_jax_with_bucket_padding(served):
     ids = np.asarray(_tok(HashTokenizer, cfg)(
         [f"caption {i}" for i in range(11)],
         cfg.text.max_position_embeddings))
-    ta.reset_launch_count()
+    _build.reset_launch_counts()
     np.testing.assert_allclose(ours.embed_images(pix), ref.embed_images(pix),
                                rtol=0, atol=1e-5)
     np.testing.assert_allclose(ours.embed_texts(ids), ref.embed_texts(ids),
                                rtol=0, atol=1e-5)
-    assert ta.launch_count() == 0
+    assert _build.launch_counts()["attention_fwd"] == 0
     assert ours.logit_scale == pytest.approx(
         float(np.exp(float(np.asarray(params["logit_scale"])))), rel=1e-12)
 
