@@ -49,10 +49,12 @@ def _case(S, causal, seed, B=2, H=2, D=16):
 def _jax_grads(q, k, v, do, bias, scale, dtype):
     jq, jk, jv, jdo = (jnp.asarray(x, dtype) for x in (q, k, v, do))
     jb = None if bias is None else jnp.asarray(bias)
-    fused = _fused_backward(jq, jk, jv, jb, scale, 0, jdo, layout="bshd")
-    _, vjp = jax.vjp(lambda a, b, c: _xla_attention_bshd(a, b, c, jb, scale),
-                     jq, jk, jv)
-    return fused, vjp(jdo)
+    fused = jax.jit(lambda a, b, c, d, e: _fused_backward(
+        a, b, c, d, scale, 0, e, layout="bshd"))(jq, jk, jv, jb, jdo)
+    xla = jax.jit(lambda a, b, c, d, e: jax.vjp(
+        lambda x, y, z: _xla_attention_bshd(x, y, z, d, scale),
+        a, b, c)[1](e))(jq, jk, jv, jb, jdo)
+    return fused, xla
 
 
 def _ours(q, k, v, do, bias, scale, dtype):

@@ -103,7 +103,7 @@ def test_loss_value_and_grads_match_jax(name):
     rng = np.random.default_rng(LOSSES.index(name))
     jfn, tfn, inputs = _loss_case(name, rng)
     argnums = tuple(range(len(inputs)))
-    jval, jgrads = jax.value_and_grad(jfn, argnums=argnums)(
+    jval, jgrads = jax.jit(jax.value_and_grad(jfn, argnums=argnums))(
         *(jnp.asarray(x) for x in inputs))
     targs = [_t(x) for x in inputs]
     tval = tfn(*targs)
@@ -117,8 +117,9 @@ def test_loss_value_and_grads_match_jax(name):
 def test_sparc_loss_dict_matches_jax():
     rng = np.random.default_rng(11)
     v, l, mask = _sparc_inputs(rng)
-    want = JL.sparc_loss(jnp.asarray(v), jnp.asarray(l), jnp.asarray(mask),
-                         inverse_temperature=0.07)
+    want = jax.jit(lambda a, b, c: JL.sparc_loss(a, b, c,
+                                                 inverse_temperature=0.07))(
+        jnp.asarray(v), jnp.asarray(l), jnp.asarray(mask))
     got = TL.sparc_loss(_t(v), _t(l), torch.from_numpy(mask),
                         inverse_temperature=0.07)
     assert sorted(got) == sorted(want)
@@ -183,6 +184,11 @@ def test_optimizer_trajectory_matches_optax_chain(optimizer_type, amsgrad):
     jp = jax.tree.map(jnp.asarray, params)
     jstate = jopt.init(jp)
 
+    @jax.jit
+    def jstep(p, state, g):
+        updates, state = jopt.update(g, state, p)
+        return optax.apply_updates(p, updates), state
+
     names = _flat(params)
     tparams = {n: torch.nn.Parameter(torch.from_numpy(v.copy()))
                for n, v in names.items()}
@@ -200,9 +206,7 @@ def test_optimizer_trajectory_matches_optax_chain(optimizer_type, amsgrad):
         norm = float(optax.global_norm(grads))
         clipped += norm >= 1.0
         unclipped += norm < 1.0
-        updates, jstate = jopt.update(jax.tree.map(jnp.asarray, grads),
-                                      jstate, jp)
-        jp = optax.apply_updates(jp, updates)
+        jp, jstate = jstep(jp, jstate, jax.tree.map(jnp.asarray, grads))
 
         opt.zero_grad()
         for n, g in _flat(grads).items():

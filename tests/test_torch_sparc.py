@@ -62,8 +62,9 @@ def test_plain_forward_matches_pallas_and_chain(case, threshold):
     ours = sk.fused_sparc_pooling(*(torch.from_numpy(x) for x in (v, l, mask)),
                                   threshold).numpy()
     jv, jl, jm = (jnp.asarray(x) for x in (v, l, mask))
-    pallas = np.asarray(jax_fused_sparc_pooling(jv, jl, jm, threshold))
-    chain = np.asarray(_reference_chain(jv, jl, jm, threshold))
+    pallas, chain = (np.asarray(jax.jit(fn, static_argnums=3)(
+        jv, jl, jm, threshold))
+        for fn in (jax_fused_sparc_pooling, _reference_chain))
     assert ours.shape == l.shape and ours.dtype == np.float32
     np.testing.assert_allclose(ours, pallas, rtol=1e-5, atol=1e-6)
     np.testing.assert_allclose(ours, chain, rtol=1e-5, atol=1e-6)
@@ -81,11 +82,12 @@ def test_plain_backward_matches_pallas_and_vjp(case, threshold):
         *(torch.from_numpy(x) for x in (v, l, mask)), threshold,
         torch.from_numpy(g))
     jv, jl, jm, jg = (jnp.asarray(x) for x in (v, l, mask, g))
-    _, vjp_pallas = jax.vjp(
-        lambda a, b: jax_fused_sparc_pooling(a, b, jm, threshold), jv, jl)
-    _, vjp_chain = jax.vjp(
-        lambda a, b: _reference_chain(a, b, jm, threshold), jv, jl)
-    for want in (vjp_pallas(jg), vjp_chain(jg)):
+
+    def vjp(fn):
+        return jax.jit(lambda a, b, m, c: jax.vjp(
+            lambda x, y: fn(x, y, m, threshold), a, b)[1](c))(jv, jl, jm, jg)
+
+    for want in (vjp(jax_fused_sparc_pooling), vjp(_reference_chain)):
         np.testing.assert_allclose(dv.numpy(), np.asarray(want[0]),
                                    rtol=1e-4, atol=1e-5)
         np.testing.assert_allclose(dl.numpy(), np.asarray(want[1]),
