@@ -37,7 +37,18 @@ Phases, each of which fails the script (non-zero exit, no "ok" line):
    norm finite and the parameters moved; one microbatch of 4 pairs on the
    card in bf16 against the port in fp32 on the CPU (loss, gradient norm,
    per-tensor gradient cosine); then the step time, pairs/s, model-FLOP
-   utilization and a profile of one step.
+   utilization and a profile of one step;
+7. long-sequence attention: the three blockwise kernels (forward, dq,
+   dk/dv) against their plain versions at the flash microbenchmark's design
+   points ([B, 12, S, 64] bf16; S=1024, 2048, 4096 at B=8, 4, 1), a causal
+   shared bias (S=2048) and a ViT-L/14@336 key-padding bias [B, 1, S, S]
+   with a fully masked row (S=577, H=16, B=8, also in fp32); their times at
+   S=2048 B=4 against ``scaled_dot_product_attention``; then the ported
+   microbenchmark at the three design points, its launches counted (per
+   design point, 2 x (steps + 1) forward and steps + 1 of each backward
+   kernel on each of its two paths, and nothing else), and one counted
+   forward+backward of ``blockwise_flash_attention`` (exactly one launch of
+   each blockwise kernel and none of the others).
 
 The last lines are the kernels' JSON line, the ``nvidia-smi`` line and
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -111,6 +122,32 @@ TRAIN_MAX_LOSS_REL = 1e-5
 TRAIN_MAX_GNORM_REL = 2e-3
 TRAIN_MIN_GRAD_COSINE = 0.996
 TRAIN_MAX_ZERO_GRAD_SHARE = 1e-4
+# Blockwise kernels vs their plain versions (same inputs, the plain
+# forward's o and lse fed to both backwards), per element: BWD_TOL, for the
+# same reasons:
+#   bf16: o, dq, dk, dv are rounded to bf16 on both sides from fp32 sums
+#     taken in other orders; the forward also rounds p to bf16 against the
+#     running max, which the kernel's 64-key tiles and the plain version's
+#     256-key blocks move at different keys;
+#   fp32: other summation order.
+# lse is fp32 on both sides: |err| <= 1e-5 + 1e-6·|ref| (a sum of up to
+# 4096 terms in another order, then a log). The first readings on an H100:
+# o at most 0.71 of its limit (bf16), 0.022 (fp32); lse 9.5e-7; dq, dk, dv
+# equal to the last bit (both sides sum in the same order).
+LSE_TOL = (1e-5, 1e-6)
+LONG_D, LONG_BLOCK = 64, 256
+LONG_SHAPES = [  # (what, B, H, S, bias)
+    ("microbench S=1024", 8, 12, 1024, None),
+    ("microbench S=2048", 4, 12, 2048, None),
+    ("microbench S=4096", 1, 12, 4096, None),
+    ("causal S=2048", 1, 12, 2048, "causal"),
+    ("ViT-L/14@336 key padding", 8, 16, 577, "padding"),
+]
+LONG_TIMED = "microbench S=2048"
+# The long path: the ported flash microbenchmark at its design points
+# (S, B) and its default step count, every launch counted.
+MICROBENCH_POINTS = ((1024, 8), (2048, 4), (4096, 1))
+MICROBENCH_STEPS = 20
 
 
 class SmokeFailure(RuntimeError):
@@ -802,11 +839,13 @@ def train_main_path(results: dict) -> dict:
     _build.reset_launch_counts()
     steps.append(checked_step(1))
     launches = _build.launch_counts()
-    expected = {"attention_fwd": (cfg.vision.num_layers + cfg.text.num_layers)
-                * TRAIN_ACCUM,
-                "attention_bwd": (cfg.vision.num_layers + cfg.text.num_layers)
-                * TRAIN_ACCUM,
-                "sparc_fwd": TRAIN_ACCUM, "sparc_bwd": TRAIN_ACCUM}
+    expected = {name: 0 for name in _build.SOURCES}
+    expected.update({
+        "attention_fwd": (cfg.vision.num_layers + cfg.text.num_layers)
+        * TRAIN_ACCUM,
+        "attention_bwd": (cfg.vision.num_layers + cfg.text.num_layers)
+        * TRAIN_ACCUM,
+        "sparc_fwd": TRAIN_ACCUM, "sparc_bwd": TRAIN_ACCUM})
     log(f"train main path: launches {launches}, expected {expected}")
     check(launches == expected,
           f"train step launches {launches} != {expected}")
@@ -880,6 +919,193 @@ def train_main_path(results: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 7: long-sequence attention
+# ---------------------------------------------------------------------------
+
+def long_inputs(gen, B, H, S, dtype, bias_kind):
+    """Normal q, k, v, do ``[B, H, S, 64]`` in ``dtype`` and the bias:
+    None, a shared causal ``[1, 1, S, S]``, or a batched key-padding
+    ``[B, 1, S, S]`` (keys past a random length in [S/2, S] at −1e9) whose
+    first query row of batch 0 is masked everywhere."""
+    import torch
+    q, k, v, do = (torch.randn(B, H, S, LONG_D, device="cuda",
+                               generator=gen).to(dtype) for _ in range(4))
+    bias = None
+    if bias_kind == "causal":
+        bias = torch.full((S, S), -1e9, device="cuda").triu(1)[None, None]
+    elif bias_kind == "padding":
+        lens = torch.randint(S // 2, S + 1, (B,), device="cuda", generator=gen)
+        keys = torch.arange(S, device="cuda")
+        bias = torch.where(keys[None] >= lens[:, None], -1e9, 0.0)[
+            :, None, None].expand(B, 1, S, S).contiguous()
+        bias[0, 0, 0] = -1e9
+    return q, k, v, do, bias
+
+
+def check_long_attention(results: dict) -> tuple:
+    """The three blockwise kernels against their plain versions (7a) and
+    timed at S=2048 B=4 (7b)."""
+    import torch
+    import torch.nn.functional as F
+    from clip_finegrained_alignment_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    cases = [(shape, torch.bfloat16) for shape in LONG_SHAPES]
+    cases.append((LONG_SHAPES[-1], torch.float32))
+    scale = LONG_D ** -0.5
+    rows = {"fwd": [], "dq": [], "dkdv": []}
+    for (what, B, H, S, bias_kind), dtype in cases:
+        dname = str(dtype).split(".")[-1]
+        q, k, v, do, bias = long_inputs(gen, B, H, S, dtype, bias_kind)
+        o, lse = fa._launch_fwd(q, k, v, bias, scale, LONG_BLOCK)
+        torch.cuda.synchronize()
+        ref_o, ref_lse = fa.blockwise_attention_reference(
+            q, k, v, bias, scale, LONG_BLOCK)
+        delta = fa._delta(do, ref_o)
+        dq = fa._launch_bwd_dq(q, k, v, bias, scale, do, ref_lse, delta)
+        dk, dv = fa._launch_bwd_dkdv(q, k, v, bias, scale, do, ref_lse, delta)
+        torch.cuda.synchronize()
+        ref = fa.blockwise_attention_backward_reference(
+            q, k, v, bias, scale, ref_o, ref_lse, do)
+        got = {"o": o, "lse": lse, "dq": dq, "dk": dk, "dv": dv}
+        want = {"o": ref_o, "lse": ref_lse, "dq": ref[0], "dk": ref[1],
+                "dv": ref[2]}
+        for name, t in got.items():
+            check(bool(torch.isfinite(t).all()),
+                  f"blockwise {what} {dname} {name}: non-finite")
+        errs = {n: (got[n].float() - want[n].float()).abs().max().item()
+                for n in got}
+        top = {n: want[n].float().abs().max().item() for n in want}
+        excess = {n: bwd_excess(got[n], want[n], dname)
+                  for n in ("o", "dq", "dk", "dv")}
+        lse_lim = LSE_TOL[0] + LSE_TOL[1] * ref_lse.abs()
+        excess["lse"] = ((lse - ref_lse).abs() / lse_lim).max().item()
+        common = {"shape": what, "B": B, "H": H, "S": S, "D": LONG_D,
+                  "bias": bias_kind, "dtype": dname,
+                  "tol": "|err| <= %g·|ref| + %g·max|ref|" % BWD_TOL[dname]}
+        if bias_kind == "padding":
+            # The masked row: JAX's padded keys tie with the real ones, so
+            # it is Σv / Sk over Sk = round_up(S, block_k) keys.
+            Sk = -(-S // LONG_BLOCK) * LONG_BLOCK
+            quirk = (v[0].float().sum(1) / Sk).to(dtype)
+            common["masked_row_vs_sum_over_sk"] = bwd_excess(
+                o[0, :, 0], quirk, dname)
+            common["masked_row_vs_plain"] = bwd_excess(
+                o[0, :, 0], ref_o[0, :, 0], dname)
+            check(max(common["masked_row_vs_sum_over_sk"],
+                      common["masked_row_vs_plain"]) <= 1.0,
+                  f"blockwise {what} {dname}: the fully masked row is not "
+                  f"Σv / {Sk}: {common}")
+        fwd = dict(common, max_abs_err=errs["o"], lse_max_abs_err=errs["lse"],
+                   max_err_over_tol={"o": excess["o"], "lse": excess["lse"]},
+                   max_abs_ref=top["o"])
+        bdq = dict(common, max_abs_err=errs["dq"],
+                   max_err_over_tol=excess["dq"], max_abs_ref=top["dq"])
+        bkv = dict(common, max_abs_err=max(errs["dk"], errs["dv"]),
+                   max_abs_err_by={"dk": errs["dk"], "dv": errs["dv"]},
+                   max_err_over_tol=max(excess["dk"], excess["dv"]),
+                   max_abs_ref={"dk": top["dk"], "dv": top["dv"]})
+        check(max(excess.values()) <= 1.0,
+              f"blockwise {what} {dname}: error over its tolerance {excess}")
+        if what == LONG_TIMED and dtype == torch.bfloat16:
+            fwd["ms"] = cuda_time_ms(
+                lambda: fa._launch_fwd(q, k, v, None, scale, LONG_BLOCK))
+            bdq["ms"] = cuda_time_ms(lambda: fa._launch_bwd_dq(
+                q, k, v, None, scale, do, ref_lse, delta))
+            bkv["ms"] = cuda_time_ms(lambda: fa._launch_bwd_dkdv(
+                q, k, v, None, scale, do, ref_lse, delta))
+            fwd["plain_ms"] = cuda_time_ms(
+                lambda: fa.blockwise_attention_reference(
+                    q, k, v, None, scale, LONG_BLOCK), reps=5)
+            # One plain function gives dq, dk and dv together.
+            bdq["plain_ms"] = bkv["plain_ms"] = cuda_time_ms(
+                lambda: fa.blockwise_attention_backward_reference(
+                    q, k, v, None, scale, ref_o, ref_lse, do), reps=5)
+            fwd["library_ms"] = cuda_time_ms(
+                lambda: F.scaled_dot_product_attention(q, k, v, scale=scale))
+            # The backward alone of PyTorch's fused attention, through a
+            # retained graph, for the dq and dk/dv rows together.
+            qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+            out = F.scaled_dot_product_attention(qg, kg, vg, scale=scale)
+            bdq["library_ms"] = bkv["library_ms"] = cuda_time_ms(
+                lambda: torch.autograd.grad(out, (qg, kg, vg), do,
+                                            retain_graph=True))
+            del out, qg, kg, vg
+            fwd.update(attention_bound_ms(B, S, H, LONG_D, dname, False))
+            bdq.update(attention_bound_ms(B, S, H, LONG_D, dname, False,
+                                          tensors=5, products=3))
+            bkv.update(attention_bound_ms(B, S, H, LONG_D, dname, False,
+                                          tensors=6, products=4))
+        for kind, row in (("fwd", fwd), ("dq", bdq), ("dkdv", bkv)):
+            log(f"blockwise {kind}", json.dumps(row))
+            rows[kind].append(row)
+        del q, k, v, do, bias, o, lse, dq, dk, dv, ref_o, ref_lse, ref, got, \
+            want, delta
+        torch.cuda.empty_cache()
+    results["blockwise"] = rows
+    return tuple(next(r for r in rows[kind] if r["shape"] == LONG_TIMED
+                      and r["dtype"] == "bfloat16")
+                 for kind in ("fwd", "dq", "dkdv"))
+
+
+def long_main_path(results: dict) -> dict:
+    """The ported flash microbenchmark at its three design points, counted
+    (7c), then one counted forward+backward of
+    ``blockwise_flash_attention``."""
+    import torch
+    from clip_finegrained_alignment_tpu_torch.ops import _build
+    from clip_finegrained_alignment_tpu_torch.ops import flash_attention as fa
+    from clip_finegrained_alignment_tpu_torch.perf import flash_microbench
+
+    lines = []
+    _build.reset_launch_counts()
+    for S, B in MICROBENCH_POINTS:
+        lines += flash_microbench.main(["--seq", str(S), "--batch", str(B),
+                                        "--steps", str(MICROBENCH_STEPS)])
+    torch.cuda.synchronize()
+    launches = _build.launch_counts()
+    # Each path runs fwd and fwd+bwd at each design point: a warm-up call
+    # and MICROBENCH_STEPS timed calls each.
+    calls = len(MICROBENCH_POINTS) * (MICROBENCH_STEPS + 1)
+    expected = {name: 0 for name in _build.SOURCES}
+    expected.update({"flash_fwd": 2 * calls, "flash_bwd_dq": calls,
+                     "flash_bwd_dkdv": calls, "attention_fwd": 2 * calls,
+                     "attention_bwd": calls})
+    log(f"long main path (microbench): launches {launches}, "
+        f"expected {expected}")
+    check(launches == expected,
+          f"flash microbench launches {launches} != {expected}")
+    check(len(lines) == 4 * len(MICROBENCH_POINTS),
+          f"flash microbench printed {len(lines)} lines")
+    for line in lines:
+        ms = float(line.rsplit(": ", 1)[1].split()[0])
+        check(math.isfinite(ms) and ms > 0, f"flash microbench: {line}")
+
+    # One forward+backward launches each blockwise kernel exactly once.
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    B, S = 4, 2048
+    q, k, v = (t.requires_grad_() for t in long_inputs(
+        gen, B, 12, S, torch.bfloat16, None)[:3])
+    _build.reset_launch_counts()
+    loss = fa.blockwise_flash_attention(q, k, v, None, LONG_D ** -0.5,
+                                        LONG_BLOCK, LONG_BLOCK).float().sum()
+    grads = torch.autograd.grad(loss, (q, k, v))
+    torch.cuda.synchronize()
+    one = _build.launch_counts()
+    want = {name: 0 for name in _build.SOURCES}
+    want.update({"flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkdv": 1})
+    log(f"blockwise forward+backward: launches {one}, expected {want}")
+    check(one == want, f"blockwise forward+backward launches {one} != {want}")
+    check(math.isfinite(loss.item()), f"blockwise loss {loss.item()}")
+    for name, g in zip("qkv", grads):
+        check(bool(torch.isfinite(g).all()), f"blockwise d{name}: non-finite")
+    results["long"] = {"microbench": lines, "launches": launches,
+                       "one_step_launches": one, "loss": loss.item(),
+                       "gpu": gpu_line()}
+    return {"launches": launches}
+
+
+# ---------------------------------------------------------------------------
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -928,6 +1154,8 @@ def main(argv=None) -> int:
     sparc_fwd, sparc_bwd = check_sparc(results)
     serve = serve_main_path(results)
     train = train_main_path(results)
+    flash_fwd, flash_dq, flash_dkdv = check_long_attention(results)
+    long = long_main_path(results)
 
     csrc = "clip_finegrained_alignment_tpu_torch/csrc/"
     ref = "clip_finegrained_alignment_tpu/ops/"
@@ -947,8 +1175,21 @@ def main(argv=None) -> int:
          max(r["max_abs_err"] for r in results["sparc"]["bwd"]),
          "B=32 T=77 P=197 D=512 fp32 (ViT-B/16 SPARC, train microbatch)"),
     ]
+    long_shape = "B=4 H=12 S=2048 D=64 bf16 (flash microbenchmark design point)"
+    blockwise = results["blockwise"]
+    entries += [
+        ("flash_fwd", ref + "flash_attention.py:61", flash_fwd,
+         max(r["max_abs_err"] for r in blockwise["fwd"]
+             if r["dtype"] == "bfloat16"), long_shape),
+        ("flash_bwd_dq", ref + "flash_attention.py:101", flash_dq,
+         max(r["max_abs_err"] for r in blockwise["dq"]
+             if r["dtype"] == "bfloat16"), long_shape),
+        ("flash_bwd_dkdv", ref + "flash_attention.py:132", flash_dkdv,
+         max(r["max_abs_err"] for r in blockwise["dkdv"]
+             if r["dtype"] == "bfloat16"), long_shape),
+    ]
     by_path = {"serve": {"attention_fwd": serve["launches"]},
-               "train": train["launches"]}
+               "train": train["launches"], "long": long["launches"]}
     kernels = []
     for name, replaces, row, err, shape in entries:
         counts = {path: c.get(name, 0) for path, c in by_path.items()}

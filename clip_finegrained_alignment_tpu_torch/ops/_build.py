@@ -34,6 +34,9 @@ SOURCES = {
     "attention_bwd": "attention_bwd.cu",
     "sparc_fwd": "sparc_fwd.cu",
     "sparc_bwd": "sparc_bwd.cu",
+    "flash_fwd": "flash_fwd.cu",
+    "flash_bwd_dq": "flash_bwd_dq.cu",
+    "flash_bwd_dkdv": "flash_bwd_dkdv.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -107,12 +107,20 @@ def _check(q, k, v, bias) -> None:
     B, S, H, D = q.shape
     if min(B, S, H) < 1:
         raise ValueError(f"empty attention input {tuple(q.shape)}")
+    _check_operands(q, k, v, bias, B, S)
+
+
+def _check_operands(q, k, v, bias, B, S) -> None:
+    """The checks of q, k, v and the bias that do not depend on the layout
+    (bshd here, bhsd in ``ops/flash_attention.py``): one supported dtype
+    and head dim, a contiguous last dim, one device, and a floating bias
+    broadcastable to ``[B|1, 1, S, S]``."""
     if q.dtype not in SUPPORTED_DTYPES or k.dtype != q.dtype \
             or v.dtype != q.dtype:
         raise ValueError(f"q, k, v must share one dtype of {SUPPORTED_DTYPES}, "
                          f"got {q.dtype}, {k.dtype}, {v.dtype}")
-    if D not in SUPPORTED_HEAD_DIMS:
-        raise ValueError(f"head dim {D} not in {SUPPORTED_HEAD_DIMS}")
+    if q.shape[-1] not in SUPPORTED_HEAD_DIMS:
+        raise ValueError(f"head dim {q.shape[-1]} not in {SUPPORTED_HEAD_DIMS}")
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("the last dim of q, k, v must be contiguous")
     if k.device != q.device or v.device != q.device:
