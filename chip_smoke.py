@@ -14,11 +14,14 @@ Phases, each of which fails the script (non-zero exit, no "ok" line):
    take (its bound):
    - the attention forward at the serving shapes (B=64 and B=1, bf16 and
      fp32; q, k, v both as contiguous per-projection tensors, as the model
-     passes them, and as strided slices of one fused projection), against
+     passes them, and as strided slices of one fused projection), and at
+     S=77 H=4 with Dh=32 and Dh=16, causal and not; its output and, as the
+     train path asks for it, its log-sum-exp; against
      ``scaled_dot_product_attention``;
-   - the attention backward at the train shapes (B=32: ViT-B/16 vision and
-     the causal text tower, bf16 and fp32, both layouts), against the
-     backward alone of ``scaled_dot_product_attention``;
+   - the attention backward at the train shapes (B=32: ViT-B/16 vision,
+     the causal text tower and the Dh=32 / Dh=16 rows, bf16 and fp32, both
+     layouts), fed the forward kernel's log-sum-exp, against the backward
+     alone of ``scaled_dot_product_attention``;
    - the SPARC pooling forward and backward at the train shapes (B=32,
      T=77, P=197 and P=50, D=512, fp32) and on an edge batch (fully masked
      rows, a zero patch, duplicated patches), with no library yardstick;
@@ -64,6 +67,7 @@ import io
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -131,7 +135,8 @@ TRAIN_MAX_ZERO_GRAD_SHARE = 1e-4
 #     256-key blocks move at different keys;
 #   fp32: other summation order.
 # lse is fp32 on both sides: |err| <= 1e-5 + 1e-6·|ref| (a sum of up to
-# 4096 terms in another order, then a log). The first readings on an H100:
+# 4096 terms in another order, then a log); the fused forward's lse is held
+# to the same. The first readings on an H100:
 # o at most 0.71 of its limit (bf16), 0.022 (fp32); lse 9.5e-7; dq, dk, dv
 # equal to the last bit (both sides sum in the same order).
 LSE_TOL = (1e-5, 1e-6)
@@ -171,6 +176,45 @@ def gpu_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def kernel_name(mangled: str) -> str:
+    """``attention_fwd_mma<64>`` from the mangled name of a kernel in an
+    anonymous namespace of ``csrc/<file>.cu``."""
+    m = re.search(r"_cu_[0-9a-f]{8}(\d+)", mangled)
+    if not m:
+        return mangled
+    start = m.end()
+    name = mangled[start:start + int(m.group(1))]
+    rest = mangled[start + int(m.group(1)):]
+    args = re.match(r"I(.*?E)E", rest)
+    if args:
+        parts = [a or "float" for a in
+                 re.findall(r"Li(\d+)E|f", args.group(1))]
+        name += "<" + ", ".join(parts) + ">"
+    return name
+
+
+def ptxas_report(text: str) -> dict:
+    """Registers and spill bytes of each kernel from nvcc's ``-Xptxas -v``
+    output. (Shared memory is dynamic, set at launch, so ptxas reports
+    none.)"""
+    out, name = {}, None
+    for ln in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            name = kernel_name(m.group(1))
+            out[name] = {}
+        elif name is not None:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          ln)
+            if m:
+                out[name]["spill_stores"] = int(m.group(1))
+                out[name]["spill_loads"] = int(m.group(2))
+            m = re.search(r"Used (\d+) registers", ln)
+            if m:
+                out[name]["registers"] = int(m.group(1))
+    return out
+
+
 def cuda_time_ms(fn, reps: int = 20, warmup: int = 3,
                  windows: int = 5) -> float:
     """Median over ``windows`` of the mean time of ``reps`` back-to-back
@@ -191,15 +235,51 @@ def cuda_time_ms(fn, reps: int = 20, warmup: int = 3,
     return statistics.median(times)
 
 
+def graph_ms(fn, reps: int = 20, windows: int = 5) -> float:
+    """The card's time per call of ``fn`` without the host's launch cost:
+    ``reps`` back-to-back calls captured in one CUDA graph, the median over
+    ``windows`` replays (CUDA events) divided by ``reps``. Where the host
+    takes longer to launch a call than the card to run it,
+    :func:`cuda_time_ms` measures the host; this measures the kernels."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):       # warm-up off the default stream
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    times = []
+    for _ in range(windows):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    del graph
+    return statistics.median(times)
+
+
 # ---------------------------------------------------------------------------
 # Phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-ATTENTION_SHAPES = [  # (what, S, H, Dh, causal)
-    ("ViT-B/16 vision", 197, 12, 64, False),
-    ("text (causal)", 77, 8, 64, True),
-    ("ViT-B/32 vision", 50, 12, 64, False),
-    ("ViT-L/14 vision", 257, 16, 64, False),
+ATTENTION_SHAPES = [  # (what, S, H, Dh, causal, also in the backward check)
+    ("ViT-B/16 vision", 197, 12, 64, False, True),
+    ("text (causal)", 77, 8, 64, True, True),
+    ("ViT-B/32 vision", 50, 12, 64, False, False),
+    ("ViT-L/14 vision", 257, 16, 64, False, False),
+    # The other head dims the kernels take: their own fragment layouts.
+    ("Dh=32", 77, 4, 32, False, True),
+    ("Dh=32 causal", 77, 4, 32, True, True),
+    ("Dh=16", 77, 4, 16, False, True),
+    ("Dh=16 causal", 77, 4, 16, True, True),
 ]
 
 
@@ -225,14 +305,36 @@ def attention_bound_ms(B, S, H, D, dtype_name, causal, tensors=4,
     return bound_ms(nbytes, 2.0 * products * B * H * S * S * D, dtype_name)
 
 
+def lse_reference(q, k, bias, scale):
+    """fp32 ``[B, H, S]`` log-sum-exp of the scores the kernels form: q
+    scaled and rounded to its type, fp32 products with k, plus the bias."""
+    import torch
+    from clip_finegrained_alignment_tpu_torch.ops import attention as ta
+    logits = torch.einsum("bqhd,bkhd->bhqk", ta._scaled_q(q, scale).float(),
+                          k.float())
+    if bias is not None:
+        logits = logits + bias.float()
+    return torch.logsumexp(logits, dim=-1)
+
+
+def lse_excess(got, ref) -> float:
+    """The largest |err| / (LSE_TOL[0] + LSE_TOL[1]·|ref|); at most 1
+    passes."""
+    lim = LSE_TOL[0] + LSE_TOL[1] * ref.abs()
+    return ((got - ref).abs() / lim).max().item()
+
+
 def check_attention(results: dict) -> dict:
+    """The forward kernel at the serving shapes, both layouts; its output
+    against the plain version and, when asked for it, its log-sum-exp
+    against ``lse_reference``."""
     import torch
     import torch.nn.functional as F
     from clip_finegrained_alignment_tpu_torch.ops import attention as ta
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     rows = []
-    for what, S, H, D, causal in ATTENTION_SHAPES:
+    for what, S, H, D, causal, _ in ATTENTION_SHAPES:
         for B in (BUCKET, 1):
             for dtype in (torch.bfloat16, torch.float32):
                 dname = str(dtype).split(".")[-1]
@@ -250,9 +352,11 @@ def check_attention(results: dict) -> dict:
                     # Strided slices of one fused projection output.
                     "fused": [x[..., i * H * D:(i + 1) * H * D]
                               .view(B, S, H, D) for i in range(3)]}
-                errs = {}
+                errs, lse_over = {}, {}
                 for layout, (q, k, v) in layouts.items():
                     out = ta.flash_attention(q, k, v, bias, scale)
+                    # As the train path calls it: the same output, and lse.
+                    out2, lse = ta._launch(q, k, v, bias, scale, True)
                     torch.cuda.synchronize()
                     ref = ta.attention_reference(q.float(), k.float(),
                                                  v.float(), bias, scale)
@@ -260,20 +364,32 @@ def check_attention(results: dict) -> dict:
                     check(bool(torch.isfinite(out).all()),
                           f"attention {what} B={B} {dname} {layout}: "
                           f"non-finite output")
+                    check(torch.equal(out, out2),
+                          f"attention {what} B={B} {dname} {layout}: the "
+                          "output changes when lse is written")
+                    lse_over[layout] = lse_excess(
+                        lse, lse_reference(q, k, bias, scale))
                 err = max(errs.values())
                 row = {"shape": what, "B": B, "S": S, "H": H, "Dh": D,
                        "dtype": dname, "max_abs_err": err,
                        "max_abs_err_by_layout": errs,
-                       "tol": KERNEL_TOL[dname]}
+                       "tol": KERNEL_TOL[dname],
+                       "lse_err_over_tol": max(lse_over.values()),
+                       "lse_tol": "|err| <= %g + %g·|ref|" % LSE_TOL}
                 check(err <= KERNEL_TOL[dname],
                       f"attention {what} B={B} {dname}: max abs err {errs} "
                       f"> {KERNEL_TOL[dname]}")
+                check(row["lse_err_over_tol"] <= 1.0,
+                      f"attention {what} B={B} {dname}: lse error over its "
+                      f"tolerance {lse_over}")
                 if B == BUCKET:
                     # Timed on the main path's layout.
                     q, k, v = layouts["separate"]
                     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
                     mask = None if bias is None else bias.to(dtype)
                     row["ms"] = cuda_time_ms(
+                        lambda: ta.flash_attention(q, k, v, bias, scale))
+                    row["graph_ms"] = graph_ms(
                         lambda: ta.flash_attention(q, k, v, bias, scale))
                     row["plain_ms"] = cuda_time_ms(
                         lambda: ta.attention_reference(q, k, v, bias, scale),
@@ -307,7 +423,9 @@ def check_attention_backward(results: dict) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
     rows = []
     B = TRAIN_B
-    for what, S, H, D, causal in ATTENTION_SHAPES[:2]:
+    for what, S, H, D, causal, backward in ATTENTION_SHAPES:
+        if not backward:
+            continue
         for dtype in (torch.bfloat16, torch.float32):
             dname = str(dtype).split(".")[-1]
             x = torch.randn(B, S, 3 * H * D, device="cuda",
@@ -323,7 +441,8 @@ def check_attention_backward(results: dict) -> dict:
                           .view(B, S, H, D) for i in range(3)]}
             errs, excess = {}, {}
             for layout, (q, k, v) in layouts.items():
-                got = ta._launch_backward(q, k, v, bias, scale, do)
+                lse = ta._launch(q, k, v, bias, scale, True)[1]
+                got = ta._launch_backward(q, k, v, bias, scale, do, lse)
                 torch.cuda.synchronize()
                 ref = ta.attention_backward_reference(q, k, v, bias, scale, do)
                 for name, a, b in zip(("dq", "dk", "dv"), got, ref):
@@ -342,8 +461,11 @@ def check_attention_backward(results: dict) -> dict:
                   f"attention backward {what} {dname}: error over its "
                   f"tolerance {excess}")
             q, k, v = layouts["separate"]
+            lse = ta._launch(q, k, v, bias, scale, True)[1]
             row["ms"] = cuda_time_ms(
-                lambda: ta._launch_backward(q, k, v, bias, scale, do))
+                lambda: ta._launch_backward(q, k, v, bias, scale, do, lse))
+            row["graph_ms"] = graph_ms(
+                lambda: ta._launch_backward(q, k, v, bias, scale, do, lse))
             row["plain_ms"] = cuda_time_ms(
                 lambda: ta.attention_backward_reference(q, k, v, bias, scale,
                                                         do), reps=5)
@@ -701,10 +823,17 @@ def kernel_table(run) -> dict:
             and e.self_device_time_total > 0]
     rows.sort(reverse=True)
     total = sum(r[0] for r in rows)
+    # The port's own kernels by name, wherever they rank.
+    port = {}
+    for us, k, c in rows:
+        m = re.search(r"::((?:attention|sparc|flash)_\w+)", k)
+        if m:
+            port[m.group(1)] = port.get(m.group(1), 0.0) + us / 1e3
     return {"device_ms": total / 1e3,
             "top": [{"kernel": k[:90], "ms": us / 1e3, "calls": c,
                      "share": us / total if total else None}
-                    for us, k, c in rows[:12]]}
+                    for us, k, c in rows[:12]],
+            "port_kernels_ms": port}
 
 
 def profile_forward(inf, pix, ids) -> dict:
@@ -978,8 +1107,7 @@ def check_long_attention(results: dict) -> tuple:
         top = {n: want[n].float().abs().max().item() for n in want}
         excess = {n: bwd_excess(got[n], want[n], dname)
                   for n in ("o", "dq", "dk", "dv")}
-        lse_lim = LSE_TOL[0] + LSE_TOL[1] * ref_lse.abs()
-        excess["lse"] = ((lse - ref_lse).abs() / lse_lim).max().item()
+        excess["lse"] = lse_excess(lse, ref_lse)
         common = {"shape": what, "B": B, "H": H, "S": S, "D": LONG_D,
                   "bias": bias_kind, "dtype": dname,
                   "tol": "|err| <= %g·|ref| + %g·max|ref|" % BWD_TOL[dname]}
@@ -1144,10 +1272,10 @@ def main(argv=None) -> int:
         _build.load(name)
     results["build_s"] = time.time() - t0
     log(f"build: {results['build_s']:.1f} s")
-    for name, text in _build.build_logs.items():
-        regs = [ln.strip() for ln in text.splitlines()
-                if "registers" in ln or "spill" in ln]
-        log(f"build {name}: " + " | ".join(regs[:12]))
+    results["ptxas"] = {name: ptxas_report(text)
+                        for name, text in _build.build_logs.items()}
+    for name, report in results["ptxas"].items():
+        log(f"build {name}: {json.dumps(report)}")
 
     fwd = check_attention(results)
     bwd = check_attention_backward(results)
@@ -1199,7 +1327,8 @@ def main(argv=None) -> int:
             "launches_by_path": counts, "max_abs_err": err,
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-            "library_ms": row["library_ms"], "shape": shape})
+            "library_ms": row["library_ms"], "shape": shape,
+            **({"graph_ms": row["graph_ms"]} if "graph_ms" in row else {})})
     results["kernels"] = kernels
     results["seconds"] = time.time() - t_start
     if args.out:

@@ -13,8 +13,8 @@ Pallas TPU kernels of ``clip_finegrained_alignment_tpu/ops/attention.py``:
 both written by hand for Hopper and loaded through ``ops/_build.py``.
 
 * q, k, v are ``[B, S, H, Dh]`` (bshd) views of the projection outputs;
-  any batch / sequence / head strides, last dim contiguous; float32 or
-  bfloat16; Dh in {16, 32, 64}.
+  any batch / sequence / head strides (in bf16, multiples of 16 bytes),
+  last dim contiguous; float32 or bfloat16; Dh in {16, 32, 64}.
 * bias is None or additive fp32, broadcastable to ``[B|1, 1, S, S]``
   (head-invariant: CLIP's causal and padding masks). It gets no gradient,
   as in the JAX package (``_fa_bwd`` returns None for it).
@@ -24,18 +24,30 @@ both written by hand for Hopper and loaded through ``ops/_build.py``.
 On a CUDA tensor each direction launches its kernel or raises; on a CPU
 tensor it runs :func:`attention_reference` or
 :func:`attention_backward_reference`, the same math in plain PyTorch.
-Nothing routes a CUDA tensor to a plain version or to a library call.
+Nothing routes a CUDA tensor to a plain version or to a library call, and
+the kernel is chosen by dtype alone.
 
 Bound at B=32 on an H100 (3.35 TB/s, 989 TFLOP/s bf16): the ViT-B/16
 vision forward (S=197, H=12, Dh=64, bf16) moves ~39 MB of q/k/v/o for
 ~3.8 GFLOP (~11.5 us, bytes); its backward moves ~68 MB of q/k/v/do/dq/
-dk/dv for ~9.5 GFLOP (~20 us, bytes). The kernels' designs against those
-bounds are described in the sources.
+dk/dv for ~9.5 GFLOP (~20 us, bytes). In bf16, the type of every path on
+the card, the kernels run every product on the tensor cores
+(``mma.sync`` m16n8k16, fp32 sums) from bf16 tiles that ``cp.async``
+streams into shared memory through the tensors' strides, so each pointer
+and stride must be a multiple of 16 bytes (true of every projection view
+the model makes). When a gradient will be taken, the forward also writes
+the per-row log-sum-exp (fp32 ``[B, H, S]``), which ``FlashAttention``
+saves so that the backward reads exact probabilities instead of
+recomputing the softmax statistics; serving (no gradient) writes none.
+The float32 kernels are the first CUDA-core versions, kept for exactness
+(TF32 would not hold a 1e-4 tolerance); no path on the card runs them.
+The designs are described in the sources.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -48,6 +60,7 @@ SUPPORTED_DTYPES = (torch.float32, torch.bfloat16)
 SUPPORTED_HEAD_DIMS = (16, 32, 64)
 
 
+@functools.lru_cache(maxsize=None)
 def rounded_scale(scale: float, dtype: torch.dtype) -> float:
     """``scale`` rounded to ``dtype``: JAX multiplies a bf16 array by a
     Python float in bf16, so the TPU wrapper's ``q * scale`` uses this."""
@@ -152,54 +165,90 @@ def _kernel_bias(bias, S):
 
 
 def _strides(*ts):
-    return [s for t in ts for s in (t.stride(0), t.stride(1), t.stride(2))]
+    return [s for t in ts for s in t.stride()[:3]]
 
 
-def _launch(q, k, v, bias, scale) -> torch.Tensor:
+def _copy_aligned(t: torch.Tensor) -> bool:
+    """Whether a bf16 tensor's pointer and batch / sequence / head strides
+    (of a dim longer than 1) are multiples of 16 bytes (8 elements), as the
+    bf16 kernels' 16-byte ``cp.async`` copies need."""
+    st, n = t.stride(), t.shape
+    return not (t.data_ptr() % 16 or (st[0] % 8 and n[0] > 1)
+                or (st[1] % 8 and n[1] > 1) or (st[2] % 8 and n[2] > 1))
+
+
+def _check_copy_aligned(q, k, v) -> None:
+    if q.dtype == torch.bfloat16 and not (
+            _copy_aligned(q) and _copy_aligned(k) and _copy_aligned(v)):
+        raise ValueError("bf16 q, k, v on the card need pointers and batch / "
+                         "sequence / head strides that are multiples of 16 "
+                         "bytes")
+
+
+def _dtype_code(t: torch.Tensor) -> int:
+    return 0 if t.dtype == torch.float32 else 1
+
+
+def _launch(q, k, v, bias, scale, want_lse=False):
+    """The forward kernel: ``(o, lse)``, lse fp32 ``[B, H, S]`` if
+    ``want_lse`` else None."""
     B, S, H, D = q.shape
+    _check_copy_aligned(q, k, v)
     fn = _build.load(KERNEL).cfa_attention_fwd
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
                        + [ctypes.c_longlong] * 10
                        + [ctypes.c_float, ctypes.c_void_p])
     out = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+           if want_lse else None)
     bias_ptr, bias_sb, _ = _kernel_bias(bias, S)
     # The C entry launches on the current device: make it q's.
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_ptr,
-                 out.data_ptr(), B, S, H, D,
-                 0 if q.dtype == torch.float32 else 1,
-                 *_strides(q, k, v), bias_sb,
+                 out.data_ptr(), None if lse is None else lse.data_ptr(),
+                 B, S, H, D, _dtype_code(q), *_strides(q, k, v), bias_sb,
                  rounded_scale(scale, q.dtype),
                  torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{KERNEL} kernel launch failed: CUDA error {err}")
     _build.LAUNCHES[KERNEL].add()
-    return out
+    return out, lse
 
 
-def _launch_backward(q, k, v, bias, scale, do):
+def _launch_backward(q, k, v, bias, scale, do, lse):
+    """The backward kernels: ``(dq, dk, dv)``. The bf16 path reads the
+    forward's ``lse``; the float32 path recomputes its statistics and
+    ignores it."""
     B, S, H, D = q.shape
+    _check_copy_aligned(q, k, v)
+    bf16 = q.dtype == torch.bfloat16
+    if bf16 and (lse is None or lse.shape != (B, H, S)
+                 or lse.dtype != torch.float32 or not lse.is_contiguous()):
+        raise ValueError("the bf16 attention backward needs the forward's "
+                         "fp32 [B, H, S] log-sum-exp")
     fn = _build.load(BACKWARD_KERNEL).cfa_attention_bwd
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
+        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
                        + [ctypes.c_longlong] * 13
                        + [ctypes.c_float, ctypes.c_void_p])
-    if do.dtype != q.dtype or do.shape != q.shape or do.stride(-1) != 1:
+    if do.dtype != q.dtype or do.shape != q.shape or do.stride(-1) != 1 \
+            or (bf16 and not _copy_aligned(do)):
         do = do.to(q.dtype).contiguous()
     dq, dk, dv = (torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
                   for _ in range(3))
-    # Per-row max, sum and row term (fp32 [3, B, H, S]) from the dq pass,
-    # read by the dk/dv pass.
-    stats = torch.empty((3, B, H, S), dtype=torch.float32, device=q.device)
+    # fp32 scratch: the float32 dq pass's per-row max, sum and row term,
+    # the bf16 dq pass's row term; read by the dk/dv pass.
+    stats = torch.empty((1 if bf16 else 3, B, H, S), dtype=torch.float32,
+                        device=q.device)
     bias_ptr, bias_sb, _ = _kernel_bias(bias, S)
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_ptr,
-                 do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                 stats.data_ptr(), B, S, H, D,
-                 0 if q.dtype == torch.float32 else 1,
+                 do.data_ptr(), lse.data_ptr() if bf16 else None,
+                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                 stats.data_ptr(), B, S, H, D, _dtype_code(q),
                  *_strides(q, k, v, do), bias_sb,
                  rounded_scale(scale, q.dtype),
                  torch.cuda.current_stream(q.device).cuda_stream)
@@ -214,19 +263,21 @@ def _device_kind(t: torch.Tensor) -> str:
     return t.device.type
 
 
-def _forward(q, k, v, bias, scale):
+def _forward(q, k, v, bias, scale, want_lse):
+    """``(o, lse)``; lse (CUDA only) when ``want_lse``: the plain backward
+    recomputes what it needs."""
     kind = _device_kind(q)
     if kind == "cuda":
-        return _launch(q, k, v, bias, scale)
+        return _launch(q, k, v, bias, scale, want_lse)
     if kind == "cpu":
-        return attention_reference(q, k, v, bias, scale)
+        return attention_reference(q, k, v, bias, scale), None
     raise ValueError(f"no attention for device {q.device}")
 
 
-def _backward(q, k, v, bias, scale, do):
+def _backward(q, k, v, bias, scale, do, lse):
     kind = _device_kind(q)
     if kind == "cuda":
-        return _launch_backward(q, k, v, bias, scale, do)
+        return _launch_backward(q, k, v, bias, scale, do, lse)
     if kind == "cpu":
         return attention_backward_reference(q, k, v, bias, scale, do)
     raise ValueError(f"no attention backward for device {q.device}")
@@ -234,19 +285,22 @@ def _backward(q, k, v, bias, scale, do):
 
 class FlashAttention(torch.autograd.Function):
     """The forward kernel with the backward kernel as its gradient (the
-    port of ``_flash_attention_vjp``). Saves q, k, v and the bias; the
-    backward recomputes the probabilities."""
+    port of ``_flash_attention_vjp``). Saves q, k, v, the bias and, on the
+    card, the forward's log-sum-exp; the backward recomputes the
+    probabilities from them. :func:`flash_attention` applies it only when
+    a gradient will be taken."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias, scale):
-        ctx.save_for_backward(q, k, v, bias)
+        out, lse = _forward(q, k, v, bias, scale, want_lse=True)
+        ctx.save_for_backward(q, k, v, bias, lse)
         ctx.scale = scale
-        return _forward(q, k, v, bias, scale)
+        return out
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, bias = ctx.saved_tensors
-        dq, dk, dv = _backward(q, k, v, bias, ctx.scale, do)
+        q, k, v, bias, lse = ctx.saved_tensors
+        dq, dk, dv = _backward(q, k, v, bias, ctx.scale, do, lse)
         return dq, dk, dv, None, None
 
 
@@ -262,4 +316,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check(q, k, v, bias)
     if bias is not None:
         bias = bias.detach()
-    return FlashAttention.apply(q, k, v, bias, scale)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttention.apply(q, k, v, bias, scale)
+    # No backward will run (serving runs under inference_mode): the forward
+    # alone, without the statistics and the autograd Function's host cost.
+    return _forward(q, k, v, bias, scale, want_lse=False)[0]

@@ -55,8 +55,8 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
-from .attention import (_check_operands, _kernel_bias, _scaled_q, _strides,
-                        rounded_scale)
+from .attention import (_check_operands, _dtype_code, _kernel_bias,
+                        _scaled_q, _strides, rounded_scale)
 
 FWD_KERNEL = "flash_fwd"
 DQ_KERNEL = "flash_bwd_dq"
@@ -149,10 +149,6 @@ def _check(q, k, v, bias, block_k) -> None:
             or block_k < 1:
         raise ValueError(f"block_k must be a positive int, got {block_k!r}")
     _check_operands(q, k, v, bias, B, S)
-
-
-def _dtype_code(t: torch.Tensor) -> int:
-    return 0 if t.dtype == torch.float32 else 1
 
 
 def _stream(t: torch.Tensor) -> int:

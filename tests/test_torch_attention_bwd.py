@@ -140,17 +140,7 @@ def test_output_under_grad_has_the_functions_grad_fn(branch, monkeypatch):
     q, k, v, do, bias, scale = _case(13, True, seed=9)
     calls = []
     if branch == "cuda":
-        def fwd(q, k, v, bias, scale):
-            calls.append("fwd")
-            return ta.attention_reference(q, k, v, bias, scale).detach()
-
-        def bwd(q, k, v, bias, scale, do):
-            calls.append("bwd")
-            return ta.attention_backward_reference(q, k, v, bias, scale, do)
-
-        monkeypatch.setattr(ta, "_device_kind", lambda t: "cuda")
-        monkeypatch.setattr(ta, "_launch", fwd)
-        monkeypatch.setattr(ta, "_launch_backward", bwd)
+        _stub_launchers(monkeypatch, calls)
     tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
     out = ta.flash_attention(tq, tk, tv, torch.from_numpy(bias), scale)
     assert out.requires_grad
@@ -158,7 +148,77 @@ def test_output_under_grad_has_the_functions_grad_fn(branch, monkeypatch):
     out.backward(torch.from_numpy(do))
     assert all(t.grad is not None and t.grad.abs().sum() > 0
                for t in (tq, tk, tv))
-    assert calls == (["fwd", "bwd"] if branch == "cuda" else [])
+    assert [c[0] for c in calls] == (["fwd", "bwd"] if branch == "cuda"
+                                     else [])
+    if branch == "cuda":
+        # The backward got the statistics the forward wrote.
+        assert calls[0][1] is True and calls[1][1] is calls[0][2]
+
+
+def _stub_launchers(monkeypatch, calls):
+    """Take the CUDA branch without a card: ``_device_kind`` says "cuda"
+    and the launchers are stubs with the real ones' signatures that return
+    fresh tensors, as the real ones do. Each call is logged as ("fwd",
+    want_lse, lse) or ("bwd", lse)."""
+    def fwd(q, k, v, bias, scale, want_lse=False):
+        out = ta.attention_reference(q, k, v, bias, scale).detach()
+        lse = (torch.zeros(q.shape[0], q.shape[2], q.shape[1])
+               if want_lse else None)
+        calls.append(("fwd", want_lse, lse))
+        return out, lse
+
+    def bwd(q, k, v, bias, scale, do, lse):
+        calls.append(("bwd", lse))
+        return ta.attention_backward_reference(q, k, v, bias, scale, do)
+
+    monkeypatch.setattr(ta, "_device_kind", lambda t: "cuda")
+    monkeypatch.setattr(ta, "_launch", fwd)
+    monkeypatch.setattr(ta, "_launch_backward", bwd)
+
+
+@pytest.mark.parametrize("mode", ["grad", "no_grad", "inference_mode",
+                                  "no_requires_grad"])
+def test_forward_asks_for_statistics_only_under_grad(mode, monkeypatch):
+    """The forward kernel writes the log-sum-exp only when a backward will
+    read it: inputs that require grad under grad mode. Serving runs under
+    ``inference_mode`` and writes none, nor does ``no_grad``, where
+    ``ctx.needs_input_grad`` alone would still ask for it."""
+    q, k, v, _, _, scale = _case(13, False, seed=11)
+    calls = []
+    _stub_launchers(monkeypatch, calls)
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_(mode != "no_requires_grad")
+                  for x in (q, k, v))
+    if mode == "no_grad":
+        with torch.no_grad():
+            ta.flash_attention(tq, tk, tv, None, scale)
+    elif mode == "inference_mode":
+        with torch.inference_mode():
+            ta.flash_attention(tq, tk, tv, None, scale)
+    else:
+        ta.flash_attention(tq, tk, tv, None, scale)
+    assert len(calls) == 1 and calls[0][0] == "fwd"
+    assert calls[0][1] is (mode == "grad")
+
+
+@pytest.mark.parametrize("what", ["pointer", "stride", "lse"])
+def test_bf16_launchers_refuse_what_the_copies_cannot_take(what):
+    """The bf16 kernels copy 16 bytes at a time and the backward reads the
+    forward's statistics: anything else raises before a kernel is built or
+    launched, and nothing is rerouted."""
+    B, S, H, D = 2, 5, 2, 16
+    q = torch.zeros(B, S, H, D, dtype=torch.bfloat16)
+    if what == "pointer":       # 2 bytes past a 16-byte boundary
+        q = torch.zeros(B * S * H * D + 1, dtype=torch.bfloat16)[1:] \
+            .view(B, S, H, D)
+    elif what == "stride":      # rows 8 bytes longer than H·D
+        q = torch.zeros(B, S, H * D + 4, dtype=torch.bfloat16)[..., :H * D] \
+            .view(B, S, H, D)
+    k = v = do = torch.zeros(B, S, H, D, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        ta._launch_backward(q, k, v, None, 0.25, do, None)
+    if what != "lse":
+        with pytest.raises(ValueError):
+            ta._launch(q, k, v, None, 0.25)
 
 
 def test_no_graph_under_inference_mode():
