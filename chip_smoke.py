@@ -7,7 +7,10 @@ Phases, each of which fails the script (non-zero exit, no "ok" line):
 
 1. the card's name and power limit (``nvidia-smi``);
 2. build every CUDA kernel from ``csrc/`` (one ``nvcc`` per source, all
-   started together);
+   started together); report each kernel's registers and spills, and hold
+   the bf16 blockwise backward kernels to ``HGMMA`` (wgmma) in their
+   machine code (``cuobjdump``) and to a ``wgmma`` chain ptxas did not
+   serialize;
 3. each kernel against its plain PyTorch version on the card, with its
    time, the plain version's, the one-call PyTorch yardstick's where there
    is one (never called by the port) and the least time the card could
@@ -44,8 +47,9 @@ Phases, each of which fails the script (non-zero exit, no "ok" line):
 7. long-sequence attention: the three blockwise kernels (forward, dq,
    dk/dv) against their plain versions at the flash microbenchmark's design
    points ([B, 12, S, 64] bf16; S=1024, 2048, 4096 at B=8, 4, 1), a causal
-   shared bias (S=2048) and a ViT-L/14@336 key-padding bias [B, 1, S, S]
-   with a fully masked row (S=577, H=16, B=8, also in fp32); their times at
+   shared bias (S=2048), head dims 32 and 16 (S=1024, B=2, H=4, causal and
+   not) and a ViT-L/14@336 key-padding bias [B, 1, S, S] with a fully
+   masked row (S=577, H=16, B=8, also in fp32); their times and TFLOP/s at
    S=2048 B=4 against ``scaled_dot_product_attention``; then the ported
    microbenchmark at the three design points, its launches counted (per
    design point, 2 x (steps + 1) forward and steps + 1 of each backward
@@ -141,12 +145,17 @@ TRAIN_MAX_ZERO_GRAD_SHARE = 1e-4
 # equal to the last bit (both sides sum in the same order).
 LSE_TOL = (1e-5, 1e-6)
 LONG_D, LONG_BLOCK = 64, 256
-LONG_SHAPES = [  # (what, B, H, S, bias)
-    ("microbench S=1024", 8, 12, 1024, None),
-    ("microbench S=2048", 4, 12, 2048, None),
-    ("microbench S=4096", 1, 12, 4096, None),
-    ("causal S=2048", 1, 12, 2048, "causal"),
-    ("ViT-L/14@336 key padding", 8, 16, 577, "padding"),
+LONG_SHAPES = [  # (what, B, H, S, D, bias); the last also runs in fp32
+    ("microbench S=1024", 8, 12, 1024, LONG_D, None),
+    ("microbench S=2048", 4, 12, 2048, LONG_D, None),
+    ("microbench S=4096", 1, 12, 4096, LONG_D, None),
+    ("causal S=2048", 1, 12, 2048, LONG_D, "causal"),
+    # The other head dims the kernels take: their own tiles and swizzles.
+    ("Dh=32", 2, 4, 1024, 32, None),
+    ("Dh=32 causal", 2, 4, 1024, 32, "causal"),
+    ("Dh=16", 2, 4, 1024, 16, None),
+    ("Dh=16 causal", 2, 4, 1024, 16, "causal"),
+    ("ViT-L/14@336 key padding", 8, 16, 577, LONG_D, "padding"),
 ]
 LONG_TIMED = "microbench S=2048"
 # The long path: the ported flash microbenchmark at its design points
@@ -195,14 +204,21 @@ def kernel_name(mangled: str) -> str:
 
 def ptxas_report(text: str) -> dict:
     """Registers and spill bytes of each kernel from nvcc's ``-Xptxas -v``
-    output. (Shared memory is dynamic, set at launch, so ptxas reports
+    output, and ``wgmma_serialized`` for a kernel whose ``wgmma`` chain
+    ptxas serialized (its "wgmma.mma_async instructions are serialized"
+    warning). (Shared memory is dynamic, set at launch, so ptxas reports
     none.)"""
     out, name = {}, None
     for ln in text.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", ln)
-        if m:
+        s = re.search(r"wgmma\.mma_async instructions are serialized.*'(\S+)'",
+                      ln)
+        if s:
+            out.setdefault(kernel_name(s.group(1)), {})["wgmma_serialized"] = \
+                True
+        elif m:
             name = kernel_name(m.group(1))
-            out[name] = {}
+            out.setdefault(name, {})
         elif name is not None:
             m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                           ln)
@@ -212,6 +228,24 @@ def ptxas_report(text: str) -> dict:
             m = re.search(r"Used (\d+) registers", ln)
             if m:
                 out[name]["registers"] = int(m.group(1))
+    return out
+
+
+def sass_hgmma(lib) -> dict:
+    """The number of ``HGMMA`` (wgmma) instructions in each kernel of a
+    built library, from ``cuobjdump --dump-sass``."""
+    from clip_finegrained_alignment_tpu_torch.ops import _build
+    tool = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "--dump-sass", str(lib)], capture_output=True,
+                          text=True, timeout=120, check=True).stdout
+    out, name = {}, None
+    for ln in sass.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            name = kernel_name(m.group(1))
+            out[name] = 0
+        elif name is not None and "HGMMA" in ln:
+            out[name] += 1
     return out
 
 
@@ -1051,13 +1085,13 @@ def train_main_path(results: dict) -> dict:
 # Phase 7: long-sequence attention
 # ---------------------------------------------------------------------------
 
-def long_inputs(gen, B, H, S, dtype, bias_kind):
-    """Normal q, k, v, do ``[B, H, S, 64]`` in ``dtype`` and the bias:
+def long_inputs(gen, B, H, S, D, dtype, bias_kind):
+    """Normal q, k, v, do ``[B, H, S, D]`` in ``dtype`` and the bias:
     None, a shared causal ``[1, 1, S, S]``, or a batched key-padding
     ``[B, 1, S, S]`` (keys past a random length in [S/2, S] at −1e9) whose
     first query row of batch 0 is masked everywhere."""
     import torch
-    q, k, v, do = (torch.randn(B, H, S, LONG_D, device="cuda",
+    q, k, v, do = (torch.randn(B, H, S, D, device="cuda",
                                generator=gen).to(dtype) for _ in range(4))
     bias = None
     if bias_kind == "causal":
@@ -1081,11 +1115,11 @@ def check_long_attention(results: dict) -> tuple:
     gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
     cases = [(shape, torch.bfloat16) for shape in LONG_SHAPES]
     cases.append((LONG_SHAPES[-1], torch.float32))
-    scale = LONG_D ** -0.5
     rows = {"fwd": [], "dq": [], "dkdv": []}
-    for (what, B, H, S, bias_kind), dtype in cases:
+    for (what, B, H, S, D, bias_kind), dtype in cases:
         dname = str(dtype).split(".")[-1]
-        q, k, v, do, bias = long_inputs(gen, B, H, S, dtype, bias_kind)
+        scale = D ** -0.5
+        q, k, v, do, bias = long_inputs(gen, B, H, S, D, dtype, bias_kind)
         o, lse = fa._launch_fwd(q, k, v, bias, scale, LONG_BLOCK)
         torch.cuda.synchronize()
         ref_o, ref_lse = fa.blockwise_attention_reference(
@@ -1108,7 +1142,7 @@ def check_long_attention(results: dict) -> tuple:
         excess = {n: bwd_excess(got[n], want[n], dname)
                   for n in ("o", "dq", "dk", "dv")}
         excess["lse"] = lse_excess(lse, ref_lse)
-        common = {"shape": what, "B": B, "H": H, "S": S, "D": LONG_D,
+        common = {"shape": what, "B": B, "H": H, "S": S, "D": D,
                   "bias": bias_kind, "dtype": dname,
                   "tol": "|err| <= %g·|ref| + %g·max|ref|" % BWD_TOL[dname]}
         if bias_kind == "padding":
@@ -1159,11 +1193,14 @@ def check_long_attention(results: dict) -> tuple:
                 lambda: torch.autograd.grad(out, (qg, kg, vg), do,
                                             retain_graph=True))
             del out, qg, kg, vg
-            fwd.update(attention_bound_ms(B, S, H, LONG_D, dname, False))
-            bdq.update(attention_bound_ms(B, S, H, LONG_D, dname, False,
+            fwd.update(attention_bound_ms(B, S, H, D, dname, False))
+            bdq.update(attention_bound_ms(B, S, H, D, dname, False,
                                           tensors=5, products=3))
-            bkv.update(attention_bound_ms(B, S, H, LONG_D, dname, False,
+            bkv.update(attention_bound_ms(B, S, H, D, dname, False,
                                           tensors=6, products=4))
+            # The rate reached: the function's operations over its time.
+            for row in (fwd, bdq, bkv):
+                row["tflops"] = row["flops"] / (row["ms"] * 1e9)
         for kind, row in (("fwd", fwd), ("dq", bdq), ("dkdv", bkv)):
             log(f"blockwise {kind}", json.dumps(row))
             rows[kind].append(row)
@@ -1213,7 +1250,7 @@ def long_main_path(results: dict) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
     B, S = 4, 2048
     q, k, v = (t.requires_grad_() for t in long_inputs(
-        gen, B, 12, S, torch.bfloat16, None)[:3])
+        gen, B, 12, S, LONG_D, torch.bfloat16, None)[:3])
     _build.reset_launch_counts()
     loss = fa.blockwise_flash_attention(q, k, v, None, LONG_D ** -0.5,
                                         LONG_BLOCK, LONG_BLOCK).float().sum()
@@ -1276,6 +1313,20 @@ def main(argv=None) -> int:
                         for name, text in _build.build_logs.items()}
     for name, report in results["ptxas"].items():
         log(f"build {name}: {json.dumps(report)}")
+    # The bf16 blockwise backward kernels run their products on wgmma:
+    # HGMMA in their machine code, and a chain ptxas did not serialize.
+    results["sass_hgmma"] = {}
+    for name in ("flash_bwd_dq", "flash_bwd_dkdv"):
+        hgmma = sass_hgmma(_build.library_path(name))
+        results["sass_hgmma"][name] = hgmma
+        log(f"sass {name}: HGMMA {json.dumps(hgmma)}")
+        wgmma = [k for k in hgmma if k.startswith(name + "_wgmma<")]
+        check(len(wgmma) == 3 and all(hgmma[k] > 0 for k in wgmma),
+              f"{name}: the bf16 kernels lack HGMMA: {hgmma}")
+        serialized = [k for k, r in results["ptxas"][name].items()
+                      if r.get("wgmma_serialized")]
+        check(not serialized,
+              f"{name}: ptxas serialized the wgmma chain of {serialized}")
 
     fwd = check_attention(results)
     bwd = check_attention_backward(results)

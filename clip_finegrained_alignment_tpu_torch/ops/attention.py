@@ -177,12 +177,11 @@ def _copy_aligned(t: torch.Tensor) -> bool:
                 or (st[1] % 8 and n[1] > 1) or (st[2] % 8 and n[2] > 1))
 
 
-def _check_copy_aligned(q, k, v) -> None:
-    if q.dtype == torch.bfloat16 and not (
-            _copy_aligned(q) and _copy_aligned(k) and _copy_aligned(v)):
-        raise ValueError("bf16 q, k, v on the card need pointers and batch / "
-                         "sequence / head strides that are multiples of 16 "
-                         "bytes")
+def _check_copy_aligned(*ts) -> None:
+    if ts[0].dtype == torch.bfloat16 and not all(map(_copy_aligned, ts)):
+        raise ValueError("bf16 attention operands on the card need pointers "
+                         "and batch / sequence / head strides that are "
+                         "multiples of 16 bytes")
 
 
 def _dtype_code(t: torch.Tensor) -> int:

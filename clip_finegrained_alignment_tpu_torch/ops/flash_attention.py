@@ -43,7 +43,18 @@ call. No model path calls this module; ``perf/flash_microbench.py`` does.
 
 Bound at the microbenchmark's S=2048, B=4, H=12, D=64, bf16 on an H100
 (989 TFLOP/s bf16): forward 51.5 GFLOP (0.052 ms), dq 77.3 GFLOP
-(0.078 ms), dk/dv 103 GFLOP (0.104 ms), all bound by operations.
+(0.078 ms), dk/dv 103 GFLOP (0.104 ms), all bound by operations, against
+~31–38 MB moved. So in bf16 the two backward kernels run every product on
+the tensor cores through ``wgmma``, fed by TMA copies through a ring of
+tiles in shared memory (``csrc/attention_wgmma.cuh``): s, dp and the
+gradient sums never leave the SM, and p and ds pass from one product to
+the next in registers. They read qs = (q·scale) in bf16, made by the
+wrapper as JAX's ``_prepare`` makes it, and lse and δ padded to a multiple
+of 64 per row; bf16 q, k, v and do views whose pointers or strides are not
+multiples of 16 bytes raise ``ValueError`` on the card (the CPU takes any
+layout). The forward and the float32 backward keep the first CUDA-core
+kernels (TF32 would not hold the fp32 tolerance); the dtype alone picks
+the kernel.
 """
 
 from __future__ import annotations
@@ -55,8 +66,8 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
-from .attention import (_check_operands, _dtype_code, _kernel_bias,
-                        _scaled_q, _strides, rounded_scale)
+from .attention import (_check_copy_aligned, _check_operands, _dtype_code,
+                        _kernel_bias, _scaled_q, _strides, rounded_scale)
 
 FWD_KERNEL = "flash_fwd"
 DQ_KERNEL = "flash_bwd_dq"
@@ -180,15 +191,56 @@ def _launch_fwd(q, k, v, bias, scale, block_k):
     return o, lse
 
 
-def _bwd_operands(q, do, lse, delta):
-    """do in q's type with a contiguous last dim; lse and δ contiguous fp32."""
+def _tma_strides(t: torch.Tensor) -> list:
+    """Batch, head and sequence strides of a bhsd tensor for a tensor map:
+    a dim of extent 1 is never stepped and takes its dense stride, since
+    TMA wants every stride a multiple of 16 bytes."""
+    _, H, S, D = t.shape
+    dense = (H * S * D, S * D, D)
+    return [st if n > 1 else c
+            for st, n, c in zip(t.stride()[:3], t.shape[:3], dense)]
+
+
+def _broadcast(t: torch.Tensor) -> bool:
+    return any(st == 0 and n > 1 for st, n in zip(t.stride(), t.shape))
+
+
+def _bwd_operands(q, k, v, scale, do, lse, delta):
+    """What the backward kernels read: (q or qs, k, v, do, ls, lse, δ,
+    strides of the four bhsd operands). do comes in q's type with a
+    contiguous last dim.
+
+    float32: q itself (the kernel scales it), lse and δ contiguous fp32
+    ``[B, H, S]`` (ls = S).
+
+    bfloat16 (TMA copies): q, k, v and do views whose pointers or strides
+    are not multiples of 16 bytes raise ``ValueError``; broadcast (stride 0)
+    operands are made dense. The kernels read qs = (q·scale) rounded to
+    bf16, made here as JAX's ``_prepare`` makes it (a bf16 product with a
+    bf16-exact scalar is computed in fp32 and rounded once, as
+    ``_scaled_q``), and lse and δ zero-padded to ls = round_up(S, 64)
+    values a row, so the dk/dv pass copies them in 64-value blocks."""
     if do.dtype != q.dtype or do.stride(-1) != 1:
         do = do.to(q.dtype).contiguous()
-    return do, lse.float().contiguous(), delta.float().contiguous()
+    B, H, S, _ = q.shape
+    if q.dtype != torch.bfloat16:
+        return (q, k, v, do, S, lse.float().contiguous(),
+                delta.float().contiguous(), _strides(q, k, v, do))
+    _check_copy_aligned(q, k, v, do)
+    k, v, do = (t.contiguous() if _broadcast(t) else t for t in (k, v, do))
+    qs = q * rounded_scale(scale, q.dtype)
+    if _broadcast(qs):
+        qs = qs.contiguous()
+    ls = _round_up(S, 64)
+    stats = torch.zeros((2, B, H, ls), dtype=torch.float32, device=q.device)
+    stats[0, ..., :S] = lse
+    stats[1, ..., :S] = delta
+    return (qs, k, v, do, ls, stats[0], stats[1],
+            [s for t in (qs, k, v, do) for s in _tma_strides(t)])
 
 
 def _bwd_argtypes(n_out: int) -> list:
-    return ([ctypes.c_void_p] * (7 + n_out) + [ctypes.c_int] * 5
+    return ([ctypes.c_void_p] * (7 + n_out) + [ctypes.c_int] * 6
             + [ctypes.c_longlong] * 13 + [ctypes.c_float, ctypes.c_void_p])
 
 
@@ -196,19 +248,19 @@ def _launch_bwd_dq(q, k, v, bias, scale, do, lse, delta):
     """dq from ``csrc/flash_bwd_dq.cu``, given the forward's lse and
     δ = Σ(do∘o), both fp32 ``[B, H, S]``."""
     B, H, S, D = q.shape
+    qk, k, v, do, ls, lse, delta, strides = _bwd_operands(
+        q, k, v, scale, do, lse, delta)
     fn = _build.load(DQ_KERNEL).cfa_flash_bwd_dq
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
         fn.argtypes = _bwd_argtypes(1)
-    do, lse, delta = _bwd_operands(q, do, lse, delta)
     dq = torch.empty((B, H, S, D), dtype=q.dtype, device=q.device)
     bias_ptr, bias_sb, held = _kernel_bias(bias, S)
     with torch.cuda.device(q.device):
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_ptr,
+        err = fn(qk.data_ptr(), k.data_ptr(), v.data_ptr(), bias_ptr,
                  do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                 dq.data_ptr(), B, H, S, D, _dtype_code(q),
-                 *_strides(q, k, v, do), bias_sb,
-                 rounded_scale(scale, q.dtype), _stream(q))
+                 dq.data_ptr(), B, H, S, D, _dtype_code(q), ls, *strides,
+                 bias_sb, rounded_scale(scale, q.dtype), _stream(q))
     del held
     if err != 0:
         raise RuntimeError(f"{DQ_KERNEL} kernel launch failed: CUDA error {err}")
@@ -220,20 +272,20 @@ def _launch_bwd_dkdv(q, k, v, bias, scale, do, lse, delta):
     """(dk, dv) from ``csrc/flash_bwd_dkdv.cu``, given lse and δ as for
     :func:`_launch_bwd_dq`."""
     B, H, S, D = q.shape
+    qk, k, v, do, ls, lse, delta, strides = _bwd_operands(
+        q, k, v, scale, do, lse, delta)
     fn = _build.load(DKDV_KERNEL).cfa_flash_bwd_dkdv
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
         fn.argtypes = _bwd_argtypes(2)
-    do, lse, delta = _bwd_operands(q, do, lse, delta)
     dk, dv = (torch.empty((B, H, S, D), dtype=q.dtype, device=q.device)
               for _ in range(2))
     bias_ptr, bias_sb, held = _kernel_bias(bias, S)
     with torch.cuda.device(q.device):
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_ptr,
+        err = fn(qk.data_ptr(), k.data_ptr(), v.data_ptr(), bias_ptr,
                  do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                 dk.data_ptr(), dv.data_ptr(), B, H, S, D, _dtype_code(q),
-                 *_strides(q, k, v, do), bias_sb,
-                 rounded_scale(scale, q.dtype), _stream(q))
+                 dk.data_ptr(), dv.data_ptr(), B, H, S, D, _dtype_code(q), ls,
+                 *strides, bias_sb, rounded_scale(scale, q.dtype), _stream(q))
     del held
     if err != 0:
         raise RuntimeError(

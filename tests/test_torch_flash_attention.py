@@ -11,7 +11,9 @@ them) and the autograd Function against ``jax.vjp`` of the JAX
 ``tests/test_ops.py``'s blockwise shapes with head dim 16 (S=160 blocks 64,
 ragged; S=96 causal blocks 32; S=80 blocks 32), in fp32 and bf16. The CUDA
 kernels are held against the plain versions on the card by
-``chip_smoke.py``.
+``chip_smoke.py``; here the launchers are driven up to their C entries
+(refusals of views the bf16 kernels' copies cannot take, the dtype code
+and operands each entry gets).
 
 Tolerances (outputs and gradients of size ≤ ~2):
 
@@ -24,6 +26,7 @@ Tolerances (outputs and gradients of size ≤ ~2):
   another order lands near a rounding boundary.
 """
 
+import contextlib
 import functools
 
 import jax
@@ -36,7 +39,8 @@ from clip_finegrained_alignment_tpu.models.clip import _xla_attention
 from clip_finegrained_alignment_tpu.ops import flash_attention as jfa
 from clip_finegrained_alignment_tpu_torch.ops import _build
 from clip_finegrained_alignment_tpu_torch.ops import flash_attention as tfa
-from clip_finegrained_alignment_tpu_torch.perf import flash_microbench
+from clip_finegrained_alignment_tpu_torch.perf import (flash_microbench,
+                                                      lo_half_study)
 
 NEG = -1e9
 # (S, causal, block_q = block_k): tests/test_ops.py's blockwise cases
@@ -366,3 +370,135 @@ def test_microbench_needs_the_card_unless_told_cpu(monkeypatch):
     lines = flash_microbench.main(["--device", "cpu", "--seq", "32",
                                    "--batch", "2", "--steps", "1"])
     assert sum(line.startswith("S=32 B=2 ") for line in lines) == 4
+
+
+def _bf16_views(which, kind, B=2, H=2, S=8, D=16):
+    """bf16 q, k, v, do [B, H, S, D] with ``which`` made a view the bf16
+    kernels' 16-byte copies cannot take (``kind``), the rest contiguous."""
+    rng = np.random.default_rng(3)
+    ts = {n: torch.from_numpy(rng.standard_normal((B, H, S, D)).astype(
+        np.float32)).bfloat16() for n in ("q", "k", "v", "do")}
+    x = ts[which]
+    if kind == "pointer":          # 2 bytes past a 16-byte boundary
+        flat = torch.empty(x.numel() + 1, dtype=torch.bfloat16)
+        view = flat[1:].view(B, H, S, D)
+    elif kind == "sequence stride":    # rows 8 bytes longer than D
+        view = torch.empty(B, H, S, D + 4, dtype=torch.bfloat16)[..., :D]
+    else:                          # heads 8 bytes longer than S·D
+        view = torch.empty(B, H, S * D + 4, dtype=torch.bfloat16)[
+            ..., :S * D].view(B, H, S, D)
+    view.copy_(x)
+    ts[which] = view
+    return ts
+
+
+@pytest.mark.parametrize("kind", ["pointer", "sequence stride",
+                                  "head stride"])
+@pytest.mark.parametrize("which", ["q", "k", "v", "do"])
+def test_bf16_backward_refuses_unaligned_views(which, kind, monkeypatch):
+    """The bf16 backward kernels copy 16-byte-aligned tiles by TMA: both
+    launchers refuse such a view with ValueError before a kernel is built,
+    and nothing is rerouted. The CPU branch takes the same views."""
+    ts = _bf16_views(which, kind)
+    q, k, v, do = ts["q"], ts["k"], ts["v"], ts["do"]
+    B, H, S, _ = q.shape
+    lse = torch.zeros(B, H, S)
+
+    def no_build(name):
+        raise AssertionError(f"{name} built for a view it cannot take")
+
+    monkeypatch.setattr(_build, "load", no_build)
+    for launch in (tfa._launch_bwd_dq, tfa._launch_bwd_dkdv):
+        with pytest.raises(ValueError, match="multiples of 16 bytes"):
+            launch(q, k, v, None, 0.25, do, lse, lse)
+    monkeypatch.undo()
+    dense = {n: t.contiguous().requires_grad_(n != "do")
+             for n, t in ts.items()}
+    views = {n: t.requires_grad_(n != "do") for n, t in ts.items()}
+    grads = []
+    for run in (dense, views):
+        out = tfa.blockwise_flash_attention(run["q"], run["k"], run["v"],
+                                            None, 0.25, 32, 32)
+        grads.append(torch.autograd.grad(out, (run["q"], run["k"], run["v"]),
+                                         run["do"]))
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+class _FakeEntry:
+    """A C entry that records its arguments and reports success."""
+
+    def __init__(self):
+        self.argtypes = self.restype = None
+        self.calls = []
+
+    def __call__(self, *args):
+        self.calls.append(args)
+        return 0
+
+
+@pytest.mark.parametrize("kernel", [tfa.DQ_KERNEL, tfa.DKDV_KERNEL])
+@pytest.mark.parametrize("dname", DTYPES)
+def test_dtype_alone_selects_the_backward_entry(kernel, dname, monkeypatch):
+    """The launchers hand the C entry the dtype code that picks its kernel
+    (0: the fp32 CUDA-core kernel, 1: the bf16 wgmma kernel) and what that
+    kernel reads: fp32 q with lse and δ rows of S, or bf16 qs = (q·scale)
+    with lse and δ rows padded to 64 with zeros."""
+    B, H, S, D = 2, 3, 70, 16
+    dt = DTYPES[dname][1]
+    q, k, v, do = _torch(_case(S, False, seed=8, B=B, H=H, D=D)[:4], dt)
+    lse, delta = torch.randn(B, H, S), torch.randn(B, H, S)
+    entry = _FakeEntry()
+    lib = type("Lib", (), {f"cfa_{kernel}": entry})()
+    monkeypatch.setattr(_build, "load", lambda name: lib)
+    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(tfa, "_stream", lambda t: 0)
+    launch = (tfa._launch_bwd_dq if kernel == tfa.DQ_KERNEL
+              else tfa._launch_bwd_dkdv)
+    launch(q, k, v, None, D ** -0.5, do, lse, delta)
+    (args,) = entry.calls
+    n_out = 1 if kernel == tfa.DQ_KERNEL else 2
+    ints = args[7 + n_out:13 + n_out]
+    assert ints[:5] == (B, H, S, D, 0 if dname == "float32" else 1)
+    assert len(entry.argtypes) == len(args)
+    ls = ints[5]
+    if dname == "float32":
+        assert args[0] == q.data_ptr() and ls == S
+    else:
+        assert args[0] != q.data_ptr() and ls == 128
+
+
+@pytest.mark.parametrize("D", [16, 32, 64])
+def test_bf16_backward_operands(D):
+    """What the bf16 kernels read: qs equal to the plain version's
+    ``_scaled_q`` to the bit, lse and δ padded with zeros to a multiple of
+    64 a row, and dense strides for dims of extent 1 (TMA needs every
+    stride a multiple of 16 bytes)."""
+    B, H, S = 1, 3, 100
+    q, k, v, do = _torch(_case(S, False, seed=D, B=B, H=H, D=D)[:4],
+                         torch.bfloat16)
+    q = q * 7
+    lse, delta = torch.randn(B, H, S), torch.randn(B, H, S)
+    scale = D ** -0.5
+    qs, _, _, _, ls, l2, d2, strides = tfa._bwd_operands(
+        q, k, v, scale, do, lse, delta)
+    assert torch.equal(qs, tfa._scaled_q(q, scale))
+    assert ls == 128 and l2.shape == d2.shape == (B, H, 128)
+    assert torch.equal(l2[..., :S], lse) and torch.equal(d2[..., :S], delta)
+    assert not l2[..., S:].any() and not d2[..., S:].any()
+    assert strides[:3] == [H * S * D, S * D, D]
+    sliced = tfa._tma_strides(torch.empty(1, 1, 5, 2 * D)[..., :D])
+    assert sliced == [5 * D, 5 * D, 2 * D]
+
+
+@pytest.mark.parametrize("grad", sorted(lo_half_study.LO_PRODUCTS))
+def test_lo_half_study_takes_out_one_product(grad):
+    """The precision study's variants: each lo-half product is one line of
+    its kernel's source, and taking it out leaves the rest as it is."""
+    name, line = lo_half_study.LO_PRODUCTS[grad]
+    source = (_build.CSRC / _build.SOURCES[name]).read_text()
+    variant = lo_half_study.without_line(name, line)
+    assert line in source and line not in variant
+    assert len(source.splitlines()) - len(variant.splitlines()) == 1
+    with pytest.raises(ValueError):
+        lo_half_study.without_line(name, "no such line")
