@@ -8,9 +8,9 @@ Phases, each of which fails the script (non-zero exit, no "ok" line):
 1. the card's name and power limit (``nvidia-smi``);
 2. build every CUDA kernel from ``csrc/`` (one ``nvcc`` per source, all
    started together); report each kernel's registers and spills, and hold
-   the bf16 blockwise backward kernels to ``HGMMA`` (wgmma) in their
-   machine code (``cuobjdump``) and to a ``wgmma`` chain ptxas did not
-   serialize;
+   the bf16 blockwise kernels (forward, dq, dk/dv) to ``HGMMA`` (wgmma) in
+   their machine code (``cuobjdump``) and to a ``wgmma`` chain ptxas did
+   not serialize;
 3. each kernel against its plain PyTorch version on the card, with its
    time, the plain version's, the one-call PyTorch yardstick's where there
    is one (never called by the port) and the least time the card could
@@ -25,6 +25,10 @@ Phases, each of which fails the script (non-zero exit, no "ok" line):
      the causal text tower and the Dh=32 / Dh=16 rows, bf16 and fp32, both
      layouts), fed the forward kernel's log-sum-exp, against the backward
      alone of ``scaled_dot_product_attention``;
+   - both attention kernels on fully masked rows (B=32, S=197 and the
+     causal S=77, bf16 and fp32; sample 0 masks every key): against the
+     plain versions, and the rows against the TPU's Σv / Sp and its dv
+     Σdo / Sp over Sp = round_up(S, 8) keys;
    - the SPARC pooling forward and backward at the train shapes (B=32,
      T=77, P=197 and P=50, D=512, fp32) and on an edge batch (fully masked
      rows, a zero patch, duplicated patches), with no library yardstick;
@@ -139,8 +143,9 @@ TRAIN_MAX_ZERO_GRAD_SHARE = 1e-4
 #     256-key blocks move at different keys;
 #   fp32: other summation order.
 # lse is fp32 on both sides: |err| <= 1e-5 + 1e-6·|ref| (a sum of up to
-# 4096 terms in another order, then a log); the fused forward's lse is held
-# to the same. The first readings on an H100:
+# 4096 terms in another order, then a log); the fused forward's lse pair
+# (hi + lo) is held to the same against a float64 reference. The first
+# readings on an H100:
 # o at most 0.71 of its limit (bf16), 0.022 (fp32); lse 9.5e-7; dq, dk, dv
 # equal to the last bit (both sides sum in the same order).
 LSE_TOL = (1e-5, 1e-6)
@@ -340,15 +345,27 @@ def attention_bound_ms(B, S, H, D, dtype_name, causal, tensors=4,
 
 
 def lse_reference(q, k, bias, scale):
-    """fp32 ``[B, H, S]`` log-sum-exp of the scores the kernels form: q
-    scaled and rounded to its type, fp32 products with k, plus the bias."""
+    """float64 ``[B, H, S]`` log-sum-exp of the scores the kernels form: q
+    scaled and rounded to its type, fp32 products with k, plus the bias,
+    over the TPU wrapper's Sp = round_up(S, 8) keys (the Sp − S padded
+    ones at −1e9)."""
     import torch
+    import torch.nn.functional as F
     from clip_finegrained_alignment_tpu_torch.ops import attention as ta
     logits = torch.einsum("bqhd,bkhd->bhqk", ta._scaled_q(q, scale).float(),
                           k.float())
     if bias is not None:
         logits = logits + bias.float()
+    S = logits.shape[-1]
+    logits = F.pad(logits.double(), (0, ta._round_up(S, ta.SEQ_QUANTUM) - S),
+                   value=ta.NEG)
     return torch.logsumexp(logits, dim=-1)
+
+
+def lse_of_pair(lse):
+    """The fused forward's log-sum-exp pair ``[2, B, H, S]`` as one float64
+    value, hi + lo."""
+    return lse[0].double() + lse[1].double()
 
 
 def lse_excess(got, ref) -> float:
@@ -402,7 +419,7 @@ def check_attention(results: dict) -> dict:
                           f"attention {what} B={B} {dname} {layout}: the "
                           "output changes when lse is written")
                     lse_over[layout] = lse_excess(
-                        lse, lse_reference(q, k, bias, scale))
+                        lse_of_pair(lse), lse_reference(q, k, bias, scale))
                 err = max(errs.values())
                 row = {"shape": what, "B": B, "S": S, "H": H, "Dh": D,
                        "dtype": dname, "max_abs_err": err,
@@ -437,6 +454,84 @@ def check_attention(results: dict) -> dict:
     results["attention"] = rows
     return next(r for r in rows if r["shape"] == "ViT-B/16 vision"
                 and r["B"] == BUCKET and r["dtype"] == "bfloat16")
+
+
+MASKED_ROW_SHAPES = [  # (what, S, H, Dh, causal) at B=TRAIN_B
+    ("ViT-B/16 vision", 197, 12, 64, False),
+    ("text (causal)", 77, 8, 64, True),
+]
+
+
+def masked_sample_bias(gen, B, S, causal):
+    """fp32 ``[B, 1, S, S]``: −1e9 on masked keys (a key masked twice is
+    still −1e9). Sample 0 masks every key, so each of its rows is fully
+    masked; the others mask the keys past a random length in [S/2, S], and
+    ``causal`` also the keys after each row."""
+    import torch
+    lens = torch.randint(S // 2, S + 1, (B,), device="cuda", generator=gen)
+    lens[0] = 0
+    keys = torch.arange(S, device="cuda")
+    masked = (keys[None] >= lens[:, None])[:, None, None, :].expand(
+        B, 1, S, S)
+    if causal:
+        masked = masked | torch.ones(S, S, dtype=torch.bool,
+                                     device="cuda").triu(1)
+    return torch.where(masked, -1e9, 0.0).contiguous()
+
+
+def check_attention_masked_rows(results: dict) -> None:
+    """Both attention kernels where every key of a row is masked: the TPU
+    wrapper's padded keys tie with the real ones, so such a row is Σv / Sp
+    over Sp = round_up(S, 8) keys and each of its keys gets dv = Σdo / Sp
+    (its weight 1 / Sp in every row). Kernels against the plain versions
+    (fed the forward kernel's lse pair) and against those closed forms."""
+    import torch
+    from clip_finegrained_alignment_tpu_torch.ops import attention as ta
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    rows, B = [], TRAIN_B
+    for what, S, H, D, causal in MASKED_ROW_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            dname = str(dtype).split(".")[-1]
+            q, k, v, do = (torch.randn(B, S, H, D, device="cuda",
+                                       generator=gen).to(dtype)
+                           for _ in range(4))
+            bias = masked_sample_bias(gen, B, S, causal)
+            scale = D ** -0.5
+            Sp = ta._round_up(S, ta.SEQ_QUANTUM)
+            out, lse = ta._launch(q, k, v, bias, scale, True)
+            dq, dk, dv = ta._launch_backward(q, k, v, bias, scale, do, lse)
+            torch.cuda.synchronize()
+            ref = ta.attention_reference(q.float(), k.float(), v.float(),
+                                         bias, scale)
+            rgrad = ta.attention_backward_reference(q, k, v, bias, scale, do)
+            for name, t in (("o", out), ("dq", dq), ("dk", dk), ("dv", dv)):
+                check(bool(torch.isfinite(t).all()),
+                      f"masked rows {what} {dname} {name}: non-finite")
+            row_o = (v[0].float().sum(0) / Sp).expand(S, H, D)
+            row_dv = (do[0].float().sum(0) / Sp).expand(S, H, D)
+            row = {"shape": what, "B": B, "S": S, "Sp": Sp, "H": H, "Dh": D,
+                   "dtype": dname, "tol": KERNEL_TOL[dname],
+                   "o_max_abs_err": (out.float() - ref).abs().max().item(),
+                   "masked_o_vs_sum_v_over_sp":
+                       (out[0].float() - row_o).abs().max().item(),
+                   "lse_err_over_tol": lse_excess(
+                       lse_of_pair(lse), lse_reference(q, k, bias, scale)),
+                   "grad_err_over_tol": max(
+                       bwd_excess(a, b, dname)
+                       for a, b in zip((dq, dk, dv), rgrad)),
+                   "masked_dv_vs_sum_do_over_sp":
+                       bwd_excess(dv[0], row_dv, dname),
+                   "grad_tol": "|err| <= %g·|ref| + %g·max|ref|"
+                               % BWD_TOL[dname]}
+            log("attention masked rows", json.dumps(row))
+            check(max(row["o_max_abs_err"], row["masked_o_vs_sum_v_over_sp"])
+                  <= KERNEL_TOL[dname] and row["lse_err_over_tol"] <= 1.0
+                  and max(row["grad_err_over_tol"],
+                          row["masked_dv_vs_sum_do_over_sp"]) <= 1.0,
+                  f"attention masked rows {what} {dname}: {row}")
+            rows.append(row)
+    results["attention_masked_rows"] = rows
 
 
 def bwd_excess(got, ref, dname) -> float:
@@ -1313,10 +1408,10 @@ def main(argv=None) -> int:
                         for name, text in _build.build_logs.items()}
     for name, report in results["ptxas"].items():
         log(f"build {name}: {json.dumps(report)}")
-    # The bf16 blockwise backward kernels run their products on wgmma:
-    # HGMMA in their machine code, and a chain ptxas did not serialize.
+    # The bf16 blockwise kernels run their products on wgmma: HGMMA in
+    # their machine code, and a chain ptxas did not serialize.
     results["sass_hgmma"] = {}
-    for name in ("flash_bwd_dq", "flash_bwd_dkdv"):
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv"):
         hgmma = sass_hgmma(_build.library_path(name))
         results["sass_hgmma"][name] = hgmma
         log(f"sass {name}: HGMMA {json.dumps(hgmma)}")
@@ -1330,6 +1425,7 @@ def main(argv=None) -> int:
 
     fwd = check_attention(results)
     bwd = check_attention_backward(results)
+    check_attention_masked_rows(results)
     sparc_fwd, sparc_bwd = check_sparc(results)
     serve = serve_main_path(results)
     train = train_main_path(results)

@@ -10,7 +10,9 @@
 //
 // Each output is rounded to the input type; dq is then multiplied by the
 // scale (rounded to the input type) and rounded again, as the TPU wrapper
-// does. The bias gets no gradient.
+// does. The bias gets no gradient. p is the TPU's over Sp = round_up(S, 8)
+// keys: the wrapper's padded keys (zero k, v, score -1e9) add only to a
+// row's sum, which decides p in a fully masked row (attention_mma.cuh).
 //
 // Same function, not the same blocking. The TPU kernel holds the padded
 // S x S fp32 p, dp and ds tiles of a whole head group in VMEM (~5.8 MB at
@@ -34,16 +36,17 @@
 //
 //   dq pass, one block per (64 query rows, head, batch): each warp keeps
 //     its 16 rows of qs and do as mma operands in registers and streams
-//     64-key tiles of k and v. The forward saved the per-row log-sum-exp,
-//     so p = exp(s - lse) is exact per tile and no online softmax is
-//     needed. For each 16-key slice: s = bias + qs k^T and dp = do v^T,
+//     64-key tiles of k and v. The forward saved the per-row log-sum-exp
+//     as an fp32 pair (hi, lo) (tc::store_lse), so p = exp((s - hi) - lo)
+//     is exact per tile, in a fully masked row too, and no online softmax
+//     is needed. For each 16-key slice: s = qs k^T + bias and dp = do v^T,
 //     then p and p * dp in fp32 (summed into r unrounded), which become
 //     the A operands of A += (p * dp) k and B += p k in registers.
 //     It writes dq and r per row.
 //   dk/dv pass, one block per (64 keys, head, batch): each warp keeps its
 //     16 keys of k and v as operands and streams 64-row tiles of q (scaled
 //     in shared memory once per tile) and do. For each 16-row slice:
-//     s^T = bias + k qs^T and dp^T = v do^T, then p^T and
+//     s^T = k qs^T + bias and dp^T = v do^T, then p^T and
 //     ds^T = p^T (dp^T - r) in fp32, which become the A operands of
 //     dv += p^T do and dk += ds^T qs in registers. dk and dv are written
 //     once.
@@ -63,8 +66,9 @@
 // float32 (no path on the card runs it): the first version, kept as it was
 // (TF32 tensor cores would not hold the 1e-4 fp32 tolerance): fp32 CUDA
 // cores from fp32 copies of the tiles, a dq pass with an online softmax
-// that writes its own per-row m, l and r / l (it does not read lse), and a
-// dk/dv pass that recomputes p = exp(s - m) / l.
+// that writes its own per-row m, l (the padded keys' share added at the
+// end, m started at -1e9 when there are any) and r / l (it does not read
+// lse), and a dk/dv pass that recomputes p = exp(s - m) / l.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -204,6 +208,7 @@ __global__ void __launch_bounds__(NT, 2) attention_bwd_dq_kernel(
   const float* kb = k + b * k_sb + h * k_sh;
   const float* vb = v + b * v_sb + h * v_sh;
   const float* biasb = bias ? bias + b * bias_sb : nullptr;
+  const int npad = tc::padded_keys(S);
 
   load_tile<DH, QSTR>(q + b * q_sb + h * q_sh, q_ss, q0, S, scale, Qt, nullptr);
   load_tile<DH, QSTR>(dout + b * o_sb + h * o_sh, o_ss, q0, S, 0.f, DOt, nullptr);
@@ -211,7 +216,7 @@ __global__ void __launch_bounds__(NT, 2) attention_bwd_dq_kernel(
   float m[R4], l[R4], r[R4], A[R4][RD], Bc[R4][RD];
 #pragma unroll
   for (int i = 0; i < R4; ++i) {
-    m[i] = -INFINITY;
+    m[i] = npad ? tc::kNeg : -INFINITY;
     l[i] = 0.f;
     r[i] = 0.f;
 #pragma unroll
@@ -296,6 +301,8 @@ __global__ void __launch_bounds__(NT, 2) attention_bwd_dq_kernel(
   for (int i = 0; i < R4; ++i) {
     const int row = q0 + ty * R4 + i;
     if (row >= S) continue;
+    // The padded keys' share of the sum (zero v: none of r's, A's or B's).
+    l[i] += npad ? npad * expf(tc::kNeg - m[i]) : 0.f;
     const float inv = 1.f / l[i];
     const float rowterm = r[i] * inv;
     float* out = dq + (((int64_t)b * S + row) * H + h) * DH + tx * RD;
@@ -521,9 +528,14 @@ __global__ void __launch_bounds__(tc::kThreads, 3) attention_bwd_dq_mma(
   tc::load_tile<DH>(Vs, vb, v_ss, 0, S);
   tc::cp_async_commit();
 
-  float lb[2];                            // lse in log2 units, per row
+  // Per row the forward's lse pair: hi, and lo in log2 units.
+  const int64_t plane = (int64_t)gridDim.z * H * S;
+  float lh[2], ll[2];
 #pragma unroll
-  for (int i = 0; i < 2; ++i) lb[i] = rows[i] < S ? lse[bhs + rows[i]] * tc::kLog2e : 0.f;
+  for (int i = 0; i < 2; ++i) {
+    lh[i] = rows[i] < S ? lse[bhs + rows[i]] : 0.f;
+    ll[i] = rows[i] < S ? lse[plane + bhs + rows[i]] * tc::kLog2e : 0.f;
+  }
 
   uint32_t qf[T::kSteps][4], of[T::kSteps][4];
   float A[T::kNTiles][4], Bp[T::kNTiles][4], r[2] = {0.f, 0.f};
@@ -559,15 +571,7 @@ __global__ void __launch_bounds__(tc::kThreads, 3) attention_bwd_dq_mma(
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
       if (c * 16 >= S - k0) continue;     // a slice of keys past S
-      float s[2][4], dp[2][4] = {};
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = k0 + c * 16 + j * 8 + 2 * t + (e & 1);
-          const int row = rows[e >> 1];
-          s[j][e] = biasb && row < S && col < S ? biasb[(int64_t)row * S + col] : 0.f;
-        }
+      float s[2][4] = {}, dp[2][4] = {};
 #pragma unroll
       for (int ks = 0; ks < T::kSteps; ++ks) {
         uint32_t f[4];
@@ -578,12 +582,22 @@ __global__ void __launch_bounds__(tc::kThreads, 3) attention_bwd_dq_mma(
         tc::mma(dp[0], of[ks], f[0], f[1]);
         tc::mma(dp[1], of[ks], f[2], f[3]);
       }
+      if (biasb) {   // its loads issued together, added after the products
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = k0 + c * 16 + j * 8 + 2 * t + (e & 1), row = rows[e >> 1];
+            s[j][e] += row < S && col < S ? biasb[(int64_t)row * S + col] : 0.f;
+          }
+      }
 #pragma unroll
       for (int j = 0; j < 2; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int col = k0 + c * 16 + j * 8 + 2 * t + (e & 1);
-          const float p = col < S ? exp2f(fmaf(s[j][e], tc::kLog2e, -lb[e >> 1])) : 0.f;
+          const float p = col < S ? exp2f(fmaf(s[j][e] - lh[e >> 1], tc::kLog2e, -ll[e >> 1]))
+                                  : 0.f;
           const float pd = p * dp[j][e];
           r[e >> 1] += pd;
           s[j][e] = p;
@@ -658,6 +672,7 @@ __global__ void __launch_bounds__(tc::kThreads, 3) attention_bwd_dkdv_mma(
   const float* biasb = bias ? bias + b * bias_sb : nullptr;
   const int keys[2] = {kb0 + warp * 16 + g, kb0 + warp * 16 + g + 8};
   const int tiles = (S + tc::kRows - 1) / tc::kRows;
+  const int64_t plane = (int64_t)gridDim.z * H * S;   // lse: hi, then lo
 
   tc::load_tile<DH>(Ks, k + b * k_sb + h * k_sh, k_ss, kb0, S);
   tc::load_tile<DH>(Vs, v + b * v_sb + h * v_sh, v_ss, kb0, S);
@@ -702,18 +717,15 @@ __global__ void __launch_bounds__(tc::kThreads, 3) attention_bwd_dkdv_mma(
       if (c * 16 >= S - q0) continue;     // a slice of rows past S
       // Transposed: rows are this warp's keys, columns query rows; the
       // row statistics of columns 2t + u of n8 tile j, and the bias.
-      float s[2][4], dp[2][4] = {}, lb[2][2], rt[2][2];
+      float s[2][4] = {}, dp[2][4] = {}, lh[2][2], ll[2][2], rt[2][2];
 #pragma unroll
       for (int j = 0; j < 2; ++j)
 #pragma unroll
         for (int u = 0; u < 2; ++u) {
           const int row = q0 + c * 16 + j * 8 + 2 * t + u;
-          lb[j][u] = row < S ? lse[bhs + row] * tc::kLog2e : 0.f;
+          lh[j][u] = row < S ? lse[bhs + row] : 0.f;
+          ll[j][u] = row < S ? lse[plane + bhs + row] * tc::kLog2e : 0.f;
           rt[j][u] = row < S ? rowterm[bhs + row] : 0.f;
-#pragma unroll
-          for (int i = 0; i < 2; ++i)
-            s[j][2 * i + u] = biasb && row < S && keys[i] < S
-                                  ? biasb[(int64_t)row * S + keys[i]] : 0.f;
         }
 #pragma unroll
       for (int ks = 0; ks < T::kSteps; ++ks) {
@@ -725,6 +737,18 @@ __global__ void __launch_bounds__(tc::kThreads, 3) attention_bwd_dkdv_mma(
         tc::mma(dp[0], vf[ks], f[0], f[1]);
         tc::mma(dp[1], vf[ks], f[2], f[3]);
       }
+      if (biasb) {   // its loads issued together, added after the products
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            const int row = q0 + c * 16 + j * 8 + 2 * t + u;
+#pragma unroll
+            for (int i = 0; i < 2; ++i)
+              s[j][2 * i + u] += row < S && keys[i] < S
+                                     ? biasb[(int64_t)row * S + keys[i]] : 0.f;
+          }
+      }
 #pragma unroll
       for (int j = 0; j < 2; ++j)
 #pragma unroll
@@ -735,7 +759,7 @@ __global__ void __launch_bounds__(tc::kThreads, 3) attention_bwd_dkdv_mma(
             const int e = 2 * i + u;
             float p = 0.f, ds = 0.f;
             if (row < S && keys[i] < S) {
-              p = exp2f(fmaf(s[j][e], tc::kLog2e, -lb[j][u]));
+              p = exp2f(fmaf(s[j][e] - lh[j][u], tc::kLog2e, -ll[j][u]));
               ds = p * (dp[j][e] - rt[j][u]);
             }
             s[j][e] = p;
@@ -811,11 +835,11 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, const float*
 // dq, dk, dv are written [B, S, H, Dh] contiguous. dtype: 0 = float32,
 // 1 = bfloat16. bias is null or a contiguous fp32 [B|1, S, S] with batch
 // stride bias_sb (0 = shared). scale is already rounded to the input type.
-// lse is the forward's fp32 [B, H, S] log-sum-exp, read by the bf16 path
-// (the float32 path recomputes its statistics and takes null). stats is fp32
-// scratch: 3 * B * H * S floats in float32 (m, l, r / l), B * H * S in bf16
-// (r). Returns the cudaError_t of the launches, or -1 for an unsupported
-// dtype / Dh or a bf16 call without lse.
+// lse is the forward's fp32 [2, B, H, S] log-sum-exp pair (hi, lo), read
+// by the bf16 path (the float32 path recomputes its statistics and takes
+// null). stats is fp32 scratch: 3 * B * H * S floats in float32 (m, l,
+// r / l), B * H * S in bf16 (r). Returns the cudaError_t of the launches,
+// or -1 for an unsupported dtype / Dh or a bf16 call without lse.
 extern "C" int cfa_attention_bwd(const void* q, const void* k, const void* v,
                                  const void* bias, const void* dout, const void* lse,
                                  void* dq, void* dk, void* dv, void* stats, int B,

@@ -4,15 +4,21 @@
 // attention.py::_fwd_kernel_bshd (math in _fwd_math): for every (batch,
 // head), o = softmax(q * scale * k^T + bias) v with fp32 max, sum and
 // accumulation, and, when the caller passes a buffer, the per-row
-// log-sum-exp (fp32 [B, H, S]) that the backward reads. Same function, not
-// the same blocking: the TPU kernel holds the whole padded S x S fp32 score
-// tile of a head group in VMEM (~1.9 MB at ViT-B/16, S=197 padded to 200,
-// 12 heads), far beyond the 227 KB of shared memory a block has here. So
+// log-sum-exp (an fp32 pair [2, B, H, S], tc::store_lse) that the backward
+// reads. Same function, not the same blocking: the TPU kernel holds the
+// whole padded S x S fp32 score tile of a head group in VMEM (~1.9 MB at
+// ViT-B/16, S=197 padded to 200, 12 heads), far beyond the 227 KB of
+// shared memory a block has here. So
 // both kernels below stream 64-key tiles with an online softmax (fp32
 // running max and sum per row, one division by the sum at the end):
 //
-//   * keys >= S are excluded inside the kernel (score -inf, exp 0), which
-//     is exactly what the TPU wrapper's -1e9 padding keys give after exp;
+//   * keys >= S are excluded inside the kernel (score -inf, exp 0), and
+//     the TPU wrapper's Sp - S padded keys (Sp = round_up(S, 8), score
+//     -1e9) are added to the row's sum in closed form at the end,
+//     (Sp - S) exp(-1e9 - m), with m started at -1e9 when there are any,
+//     as the TPU kernel's max over Sp keys is: 0 in every row unless its
+//     every real key scores at or below -1e9, where the row is then
+//     sum(v) / Sp as on the TPU (attention_mma.cuh);
 //   * the optional fp32 bias [B|1, S, S] (head-invariant, as in CLIP's
 //     causal and padding masks) is added per (q, k) before the max;
 //   * q, k, v are read through their strides as bshd views of the
@@ -120,6 +126,7 @@ __global__ void __launch_bounds__(NT) attention_fwd_kernel(
   const float* kb = k + b * k_sb + h * k_sh;
   const float* vb = v + b * v_sb + h * v_sh;
   const float* biasb = bias ? bias + b * bias_sb : nullptr;
+  const int npad = tc::padded_keys(S);
 
   for (int i = tid; i < BQ * DH; i += NT) {
     const int r = i / DH, d = i % DH;
@@ -132,7 +139,7 @@ __global__ void __launch_bounds__(NT) attention_fwd_kernel(
   float m[RQ], l[RQ], acc[RQ][RD];
 #pragma unroll
   for (int i = 0; i < RQ; ++i) {
-    m[i] = -INFINITY;
+    m[i] = npad ? tc::kNeg : -INFINITY;
     l[i] = 0.f;
 #pragma unroll
     for (int j = 0; j < RD; ++j) acc[i][j] = 0.f;
@@ -232,10 +239,14 @@ __global__ void __launch_bounds__(NT) attention_fwd_kernel(
   for (int i = 0; i < RQ; ++i) {
     const int row = q0 + ty * RQ + i;
     if (row >= S) continue;
+    // m >= -1e9 when npad > 0, so the term is at most npad.
+    const float lf = l[i] + (npad ? npad * expf(tc::kNeg - m[i]) : 0.f);
     float* orow = o + (((int64_t)b * S + row) * H + h) * DH + tx * RD;
 #pragma unroll
-    for (int j = 0; j < RD; ++j) orow[j] = acc[i][j] / l[i];
-    if (lse && tx == 0) lse[((int64_t)b * H + h) * S + row] = m[i] + logf(l[i]);
+    for (int j = 0; j < RD; ++j) orow[j] = acc[i][j] / lf;
+    if (lse && tx == 0)
+      tc::store_lse(lse, (int64_t)gridDim.z * H * S, ((int64_t)b * H + h) * S + row, m[i],
+                    logf(lf));
   }
 }
 
@@ -300,6 +311,7 @@ __global__ void __launch_bounds__(kQThreads, 2) attention_fwd_mma(
   // A warp whose 16 rows all lie past S only helps load the tiles.
   const bool active = q0 + warp * 16 < S;
   const int tiles = (S + kRows - 1) / kRows;
+  const int npad = padded_keys(S);
 
   load_tile<DH, kQRows, kQThreads>(Qs, q + b * q_sb + h * q_sh, q_ss, q0, S);
   load_tile<DH, kRows, kQThreads>(Ks, kb, k_ss, 0, S);
@@ -307,7 +319,8 @@ __global__ void __launch_bounds__(kQThreads, 2) attention_fwd_mma(
   cp_async_commit();
 
   uint32_t qf[T::kSteps][4];
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  const float m0 = npad ? kNeg : -INFINITY;
+  float m[2] = {m0, m0}, l[2] = {0.f, 0.f};
   float acc[T::kNTiles][4];
 #pragma unroll
   for (int j = 0; j < T::kNTiles; ++j)
@@ -339,17 +352,9 @@ __global__ void __launch_bounds__(kQThreads, 2) attention_fwd_mma(
       const int k0 = it * kRows;
       const int valid = S - k0;             // keys of this tile below S
 
-      // Scores bias + q k^T for rows g, g + 8 of this warp, keys
+      // Scores q k^T (+ bias) for rows g, g + 8 of this warp, keys
       // k0 + 8n + 2t (+1); the 16-key slices past S are skipped.
-      float s[NK][4];
-#pragma unroll
-      for (int n = 0; n < NK; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int col = k0 + n * 8 + 2 * t + (e & 1);
-          const int row = rows[e >> 1];
-          s[n][e] = biasb && row < S && col < S ? biasb[(int64_t)row * S + col] : 0.f;
-        }
+      float s[NK][4] = {};
 #pragma unroll
       for (int n = 0; n < NK; n += 2) {
         if (n * 8 < valid) {
@@ -363,6 +368,15 @@ __global__ void __launch_bounds__(kQThreads, 2) attention_fwd_mma(
         }
       }
 
+      if (biasb) {   // its loads issued together, added after the product
+#pragma unroll
+        for (int n = 0; n < NK; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = k0 + n * 8 + 2 * t + (e & 1), row = rows[e >> 1];
+            s[n][e] += row < S && col < S ? biasb[(int64_t)row * S + col] : 0.f;
+          }
+      }
       float mx[2] = {m[0], m[1]};
 #pragma unroll
       for (int n = 0; n < NK; ++n)
@@ -378,7 +392,7 @@ __global__ void __launch_bounds__(kQThreads, 2) attention_fwd_mma(
         const float m_new = quad_max(mx[i]);
         const float alpha = exp2f((m[i] - m_new) * kLog2e);
         m[i] = m_new;
-        mb[i] = m_new * kLog2e;
+        mb[i] = __fmul_rn(m_new, kLog2e);
         l[i] *= alpha;                      // this thread's share of the sum
 #pragma unroll
         for (int j = 0; j < T::kNTiles; ++j) {
@@ -414,11 +428,17 @@ __global__ void __launch_bounds__(kQThreads, 2) attention_fwd_mma(
     __syncthreads();  // this stage is read; the next iteration refills it
   }
 
-  float inv[2];
+  // The weights are exp2(s log2e - mb), mb = m log2e rounded to fp32: each
+  // is exp(s - m) times 2^r, r = m log2e - mb, which o = acc / l cancels
+  // and the log-sum-exp takes out. The padded keys' share is taken in the
+  // same form (in a fully masked row r is ~18 at m = -1e9).
+  float inv[2], logl[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    l[i] = quad_sum(l[i]);
+    const float mb = __fmul_rn(m[i], kLog2e);
+    l[i] = quad_sum(l[i]) + (npad ? npad * exp2f(fmaf(kNeg, kLog2e, -mb)) : 0.f);
     inv[i] = 1.f / l[i];
+    logl[i] = logf(l[i]) - fmaf(m[i], kLog2e, -mb) * kLn2;
   }
 #pragma unroll
   for (int j = 0; j < T::kNTiles; ++j)
@@ -432,7 +452,9 @@ __global__ void __launch_bounds__(kQThreads, 2) attention_fwd_mma(
   if (lse && t == 0) {
 #pragma unroll
     for (int i = 0; i < 2; ++i)
-      if (rows[i] < S) lse[((int64_t)b * H + h) * S + rows[i]] = m[i] + logf(l[i]);
+      if (rows[i] < S)
+        store_lse(lse, (int64_t)gridDim.z * H * S, ((int64_t)b * H + h) * S + rows[i], m[i],
+                  logl[i]);
   }
 }
 
@@ -461,7 +483,8 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, const float*
 // of q, k, v is contiguous; in bf16 every pointer and stride is a multiple
 // of 16 bytes (the cp.async copies). dtype: 0 = float32, 1 = bfloat16. bias
 // is null or a contiguous fp32 [B|1, S, S] with batch stride bias_sb
-// (0 = shared). lse is null or fp32 [B, H, S], written m + log(l) per row.
+// (0 = shared). lse is null or fp32 [2, B, H, S], each row's log-sum-exp as
+// the pair tc::store_lse writes.
 // Returns the cudaError_t of the launch, or -1 for an unsupported dtype / Dh.
 extern "C" int cfa_attention_fwd(const void* q, const void* k, const void* v,
                                  const void* bias, void* o, void* lse, int B, int S,

@@ -12,8 +12,15 @@
 // registers. A 16 x 16 block of an fp32 accumulator (two n8 tiles), packed
 // to bf16 pairs, is exactly the A operand of the next product, so p and ds
 // go from one product to the next without touching shared memory. An
-// optional fp32 bias is loaded into the score accumulators before the
-// product (bias + q k^T), so its loads are in flight during the mma.
+// optional fp32 bias is added to the fp32 scores after the product: in a
+// row masked everywhere q k^T - 1e9 must round to -1e9 exactly, as the TPU
+// kernel's fp32 sum does, which the tensor core's own sums do not promise.
+//
+// The TPU wrapper pads S to Sp = round_up(S, 8) with keys of zero k and v
+// that score -1e9. The kernels exclude keys >= S and add what the Sp - S
+// padded keys would add to a row's sum, (Sp - S) exp(-1e9 - m), once at the
+// end. That term is 0 unless every real key of the row scores at or below
+// -1e9; in a fully masked row it makes the row sum(v) / Sp, the TPU's.
 //
 // Fragment layouts (lane = 4 g + t): an A operand (16 x 16, row-major) holds
 // rows g and g + 8, columns 2t, 2t + 1 and 8 + 2t, 9 + 2t; a B operand
@@ -37,6 +44,24 @@ constexpr int kWarps = kRows / 16;     // one warp per 16 rows
 constexpr int kThreads = 32 * kWarps;  // a block with a 64-row tile of its own
 constexpr int kStages = 2;             // ring of streamed tiles
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+constexpr float kNeg = -1e9f;          // the TPU wrapper's mask value (_NEG)
+
+// Keys the TPU wrapper adds to reach a multiple of 8 (its sublane quantum).
+__host__ __device__ constexpr int padded_keys(int S) { return (S + 7) / 8 * 8 - S; }
+
+// A row's log-sum-exp m + log l as the fp32 pair the forward saves for the
+// backward: lse[at] = hi = fp32(m + log l) and lse[plane + at] = lo, what hi
+// left out. One fp32 cannot hold it in a fully masked row: at m = -1e9 the
+// spacing of fp32 is 64, so hi alone loses log l (log Sp, ~4.4) and the
+// backward's exp(s - hi) would give each key 1 where the TPU kernel gives
+// 1 / Sp; exp((s - hi) - lo) gives 1 / Sp.
+__device__ __forceinline__ void store_lse(float* lse, int64_t plane, int64_t at, float m,
+                                          float logl) {
+  const float hi = m + logl;
+  lse[at] = hi;
+  lse[plane + at] = (m - hi) + logl;
+}
 
 template <int DH> struct Tile {
   static_assert(DH == 16 || DH == 32 || DH == 64, "head dim 16, 32 or 64");

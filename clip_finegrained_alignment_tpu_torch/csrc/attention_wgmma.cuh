@@ -1,5 +1,5 @@
 // Hopper (sm_90a) building blocks of the bf16 blockwise attention kernels
-// (flash_bwd_dq.cu, flash_bwd_dkdv.cu), bhsd layout: TMA tile loads that
+// (flash_fwd.cu, flash_bwd_dq.cu, flash_bwd_dkdv.cu), bhsd layout: TMA tile loads that
 // complete on mbarriers, warpgroup matrix products (wgmma) on tiles in
 // shared memory, and the register layouts that pass a product's fp32
 // accumulator on as the A operand of the next.
@@ -26,13 +26,10 @@
 // pairs, are exactly the A fragment of one k16 step, so p and ds go from
 // one product to the next without touching shared memory. A value that
 // must keep more than bf16's 8 bits goes in as two fragments, hi = bf16(x)
-// and lo = bf16(x - hi) (two products, ~2^-16 of x).
-//
-// What the blockwise forward (flash_fwd.cu, the next to be redesigned) can
-// take from here as it is: the tensor maps and TMA loads of q, k, v; the
-// mbarrier ring; ss products for s = qs k^T and rs products for o += p v
-// (v as the MN-major B operand, as k is in the dq pass); the accumulator to
-// A-fragment packing.
+// and lo = bf16(x - hi) (two products, ~2^-16 of x); the forward's p, which
+// the TPU kernel rounds to bf16 once, goes in as the one fragment hi. A row
+// of an accumulator lies in the 4 threads of a quad (lanes 4 g .. 4 g + 3),
+// so its max and sum are two shuffles each.
 
 #pragma once
 
@@ -256,6 +253,14 @@ __device__ __forceinline__ void split_pair(float x, float y, uint32_t& hi, uint3
   lo = pack_bf16(x - hf.x, y - hf.y);
 }
 
+// The A fragment of k16 step ks from a 64 x N accumulator (its n8 tiles
+// 2 ks and 2 ks + 1), rounded to bf16.
+template <int R>
+__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&d)[R], int ks) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) a[i] = pack_bf16(d[8 * ks + 2 * i], d[8 * ks + 2 * i + 1]);
+}
+
 // The hi and lo A fragments of k16 step ks from a 64 x N accumulator (its
 // n8 tiles 2 ks and 2 ks + 1).
 template <int R>
@@ -263,6 +268,17 @@ __device__ __forceinline__ void acc_to_a_split(uint32_t (&hi)[4], uint32_t (&lo)
                                                const float (&d)[R], int ks) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) split_pair(d[8 * ks + 2 * i], d[8 * ks + 2 * i + 1], hi[i], lo[i]);
+}
+
+// The max and the sum of a row over the 4 threads of its quad.
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
 // ---- host: tensor maps ---------------------------------------------------------

@@ -20,6 +20,13 @@ both written by hand for Hopper and loaded through ``ops/_build.py``.
   as in the JAX package (``_fa_bwd`` returns None for it).
 * The output and the gradients are ``[B, S, H, Dh]`` contiguous in the
   input type.
+* The softmax runs over the TPU wrapper's Sp = round_up(S, 8) keys: its
+  Sp − S padded keys (zero k and v, score −1e9) join a row whose every
+  real key scores at or below −1e9, so a fully masked row comes out as
+  Σv / Sp, as the Pallas kernel gives it (XLA's path, which pads nothing,
+  gives the mean over S). Every other row is the plain softmax over S. The
+  plain versions append the padded keys' scores; the kernels add their
+  share to each row's sum in closed form.
 
 On a CUDA tensor each direction launches its kernel or raises; on a CPU
 tensor it runs :func:`attention_reference` or
@@ -36,9 +43,12 @@ the card, the kernels run every product on the tensor cores
 streams into shared memory through the tensors' strides, so each pointer
 and stride must be a multiple of 16 bytes (true of every projection view
 the model makes). When a gradient will be taken, the forward also writes
-the per-row log-sum-exp (fp32 ``[B, H, S]``), which ``FlashAttention``
-saves so that the backward reads exact probabilities instead of
-recomputing the softmax statistics; serving (no gradient) writes none.
+the per-row log-sum-exp, which ``FlashAttention`` saves so that the
+backward reads exact probabilities instead of recomputing the softmax
+statistics; serving (no gradient) writes none. It is an fp32 pair
+``[2, B, H, S]``: lse[0] the log-sum-exp rounded to fp32 and lse[1] what
+that rounding left out, since at a fully masked row's −1e9 one fp32 has a
+spacing of 64 and would lose log Sp.
 The float32 kernels are the first CUDA-core versions, kept for exactness
 (TF32 would not hold a 1e-4 tolerance); no path on the card runs them.
 The designs are described in the sources.
@@ -51,6 +61,7 @@ import functools
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from . import _build
 
@@ -58,6 +69,8 @@ KERNEL = "attention_fwd"
 BACKWARD_KERNEL = "attention_bwd"
 SUPPORTED_DTYPES = (torch.float32, torch.bfloat16)
 SUPPORTED_HEAD_DIMS = (16, 32, 64)
+NEG = -1e9          # the TPU wrapper's mask value (``_NEG``)
+SEQ_QUANTUM = 8     # the TPU wrapper pads S to a multiple of this
 
 
 @functools.lru_cache(maxsize=None)
@@ -72,12 +85,22 @@ def _scaled_q(q: torch.Tensor, scale: float) -> torch.Tensor:
     return (q.float() * rounded_scale(scale, q.dtype)).to(q.dtype)
 
 
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
 def _probs(qs, k, bias) -> torch.Tensor:
-    """fp32 softmax of qs·kᵀ + bias, ``[B, H, Sq, Sk]``."""
+    """fp32 softmax of qs·kᵀ + bias, ``[B, H, S, S]``, over the TPU
+    wrapper's Sp = round_up(S, 8) keys: the Sp − S padded keys score −1e9
+    (zero k and a −1e9 bias) and are dropped after the softmax. They change
+    only a row whose every real key scores at or below −1e9, which they
+    join: a fully masked row weighs its keys 1 / Sp, not 1 / S."""
     logits = torch.einsum("bqhd,bkhd->bhqk", qs.float(), k.float())
     if bias is not None:
         logits = logits + bias.float()
-    return torch.softmax(logits, dim=-1)
+    S = logits.shape[-1]
+    logits = F.pad(logits, (0, _round_up(S, SEQ_QUANTUM) - S), value=NEG)
+    return torch.softmax(logits, dim=-1)[..., :S]
 
 
 def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -189,8 +212,8 @@ def _dtype_code(t: torch.Tensor) -> int:
 
 
 def _launch(q, k, v, bias, scale, want_lse=False):
-    """The forward kernel: ``(o, lse)``, lse fp32 ``[B, H, S]`` if
-    ``want_lse`` else None."""
+    """The forward kernel: ``(o, lse)``, lse the fp32 pair ``[2, B, H, S]``
+    (hi, lo) if ``want_lse`` else None."""
     B, S, H, D = q.shape
     _check_copy_aligned(q, k, v)
     fn = _build.load(KERNEL).cfa_attention_fwd
@@ -200,7 +223,7 @@ def _launch(q, k, v, bias, scale, want_lse=False):
                        + [ctypes.c_longlong] * 10
                        + [ctypes.c_float, ctypes.c_void_p])
     out = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
-    lse = (torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    lse = (torch.empty((2, B, H, S), dtype=torch.float32, device=q.device)
            if want_lse else None)
     bias_ptr, bias_sb, _ = _kernel_bias(bias, S)
     # The C entry launches on the current device: make it q's.
@@ -223,10 +246,10 @@ def _launch_backward(q, k, v, bias, scale, do, lse):
     B, S, H, D = q.shape
     _check_copy_aligned(q, k, v)
     bf16 = q.dtype == torch.bfloat16
-    if bf16 and (lse is None or lse.shape != (B, H, S)
+    if bf16 and (lse is None or lse.shape != (2, B, H, S)
                  or lse.dtype != torch.float32 or not lse.is_contiguous()):
         raise ValueError("the bf16 attention backward needs the forward's "
-                         "fp32 [B, H, S] log-sum-exp")
+                         "fp32 [2, B, H, S] log-sum-exp pair")
     fn = _build.load(BACKWARD_KERNEL).cfa_attention_bwd
     if fn.argtypes is None:
         fn.restype = ctypes.c_int

@@ -44,17 +44,17 @@ call. No model path calls this module; ``perf/flash_microbench.py`` does.
 Bound at the microbenchmark's S=2048, B=4, H=12, D=64, bf16 on an H100
 (989 TFLOP/s bf16): forward 51.5 GFLOP (0.052 ms), dq 77.3 GFLOP
 (0.078 ms), dk/dv 103 GFLOP (0.104 ms), all bound by operations, against
-~31–38 MB moved. So in bf16 the two backward kernels run every product on
-the tensor cores through ``wgmma``, fed by TMA copies through a ring of
-tiles in shared memory (``csrc/attention_wgmma.cuh``): s, dp and the
-gradient sums never leave the SM, and p and ds pass from one product to
-the next in registers. They read qs = (q·scale) in bf16, made by the
-wrapper as JAX's ``_prepare`` makes it, and lse and δ padded to a multiple
-of 64 per row; bf16 q, k, v and do views whose pointers or strides are not
-multiples of 16 bytes raise ``ValueError`` on the card (the CPU takes any
-layout). The forward and the float32 backward keep the first CUDA-core
-kernels (TF32 would not hold the fp32 tolerance); the dtype alone picks
-the kernel.
+~25–38 MB moved. So in bf16 all three kernels run every product on the
+tensor cores through ``wgmma``, fed by TMA copies through a ring of tiles
+in shared memory (``csrc/attention_wgmma.cuh``): s, p, dp and the sums
+never leave the SM, and p and ds pass from one product to the next in
+registers. They read qs = (q·scale) in bf16, made by the wrapper as JAX's
+``_prepare`` makes it (:func:`_tma_operands`), and the backward reads lse
+and δ padded to a multiple of 64 per row; bf16 q, k, v and do views whose
+pointers or strides are not multiples of 16 bytes raise ``ValueError`` on
+the card (the CPU takes any layout). The float32 kernels are the first
+CUDA-core versions (TF32 would not hold the fp32 tolerance); the dtype
+alone picks the kernel.
 """
 
 from __future__ import annotations
@@ -66,19 +66,15 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
-from .attention import (_check_copy_aligned, _check_operands, _dtype_code,
-                        _kernel_bias, _scaled_q, _strides, rounded_scale)
+from .attention import (NEG, _check_copy_aligned, _check_operands,
+                        _dtype_code, _kernel_bias, _round_up, _scaled_q,
+                        _strides, rounded_scale)
 
 FWD_KERNEL = "flash_fwd"
 DQ_KERNEL = "flash_bwd_dq"
 DKDV_KERNEL = "flash_bwd_dkdv"
-NEG = -1e9
 BLOCKWISE_THRESHOLD = 1024  # the JAX package's: whole-tile kernel below this
 MAX_GRID_DIM = 65535        # B and H are CUDA grid dimensions
-
-
-def _round_up(x: int, m: int) -> int:
-    return ((x + m - 1) // m) * m
 
 
 def _delta(do: torch.Tensor, o: torch.Tensor) -> torch.Tensor:
@@ -167,8 +163,13 @@ def _stream(t: torch.Tensor) -> int:
 
 
 def _launch_fwd(q, k, v, bias, scale, block_k):
-    """(o, lse) from ``csrc/flash_fwd.cu``."""
+    """(o, lse) from ``csrc/flash_fwd.cu``: float32 reads q (the kernel
+    scales it), bf16 the operands of :func:`_tma_operands`."""
     B, H, S, D = q.shape
+    if q.dtype == torch.bfloat16:
+        qk, k, v, strides = _tma_operands(q, scale, k, v)
+    else:
+        qk, strides = q, _strides(q, k, v)
     fn = _build.load(FWD_KERNEL).cfa_flash_fwd
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
@@ -180,9 +181,9 @@ def _launch_fwd(q, k, v, bias, scale, block_k):
     bias_ptr, bias_sb, held = _kernel_bias(bias, S)
     # The C entry launches on the current device: make it q's.
     with torch.cuda.device(q.device):
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_ptr,
+        err = fn(qk.data_ptr(), k.data_ptr(), v.data_ptr(), bias_ptr,
                  o.data_ptr(), lse.data_ptr(), B, H, S, D, _dtype_code(q),
-                 _round_up(S, block_k) - S, *_strides(q, k, v), bias_sb,
+                 _round_up(S, block_k) - S, *strides, bias_sb,
                  rounded_scale(scale, q.dtype), _stream(q))
     del held
     if err != 0:
@@ -205,6 +206,22 @@ def _broadcast(t: torch.Tensor) -> bool:
     return any(st == 0 and n > 1 for st, n in zip(t.stride(), t.shape))
 
 
+def _tma_operands(q, scale, *ts):
+    """What the bf16 ``wgmma`` kernels read (TMA copies): ``(qs, *ts,
+    strides)``, the tensor-map strides of qs and each of ``ts`` in turn.
+    q and ``ts`` views whose pointers or strides are not multiples of 16
+    bytes raise ``ValueError``; broadcast (stride 0) operands are made
+    dense. qs = (q·scale) rounded to bf16, made here as JAX's ``_prepare``
+    makes it (a bf16 product with a bf16-exact scalar is computed in fp32
+    and rounded once, as ``_scaled_q``)."""
+    _check_copy_aligned(q, *ts)
+    ts = [t.contiguous() if _broadcast(t) else t for t in ts]
+    qs = q * rounded_scale(scale, q.dtype)
+    if _broadcast(qs):
+        qs = qs.contiguous()
+    return (qs, *ts, [s for t in (qs, *ts) for s in _tma_strides(t)])
+
+
 def _bwd_operands(q, k, v, scale, do, lse, delta):
     """What the backward kernels read: (q or qs, k, v, do, ls, lse, δ,
     strides of the four bhsd operands). do comes in q's type with a
@@ -213,30 +230,21 @@ def _bwd_operands(q, k, v, scale, do, lse, delta):
     float32: q itself (the kernel scales it), lse and δ contiguous fp32
     ``[B, H, S]`` (ls = S).
 
-    bfloat16 (TMA copies): q, k, v and do views whose pointers or strides
-    are not multiples of 16 bytes raise ``ValueError``; broadcast (stride 0)
-    operands are made dense. The kernels read qs = (q·scale) rounded to
-    bf16, made here as JAX's ``_prepare`` makes it (a bf16 product with a
-    bf16-exact scalar is computed in fp32 and rounded once, as
-    ``_scaled_q``), and lse and δ zero-padded to ls = round_up(S, 64)
-    values a row, so the dk/dv pass copies them in 64-value blocks."""
+    bfloat16: the operands of :func:`_tma_operands`, and lse and δ
+    zero-padded to ls = round_up(S, 64) values a row, so the dk/dv pass
+    copies them in 64-value blocks."""
     if do.dtype != q.dtype or do.stride(-1) != 1:
         do = do.to(q.dtype).contiguous()
     B, H, S, _ = q.shape
     if q.dtype != torch.bfloat16:
         return (q, k, v, do, S, lse.float().contiguous(),
                 delta.float().contiguous(), _strides(q, k, v, do))
-    _check_copy_aligned(q, k, v, do)
-    k, v, do = (t.contiguous() if _broadcast(t) else t for t in (k, v, do))
-    qs = q * rounded_scale(scale, q.dtype)
-    if _broadcast(qs):
-        qs = qs.contiguous()
+    qs, k, v, do, strides = _tma_operands(q, scale, k, v, do)
     ls = _round_up(S, 64)
     stats = torch.zeros((2, B, H, ls), dtype=torch.float32, device=q.device)
     stats[0, ..., :S] = lse
     stats[1, ..., :S] = delta
-    return (qs, k, v, do, ls, stats[0], stats[1],
-            [s for t in (qs, k, v, do) for s in _tma_strides(t)])
+    return qs, k, v, do, ls, stats[0], stats[1], strides
 
 
 def _bwd_argtypes(n_out: int) -> list:

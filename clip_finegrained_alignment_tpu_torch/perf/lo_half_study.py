@@ -51,13 +51,16 @@ def without_line(name: str, line: str) -> str:
 
 def build(name: str, source: str, where: Path) -> ctypes.CDLL:
     """``source`` in place of kernel ``name``'s, beside a copy of the
-    shared headers, built as ``_build`` builds it."""
+    shared headers, built as ``_build`` builds it; nvcc's output goes to
+    ``_build.build_logs`` under the library's path."""
     shutil.copytree(_build.CSRC, where)
     path = where / _build.SOURCES[name]
     path.write_text(source)
     out = where / "variant.so"
-    subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-o", str(out),
-                    str(path)], check=True, capture_output=True)
+    done = subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-o",
+                           str(out), str(path)], check=True,
+                          capture_output=True, text=True)
+    _build.build_logs[str(out)] = done.stdout + done.stderr
     return ctypes.CDLL(str(out))
 
 

@@ -101,6 +101,40 @@ def test_plain_attention_matches_pallas_bf16(kind):
                                rtol=0, atol=1e-2)
 
 
+def masked_sample_bias(B, S, causal):
+    """fp32 ``[B, 1, S, S]``: −1e9 on masked keys (not summed: a key masked
+    twice still scores −1e9). Sample 0 masks every key, so each of its query
+    rows is fully masked; sample 1 pads its last 5 keys; ``causal`` also
+    masks the keys after each row."""
+    masked = np.zeros((B, 1, S, S), bool)
+    masked[0] = True
+    masked[1:, ..., S - 5:] = True
+    if causal:
+        masked |= np.triu(np.ones((S, S), bool), k=1)
+    return np.where(masked, NEG, 0.0).astype(np.float32)
+
+
+@pytest.mark.parametrize("S,causal", [(77, True), (197, False)])
+def test_fully_masked_row_matches_pallas_fp32(S, causal):
+    """A row whose every key is at −1e9: the TPU wrapper's Sp − S padded
+    keys (Sp = round_up(S, 8)) tie with the real ones, so the Pallas kernel
+    gives Σv / Sp (the XLA path, which pads nothing, gives the mean over S).
+    The plain version, and so the kernels held to it, give the Pallas row."""
+    B, H, D = 2, 2, 16
+    q, k, v, _ = _inputs(B, S, H, D, seed=S)
+    bias = masked_sample_bias(B, S, causal)
+    scale = D ** -0.5
+    ours = ta.flash_attention(*(torch.from_numpy(x) for x in (q, k, v, bias)),
+                              scale).numpy()
+    pallas = np.asarray(jax_flash_attention(
+        *(jnp.asarray(x) for x in (q, k, v, bias)), scale, layout="bshd"))
+    np.testing.assert_allclose(ours, pallas, rtol=0, atol=1e-5)
+    Sp = -(-S // 8) * 8
+    row = np.broadcast_to(v[0].sum(0) / Sp, (S, H, D))
+    np.testing.assert_allclose(ours[0], row, rtol=0, atol=1e-5)
+    assert np.abs(row - v[0].mean(0)).max() > 1e-3  # not the mean over S
+
+
 def test_plain_attention_reads_strided_views():
     """q, k, v as bshd views of one fused projection output (batch and
     sequence strides ≠ contiguous) give the contiguous result."""

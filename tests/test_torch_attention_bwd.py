@@ -33,6 +33,7 @@ from clip_finegrained_alignment_tpu.models.clip import _xla_attention_bshd
 from clip_finegrained_alignment_tpu.ops.attention import _fused_backward
 from clip_finegrained_alignment_tpu_torch.ops import _build
 from clip_finegrained_alignment_tpu_torch.ops import attention as ta
+from test_torch_attention import masked_sample_bias
 
 NEG = -1e9
 
@@ -95,6 +96,27 @@ def test_plain_backward_matches_pallas_and_vjp_bf16(S, causal, monkeypatch):
             f"d{name} vs Pallas: max err {np.abs(got - a).max()}"
         np.testing.assert_allclose(got, b, rtol=0, atol=5e-2 * top,
                                    err_msg=f"d{name} vs vjp")
+
+
+@pytest.mark.parametrize("S,causal", [(77, True), (197, False)])
+def test_plain_backward_of_fully_masked_rows_matches_pallas_fp32(S, causal):
+    """Sample 0 masks every key: the Pallas backward weighs each key of its
+    rows 1 / Sp (Sp = round_up(S, 8), its padded keys tie), so dv of sample
+    0 is Σ_rows do / Sp; the plain backward gives the same."""
+    B, H, D = 2, 2, 16
+    q, k, v, do, _, scale = _case(S, False, seed=S + 1, B=B, H=H, D=D)
+    bias = masked_sample_bias(B, S, causal)
+    ours = _ours(q, k, v, do, bias, scale, torch.float32)
+    fused = jax.jit(lambda a, b, c, d, e: _fused_backward(
+        a, b, c, d, scale, 0, e, layout="bshd"))(
+            *(jnp.asarray(x) for x in (q, k, v, bias, do)))
+    for name, got, want in zip("qkv", ours, fused):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                                   atol=2e-5, err_msg=f"d{name} vs Pallas")
+    Sp = -(-S // 8) * 8
+    np.testing.assert_allclose(
+        ours[2][0].numpy(), np.broadcast_to(do[0].sum(0) / Sp, (S, H, D)),
+        rtol=0, atol=2e-5)
 
 
 @pytest.mark.parametrize("causal", [False, True])
@@ -162,7 +184,7 @@ def _stub_launchers(monkeypatch, calls):
     want_lse, lse) or ("bwd", lse)."""
     def fwd(q, k, v, bias, scale, want_lse=False):
         out = ta.attention_reference(q, k, v, bias, scale).detach()
-        lse = (torch.zeros(q.shape[0], q.shape[2], q.shape[1])
+        lse = (torch.zeros(2, q.shape[0], q.shape[2], q.shape[1])
                if want_lse else None)
         calls.append(("fwd", want_lse, lse))
         return out, lse
@@ -200,11 +222,12 @@ def test_forward_asks_for_statistics_only_under_grad(mode, monkeypatch):
     assert calls[0][1] is (mode == "grad")
 
 
-@pytest.mark.parametrize("what", ["pointer", "stride", "lse"])
+@pytest.mark.parametrize("what", ["pointer", "stride", "lse", "lse_single"])
 def test_bf16_launchers_refuse_what_the_copies_cannot_take(what):
     """The bf16 kernels copy 16 bytes at a time and the backward reads the
-    forward's statistics: anything else raises before a kernel is built or
-    launched, and nothing is rerouted."""
+    forward's statistics, the lse pair [2, B, H, S] (a single fp32 lse
+    cannot hold a fully masked row): anything else raises before a kernel
+    is built or launched, and nothing is rerouted."""
     B, S, H, D = 2, 5, 2, 16
     q = torch.zeros(B, S, H, D, dtype=torch.bfloat16)
     if what == "pointer":       # 2 bytes past a 16-byte boundary
@@ -214,9 +237,10 @@ def test_bf16_launchers_refuse_what_the_copies_cannot_take(what):
         q = torch.zeros(B, S, H * D + 4, dtype=torch.bfloat16)[..., :H * D] \
             .view(B, S, H, D)
     k = v = do = torch.zeros(B, S, H, D, dtype=torch.bfloat16)
+    lse = torch.zeros(B, H, S) if what == "lse_single" else None
     with pytest.raises(ValueError):
-        ta._launch_backward(q, k, v, None, 0.25, do, None)
-    if what != "lse":
+        ta._launch_backward(q, k, v, None, 0.25, do, lse)
+    if what not in ("lse", "lse_single"):
         with pytest.raises(ValueError):
             ta._launch(q, k, v, None, 0.25)
 

@@ -39,7 +39,8 @@ from clip_finegrained_alignment_tpu.models.clip import _xla_attention
 from clip_finegrained_alignment_tpu.ops import flash_attention as jfa
 from clip_finegrained_alignment_tpu_torch.ops import _build
 from clip_finegrained_alignment_tpu_torch.ops import flash_attention as tfa
-from clip_finegrained_alignment_tpu_torch.perf import (flash_microbench,
+from clip_finegrained_alignment_tpu_torch.perf import (flash_fwd_study,
+                                                      flash_microbench,
                                                       lo_half_study)
 
 NEG = -1e9
@@ -425,6 +426,29 @@ def test_bf16_backward_refuses_unaligned_views(which, kind, monkeypatch):
         torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("kind", ["pointer", "sequence stride",
+                                  "head stride"])
+@pytest.mark.parametrize("which", ["q", "k", "v"])
+def test_bf16_forward_refuses_unaligned_views(which, kind, monkeypatch):
+    """The bf16 forward kernel copies 16-byte-aligned tiles by TMA too: its
+    launcher refuses such a view with ValueError before a kernel is built,
+    and nothing is rerouted. The CPU branch takes the same views."""
+    ts = _bf16_views(which, kind)
+    q, k, v = ts["q"], ts["k"], ts["v"]
+
+    def no_build(name):
+        raise AssertionError(f"{name} built for a view it cannot take")
+
+    monkeypatch.setattr(_build, "load", no_build)
+    with pytest.raises(ValueError, match="multiples of 16 bytes"):
+        tfa._launch_fwd(q, k, v, None, 0.25, 32)
+    monkeypatch.undo()
+    got = tfa.blockwise_flash_attention(q, k, v, None, 0.25, 32, 32)
+    want = tfa.blockwise_flash_attention(q.contiguous(), k.contiguous(),
+                                         v.contiguous(), None, 0.25, 32, 32)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
 class _FakeEntry:
     """A C entry that records its arguments and reports success."""
 
@@ -468,6 +492,62 @@ def test_dtype_alone_selects_the_backward_entry(kernel, dname, monkeypatch):
         assert args[0] != q.data_ptr() and ls == 128
 
 
+def _fake_lib(monkeypatch, kernel):
+    """The C entry of ``kernel`` replaced by a :class:`_FakeEntry`, launched
+    as on the card's current stream."""
+    entry = _FakeEntry()
+    lib = type("Lib", (), {f"cfa_{kernel}": entry})()
+    monkeypatch.setattr(_build, "load", lambda name: lib)
+    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(tfa, "_stream", lambda t: 0)
+    return entry
+
+
+@pytest.mark.parametrize("dname", DTYPES)
+def test_dtype_alone_selects_the_forward_entry(dname, monkeypatch):
+    """The forward launcher hands the C entry dtype code 0 with q itself
+    (the fp32 CUDA-core kernel scales q), or code 1 with qs = (q·scale)
+    rounded to bf16 (the bf16 wgmma kernel), the strides of what it hands
+    over, and the padded key count Sk − S."""
+    B, H, S, D = 2, 3, 70, 16
+    dt = DTYPES[dname][1]
+    q, k, v = _torch(_case(S, False, seed=9, B=B, H=H, D=D)[:3], dt)
+    q = q.transpose(1, 2).contiguous().transpose(1, 2)   # bshd memory
+    entry = _fake_lib(monkeypatch, tfa.FWD_KERNEL)
+    o, lse = tfa._launch_fwd(q, k, v, None, D ** -0.5, 64)
+    (args,) = entry.calls
+    assert len(entry.argtypes) == len(args)
+    assert args[6:12] == (B, H, S, D, 0 if dname == "float32" else 1,
+                          128 - S)
+    assert args[1:3] == (k.data_ptr(), v.data_ptr())
+    assert args[4:6] == (o.data_ptr(), lse.data_ptr())
+    # q's bshd memory order (qs keeps it), then k's and v's.
+    assert list(args[12:21]) == [s for t in (q, k, v) for s in t.stride()[:3]]
+    assert (args[0] == q.data_ptr()) is (dname == "float32")
+    assert o.shape == (B, H, S, D) and o.dtype == dt
+    assert lse.shape == (B, H, S) and lse.dtype == torch.float32
+
+
+@pytest.mark.parametrize("D", [16, 32, 64])
+def test_tma_operands(D):
+    """The operands both bf16 directions read: qs equal to the plain
+    version's ``_scaled_q`` to the bit, the others as they are unless
+    broadcast (then dense), and dense strides for dims of extent 1."""
+    B, H, S = 1, 3, 100
+    q, k, v = _torch(_case(S, False, seed=D, B=B, H=H, D=D)[:3],
+                     torch.bfloat16)
+    q = q * 7
+    vb = v[:, :1].expand(B, H, S, D)              # one head for all heads
+    scale = D ** -0.5
+    qs, k2, v2, strides = tfa._tma_operands(q, scale, k, vb)
+    assert torch.equal(qs, tfa._scaled_q(q, scale))
+    assert k2 is k and torch.equal(v2, vb) and v2.is_contiguous()
+    assert strides == [H * S * D, S * D, D] * 3
+    shifted = torch.empty(k.numel() + 1, dtype=k.dtype)[1:].view(k.shape)
+    with pytest.raises(ValueError, match="multiples of 16 bytes"):
+        tfa._tma_operands(q, scale, k, shifted)
+
+
 @pytest.mark.parametrize("D", [16, 32, 64])
 def test_bf16_backward_operands(D):
     """What the bf16 kernels read: qs equal to the plain version's
@@ -502,3 +582,20 @@ def test_lo_half_study_takes_out_one_product(grad):
     assert len(source.splitlines()) - len(variant.splitlines()) == 1
     with pytest.raises(ValueError):
         lo_half_study.without_line(name, "no such line")
+
+
+@pytest.mark.parametrize("variant", sorted(flash_fwd_study.VARIANTS))
+def test_forward_study_sets_only_its_constants(variant):
+    """Each variant of the forward design study is the kernel's source with
+    the named constants of its bf16 section set, and nothing else changed;
+    a constant the source does not set once raises."""
+    values = flash_fwd_study.VARIANTS[variant]
+    source = (_build.CSRC / _build.SOURCES["flash_fwd"]).read_text()
+    got = flash_fwd_study.with_constants(values)
+    changed = [(a, b) for a, b in zip(source.splitlines(), got.splitlines())
+               if a != b]
+    assert len(changed) == len(values)
+    for const, value in values.items():
+        assert f"constexpr int {const} = {value};" in got
+    with pytest.raises(ValueError):
+        flash_fwd_study.with_constants({"kNoSuchConstant": 1})
