@@ -10,7 +10,8 @@ Phases, each of which fails the script (non-zero exit, no "ok" line):
    started together); report each kernel's registers and spills, and hold
    the bf16 blockwise kernels (forward, dq, dk/dv) to ``HGMMA`` (wgmma) in
    their machine code (``cuobjdump``) and to a ``wgmma`` chain ptxas did
-   not serialize;
+   not serialize, and every SPARC kernel to TF32 ``HMMA`` (``mma.sync``) in
+   its machine code and to no spills;
 3. each kernel against its plain PyTorch version on the card, with its
    time, the plain version's, the one-call PyTorch yardstick's where there
    is one (never called by the port) and the least time the card could
@@ -32,6 +33,8 @@ Phases, each of which fails the script (non-zero exit, no "ok" line):
    - the SPARC pooling forward and backward at the train shapes (B=32,
      T=77, P=197 and P=50, D=512, fp32) and on an edge batch (fully masked
      rows, a zero patch, duplicated patches), with no library yardstick;
+     the forward's saved sim, rl and rv against the plain version's, and
+     the backward fed them, as the train path feeds it;
 4. the serving main path: ViT-B/16 at full width with random weights from
    a numpy seed, served by ``ClipServer`` on the card behind its HTTP
    server on 127.0.0.1; every endpoint must answer 200 with finite
@@ -85,7 +88,8 @@ from http.client import HTTPConnection
 
 # Peak rates of one H100 SXM (NVIDIA data sheet, dense, at 700 W).
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # bf16 tensor, fp32 CUDA cores
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12,  # bf16 tensor, fp32 CUDA cores
+              "tf32": 495e12}                        # TF32 tensor
 
 SEED = 0
 BUCKET = 64
@@ -119,6 +123,10 @@ BWD_TOL = {"bfloat16": (1e-2, 1e-3), "float32": (1e-4, 1e-5)}
 # comparison, counted, and may be at most 1 % of the rows.
 SPARC_TOL = 1e-4
 SPARC_MAX_NEAR_SHARE = 0.01
+# The forward kernel's saved sim (absolute; cosines, summed in another
+# order and as 3xTF32 products, ~1e-7 apart) and inverse norms rl, rv
+# (relative: a zero row's is 1e12) against the plain version's.
+SPARC_RESIDUAL_TOL = 1e-5
 TRAIN_B, TRAIN_ACCUM = 32, 8
 # Train step, one microbatch of 4 pairs: the card in bf16 against the port
 # in fp32 on the CPU, same weights and batch. The first readings on an
@@ -236,8 +244,9 @@ def ptxas_report(text: str) -> dict:
     return out
 
 
-def sass_hgmma(lib) -> dict:
-    """The number of ``HGMMA`` (wgmma) instructions in each kernel of a
+def sass_count(lib, *words) -> dict:
+    """The number of instructions holding every one of ``words`` (``HGMMA``
+    for wgmma; ``HMMA`` and ``TF32`` for TF32 mma.sync) in each kernel of a
     built library, from ``cuobjdump --dump-sass``."""
     from clip_finegrained_alignment_tpu_torch.ops import _build
     tool = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
@@ -249,7 +258,7 @@ def sass_hgmma(lib) -> dict:
         if m:
             name = kernel_name(m.group(1))
             out[name] = 0
-        elif name is not None and "HGMMA" in ln:
+        elif name is not None and all(w in ln for w in words):
             out[name] += 1
     return out
 
@@ -672,16 +681,23 @@ def check_sparc(results: dict) -> tuple:
         near = sparc_near_rows(v, l, mask, tau)
         keep_row = ~near[:, :, None]
         keep_b = ~near.any(-1)[:, None, None]
-        out = sk._launch(v, l, mask, tau)
-        dv, dl = sk._launch_backward(v, l, mask, tau, g)
+        out, *res = sk._launch(v, l, mask, tau)
+        dv, dl = sk._launch_backward(v, l, mask, tau, g, *res)
         torch.cuda.synchronize()
-        ref = sk.sparc_pooling_reference(v, l, mask, tau)
+        ref, *rres = sk.sparc_pooling_reference(v, l, mask, tau,
+                                                return_residuals=True)
         rdv, rdl = sk.sparc_pooling_backward_reference(v, l, mask, tau, g)
-        for t in (out, dv, dl):
+        for t in (out, dv, dl, *res):
             check(bool(torch.isfinite(t).all()), f"SPARC {what}: non-finite")
         errs = {"out": ((out - ref).abs() * keep_row).max().item(),
                 "dl": ((dl - rdl).abs() * keep_row).max().item(),
                 "dv": ((dv - rdv).abs() * keep_b).max().item()}
+        res_err = {"sim": (res[0] - rres[0]).abs().max().item()}
+        for name, got, want in zip(("rl", "rv"), res[1:], rres[1:]):
+            res_err[name] = ((got - want).abs() / want.abs()).max().item()
+        check(max(res_err.values()) <= SPARC_RESIDUAL_TOL,
+              f"SPARC {what}: saved sim, rl, rv off the plain version's by "
+              f"{res_err} > {SPARC_RESIDUAL_TOL}")
         n_near, n_rows = int(near.sum()), int((mask > 0).sum())
         common = {"shape": what, "B": B, "T": T, "P": P, "D": D, "tau": tau,
                   "tol": SPARC_TOL, "near_decision_rows": n_near,
@@ -689,7 +705,7 @@ def check_sparc(results: dict) -> tuple:
                   int(near.any(-1).sum())}
         check(n_near <= SPARC_MAX_NEAR_SHARE * n_rows,
               f"SPARC {what}: {n_near} of {n_rows} rows near a decision")
-        fwd = dict(common, max_abs_err=errs["out"])
+        fwd = dict(common, max_abs_err=errs["out"], residual_err=res_err)
         bwd = dict(common, max_abs_err=max(errs["dl"], errs["dv"]),
                    max_abs_err_by={"dl": errs["dl"], "dv": errs["dv"]})
         for kind, row in (("forward", fwd), ("backward", bwd)):
@@ -697,24 +713,34 @@ def check_sparc(results: dict) -> tuple:
                   f"SPARC {kind} {what}: max abs err {row['max_abs_err']} "
                   f"> {SPARC_TOL}")
         if not edge:
-            fwd["ms"] = cuda_time_ms(lambda: sk._launch(v, l, mask, tau))
-            bwd["ms"] = cuda_time_ms(
-                lambda: sk._launch_backward(v, l, mask, tau, g))
+            for row, fn in (
+                    (fwd, lambda: sk._launch(v, l, mask, tau)),
+                    (bwd, lambda: sk._launch_backward(v, l, mask, tau, g,
+                                                      *res))):
+                row["ms"], row["graph_ms"] = cuda_time_ms(fn), graph_ms(fn)
             fwd["plain_ms"] = cuda_time_ms(
-                lambda: sk.sparc_pooling_reference(v, l, mask, tau), reps=5)
+                lambda: sk.sparc_pooling_reference(
+                    v, l, mask, tau, return_residuals=True), reps=5)
             bwd["plain_ms"] = cuda_time_ms(
-                lambda: sk.sparc_pooling_backward_reference(v, l, mask, tau,
-                                                            g), reps=5)
+                lambda: sk.sparc_pooling_backward_reference(
+                    v, l, mask, tau, g, residuals=res), reps=5)
             # No single PyTorch call computes this chain.
             fwd["library_ms"] = bwd["library_ms"] = None
-            # Reads v, l, mask (and g), writes out (dv, dl) once; fp32
-            # products: sim and pooling in the forward; sim again,
-            # g·vᵀ, wᵀ·g, dsim·v_norm and dsimᵀ·l_norm in the backward.
-            f4 = 4.0
-            fwd.update(bound_ms(f4 * (B * P * D + 2 * B * T * D + B * T),
-                                2.0 * 2 * B * T * P * D, "float32"))
-            bwd.update(bound_ms(f4 * (2 * B * P * D + 3 * B * T * D + B * T),
-                                2.0 * 5 * B * T * P * D, "float32"))
+            # Each input read and each output written once. The forward
+            # reads v, l, mask and writes out, sim, rl, rv; the backward
+            # reads v, l, mask, g, sim, rl, rv and writes dv, dl. Products
+            # [T, P, D]: l·vᵀ and w·v forward; g·vᵀ, (dsim∘rv)·v, wᵀ·g,
+            # (dsim∘rl)ᵀ·l backward. The kernels issue each as three TF32
+            # products; the CUDA-core fp32 bound (one fp32 product each)
+            # stays beside it.
+            f4, prod = 4.0, 2.0 * B * T * P * D
+            io = B * T + B * T * P + B * T + B * P
+            for row, nbytes, n in (
+                    (fwd, f4 * (B * P * D + 2 * B * T * D + io), 2),
+                    (bwd, f4 * (2 * B * P * D + 3 * B * T * D + io), 4)):
+                row.update(bound_ms(nbytes, 3 * n * prod, "tf32"))
+                row["bound_ms_fp32_cores"] = bound_ms(
+                    nbytes, n * prod, "float32")["bound_ms"]
         for kind, row in (("fwd", fwd), ("bwd", bwd)):
             log(f"sparc {kind}", json.dumps(row))
             rows[kind].append(row)
@@ -1386,8 +1412,10 @@ def main(argv=None) -> int:
     sys.path.insert(0, here)
     from clip_finegrained_alignment_tpu_torch.ops import _build
 
-    # A reference states and sets both: fp32 matmuls and convolutions run
-    # in full fp32, never TF32.
+    # A reference states and sets both: PyTorch's fp32 matmuls and
+    # convolutions (the plain versions) run in full fp32, never TF32. The
+    # hand-written SPARC kernels take their fp32 products as three TF32
+    # products each (hi·hi + hi·lo + lo·hi), which holds SPARC_TOL.
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     results = {"argv": sys.argv}
@@ -1412,7 +1440,7 @@ def main(argv=None) -> int:
     # their machine code, and a chain ptxas did not serialize.
     results["sass_hgmma"] = {}
     for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkdv"):
-        hgmma = sass_hgmma(_build.library_path(name))
+        hgmma = sass_count(_build.library_path(name), "HGMMA")
         results["sass_hgmma"][name] = hgmma
         log(f"sass {name}: HGMMA {json.dumps(hgmma)}")
         wgmma = [k for k in hgmma if k.startswith(name + "_wgmma<")]
@@ -1422,6 +1450,21 @@ def main(argv=None) -> int:
                       if r.get("wgmma_serialized")]
         check(not serialized,
               f"{name}: ptxas serialized the wgmma chain of {serialized}")
+    # The SPARC kernels run their products as 3xTF32 mma.sync: HMMA with
+    # TF32 in every one of their kernels, and no spills.
+    results["sass_hmma_tf32"] = {}
+    for name in ("sparc_fwd", "sparc_bwd"):
+        hmma = sass_count(_build.library_path(name), "HMMA", "TF32")
+        results["sass_hmma_tf32"][name] = hmma
+        log(f"sass {name}: HMMA TF32 {json.dumps(hmma)}")
+        check(len(hmma) == (1 if name == "sparc_fwd" else 2)
+              and all(n > 0 for n in hmma.values()),
+              f"{name}: a kernel lacks TF32 HMMA: {hmma}")
+        check(name in results["ptxas"],
+              f"{name}: no ptxas report (built before this run)")
+        spilled = {k: r for k, r in results["ptxas"][name].items()
+                   if r.get("spill_stores") or r.get("spill_loads")}
+        check(not spilled, f"{name}: ptxas spilled in {spilled}")
 
     fwd = check_attention(results)
     bwd = check_attention_backward(results)

@@ -14,7 +14,15 @@ Tolerances: forward rtol 1e-5, atol 1e-6 (fp32 on both sides, other
 summation order); backward rtol 1e-4, atol 1e-5 (as ``tests/test_ops.py``
 holds the Pallas backward against ``jax.vjp``: the VJP divides by the
 row's range and sum, which amplifies the fp32 rounding of sim).
+
+The CUDA kernels take their products as three TF32 products (hi·hi,
+hi·lo, lo·hi of ``tf32_split``); an emulation of those products in plain
+PyTorch, at the train widths, is held to the Pallas kernels within
+``chip_smoke.py``'s ``SPARC_TOL`` outside its near-decision rows.
 """
+
+import importlib.util
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -26,6 +34,12 @@ from clip_finegrained_alignment_tpu.ops.sparc_kernel import (
     _reference_chain, fused_sparc_pooling as jax_fused_sparc_pooling)
 from clip_finegrained_alignment_tpu_torch.ops import _build
 from clip_finegrained_alignment_tpu_torch.ops import sparc_kernel as sk
+from clip_finegrained_alignment_tpu_torch.perf import sparc_study
+
+_spec = importlib.util.spec_from_file_location(
+    "chip_smoke", Path(__file__).resolve().parent.parent / "chip_smoke.py")
+smoke = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(smoke)
 
 
 def _inputs(case, seed, B=3, P=11, T=6, D=16):
@@ -126,17 +140,22 @@ def test_function_routes_cuda_tensors_to_the_kernels(monkeypatch):
     """The device branch, without a card: ``_device_kind`` says "cuda" and
     the launchers are stubs that count and return the plain results. The
     forward output carries the Function's backward node, and the backward
-    reaches the backward launcher."""
+    reaches the backward launcher with the forward's sim, rl and rv."""
     v, l, mask, g = _inputs("random", seed=5)
-    calls = []
+    calls, saved = [], []
 
     def fwd(v, l, mask, threshold):
         calls.append("fwd")
-        return sk.sparc_pooling_reference(v, l, mask, threshold).detach()
+        out = sk.sparc_pooling_reference(v.detach(), l.detach(), mask,
+                                         threshold, return_residuals=True)
+        saved.extend(out[1:])
+        return out
 
-    def bwd(v, l, mask, threshold, g):
+    def bwd(v, l, mask, threshold, g, sim, rl, rv):
         calls.append("bwd")
-        return sk.sparc_pooling_backward_reference(v, l, mask, threshold, g)
+        assert all(a is b for a, b in zip((sim, rl, rv), saved))
+        return sk.sparc_pooling_backward_reference(v, l, mask, threshold, g,
+                                                   residuals=(sim, rl, rv))
 
     monkeypatch.setattr(sk, "_device_kind", lambda t: "cuda")
     monkeypatch.setattr(sk, "_launch", fwd)
@@ -165,3 +184,140 @@ def test_wrapper_rejects_what_the_kernels_do_not_take(case):
         v = torch.zeros(2, 5, 8, dtype=torch.int32)
     with pytest.raises(ValueError):
         sk.fused_sparc_pooling(v, l, mask, 0.5)
+
+
+@pytest.mark.parametrize("threshold", [0.0, 0.5, 1.0])
+@pytest.mark.parametrize("case", CASES)
+def test_plain_backward_from_residuals_matches_pallas_and_vjp(case,
+                                                              threshold):
+    """The plain backward fed the plain forward's sim, rl and rv (what the
+    CUDA backward reads from the CUDA forward) is the recomputing one."""
+    v, l, mask, g = _inputs(case, seed=20 + CASES.index(case))
+    tv, tl, tm = (torch.from_numpy(x) for x in (v, l, mask))
+    out, sim, rl, rv = sk.sparc_pooling_reference(tv, tl, tm, threshold,
+                                                  return_residuals=True)
+    assert sim.shape == (3, 6, 11) and rl.shape == (3, 6) \
+        and rv.shape == (3, 11)
+    torch.testing.assert_close(
+        out, sk.sparc_pooling_reference(tv, tl, tm, threshold),
+        rtol=0, atol=0)
+    dv, dl = sk.sparc_pooling_backward_reference(
+        tv, tl, tm, threshold, torch.from_numpy(g), residuals=(sim, rl, rv))
+    jv, jl, jm, jg = (jnp.asarray(x) for x in (v, l, mask, g))
+
+    def vjp(fn):
+        return jax.jit(lambda a, b, m, c: jax.vjp(
+            lambda x, y: fn(x, y, m, threshold), a, b)[1](c))(jv, jl, jm, jg)
+
+    for want in (vjp(jax_fused_sparc_pooling), vjp(_reference_chain)):
+        np.testing.assert_allclose(dv.numpy(), np.asarray(want[0]),
+                                   rtol=1e-4, atol=1e-5)
+        np.testing.assert_allclose(dl.numpy(), np.asarray(want[1]),
+                                   rtol=1e-4, atol=1e-5)
+
+
+def test_tf32_split_rounds_to_nearest_away_and_recovers_x():
+    """hi keeps 10 mantissa bits, rounded to nearest with ties away from
+    zero (``cvt.rna``), and hi + lo is x to 2^-22 of it, over a seeded sweep
+    of magnitudes (1e-30 to 1e30, where lo is a normal number too) and
+    signs, exact ties and zeros."""
+    rng = np.random.default_rng(7)
+    x = (rng.normal(size=4096) * 10.0 ** rng.uniform(-30, 30, 4096)).astype(
+        np.float32)
+    ties = (rng.integers(64 << 23, 1 << 30, 64, dtype=np.int64) & ~0x1FFF
+            | 0x1000).astype(np.int32).view(np.float32)
+    x = np.concatenate([x, ties, -ties, np.float32([0.0, -0.0, 1.0, -3.5])])
+    hi, lo = sk.tf32_split(torch.from_numpy(x))
+    bits = hi.view(torch.int32)
+    assert not (bits & 0x1FFF).any()
+    assert not (lo.view(torch.int32) & 0x1FFF).any()
+    err = (hi.double() + lo.double() - torch.from_numpy(x).double()).abs()
+    assert (err <= 2.0 ** -22 * torch.from_numpy(x).double().abs()).all()
+    # the nearest of the two TF32 neighbours; ties away from zero
+    n = len(ties)
+    t_hi = hi[4096:4096 + n].view(torch.int32)
+    want = torch.from_numpy((ties.view(np.int32).astype(np.int64) + 0x1000)
+                            .astype(np.int32))
+    assert torch.equal(t_hi, want)
+    assert torch.equal(hi[4096 + n:4096 + 2 * n], -hi[4096:4096 + n])
+    low = (torch.from_numpy(x).view(torch.int32) & 0x1FFF)
+    up = low >= 0x1000
+    mag = torch.from_numpy(x).view(torch.int32) & 0x7FFFFFFF
+    want_mag = torch.where(up, (mag & ~0x1FFF) + 0x2000, mag & ~0x1FFF)
+    assert torch.equal(bits & 0x7FFFFFFF, want_mag)
+
+
+def _einsum_3xtf32(eq, a, b):
+    """The kernels' products: lo·hi + hi·lo, then + hi·hi, in fp32."""
+    ah, al = sk.tf32_split(a)
+    bh, bl = sk.tf32_split(b)
+    return (torch.einsum(eq, al, bh) + torch.einsum(eq, ah, bl)) \
+        + torch.einsum(eq, ah, bh)
+
+
+def _tf32_forward(v, l, mask, threshold):
+    """The CUDA forward's arithmetic: sim from the raw operands, scaled by
+    rl and rv after the product; out = w·v; both products 3xTF32."""
+    rl = torch.rsqrt(torch.clamp_min((l * l).sum(-1), sk.NORM_EPS ** 2))
+    rv = torch.rsqrt(torch.clamp_min((v * v).sum(-1), sk.NORM_EPS ** 2))
+    sim = _einsum_3xtf32("btd,bpd->btp", l, v) * rl[:, :, None] \
+        * rv[:, None, :]
+    w = sk.sparc_alignment_weights(sim, mask, threshold)
+    return _einsum_3xtf32("btp,bpd->btd", w, v), sim, rl, rv
+
+
+def test_tf32_products_hold_the_card_tolerance_at_train_widths():
+    """At B=2, T=77, P=197, D=512 (ViT-B/16 SPARC widths), the forward and
+    the backward built from 3xTF32 products stay within SPARC_TOL of the
+    Pallas kernels (interpret mode), outside the near-decision rows; plain
+    TF32 products (hi·hi alone) would not."""
+    rng = np.random.default_rng(11)
+    B, T, P, D, tau = 2, 77, 197, 512, 0.5
+    v = rng.normal(size=(B, P, D)).astype(np.float32)
+    l = rng.normal(size=(B, T, D)).astype(np.float32)
+    g = rng.normal(size=(B, T, D)).astype(np.float32)
+    mask = (np.arange(T)[None] < np.array([[40], [77]])).astype(np.float32)
+    tv, tl, tm, tg = (torch.from_numpy(x) for x in (v, l, mask, g))
+    out, sim, rl, rv = _tf32_forward(tv, tl, tm, tau)
+    dv, dl = sk.sparc_pooling_backward_reference(
+        tv, tl, tm, tau, tg, residuals=(sim, rl, rv), einsum=_einsum_3xtf32)
+    jv, jl, jm, jg = (jnp.asarray(x) for x in (v, l, mask, g))
+    want, pull = jax.vjp(lambda a, b: jax_fused_sparc_pooling(a, b, jm, tau),
+                         jv, jl)
+    wdv, wdl = pull(jg)
+    near = smoke.sparc_near_rows(tv, tl, tm, tau)
+    assert int(near.sum()) <= smoke.SPARC_MAX_NEAR_SHARE * int(tm.sum())
+    keep_row = ~near[:, :, None].numpy()
+    keep_b = ~near.any(-1)[:, None, None].numpy()
+    errs = {"out": np.abs(out.numpy() - np.asarray(want)) * keep_row,
+            "dl": np.abs(dl.numpy() - np.asarray(wdl)) * keep_row,
+            "dv": np.abs(dv.numpy() - np.asarray(wdv)) * keep_b}
+    for name, err in errs.items():
+        assert err.max() <= smoke.SPARC_TOL, (name, err.max())
+    # The raw product l·vᵀ (|l||v| ≈ 512): hi·hi alone misses the exact
+    # sum by over 100 tolerances, the three products by less than one.
+    exact = torch.einsum("btd,bpd->btp", tl.double(), tv.double())
+    hh = torch.einsum("btd,bpd->btp", *(sk.tf32_split(x)[0] for x in (tl, tv)))
+    three = _einsum_3xtf32("btd,bpd->btp", tl, tv)
+    assert (hh.double() - exact).abs().max() > 100 * smoke.SPARC_TOL
+    assert (three.double() - exact).abs().max() < smoke.SPARC_TOL
+
+
+def test_tf32_products_keep_ties_bit_equal():
+    """Duplicated patches give bit-equal similarities under the emulated
+    3xTF32 products, so the min/max cotangent still splits among them."""
+    v, l, mask, _ = _inputs("ties", seed=13)
+    _, sim, _, _ = _tf32_forward(*(torch.from_numpy(x) for x in (v, l, mask)),
+                                 0.5)
+    assert torch.equal(sim[..., 5], sim[..., 2])
+    assert torch.equal(sim[..., 7], sim[..., 2])
+    assert torch.equal(sim[..., 9], sim[..., 8])
+
+
+@pytest.mark.parametrize("variant", sorted(sparc_study.VARIANTS))
+def test_study_variants_set_each_constant_once(variant):
+    values = sparc_study.VARIANTS[variant]
+    sources = sparc_study.with_constants(values)
+    for const, value in values.items():
+        text = sources[sparc_study.CONSTANT_FILES[const]]
+        assert text.count(f"constexpr int {const} = {value};") == 1
