@@ -62,10 +62,29 @@ Phases, each of which fails the script (non-zero exit, no "ok" line):
    design point, 2 x (steps + 1) forward and steps + 1 of each backward
    kernel on each of its two paths, and nothing else), and one counted
    forward+backward of ``blockwise_flash_attention`` (exactly one launch of
-   each blockwise kernel and none of the others).
+   each blockwise kernel and none of the others);
+8. the training CLI on the card: 512 procedural 224 px samples made by the
+   port's ``cli/generate_data.py`` and packed by ``cli/pack_dataset.py``
+   in a temporary directory, then three in-process runs of
+   ``cli/train.py``'s ``main`` at ViT-B/16 full width, each counted on its
+   own: A, packed with the pixel bank on the card, SPARC + AdamSPD at
+   32 x 8 for 2 epochs (every epoch loss finite; ``best/``, ``epoch_0/``,
+   ``epoch_1/``; the bank a uint8 CUDA tensor; batches carrying
+   ``pixel_index``, not pixels; 24 x 8 attention and 8 SPARC launches of
+   each kind a step); B, a bare ``--resume`` of A to 3 epochs (the
+   restored weights equal ``best/``'s bit for bit, the step count goes on
+   from ``best/``'s, launches as A's for the steps it ran); C, live decode
+   of the annotations, the count loss with AdamW at 32 x 2 for 1 epoch
+   (36 x 2 attention launches a step: the counterfactual captions are one
+   more text tower; no SPARC). It prints which image decode ran (the
+   native library or PIL), the live pipeline's rate alone, and one
+   ``train cli: {...}`` line: steps, epoch losses and epoch pairs/s on the
+   host clock (data included), peak memory, build and run seconds and the
+   card's line.
 
-The last lines are the kernels' JSON line, the ``nvidia-smi`` line and
-``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
+The last lines are the kernels' JSON line (``launches_by_path`` has
+``serve``, ``train``, ``long`` and ``train_cli``), the ``nvidia-smi`` line
+and ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 rest of the repository beside it, the script exits non-zero before any
 result. It imports nothing of JAX.
 """
@@ -175,6 +194,11 @@ LONG_TIMED = "microbench S=2048"
 # (S, B) and its default step count, every launch counted.
 MICROBENCH_POINTS = ((1024, 8), (2048, 4), (4096, 1))
 MICROBENCH_STEPS = 20
+# The training CLI (phase 8): a procedural dataset of this many 224 px
+# samples (two SPARC steps an epoch at TRAIN_B x TRAIN_ACCUM; eight count
+# steps at TRAIN_B x CLI_COUNT_ACCUM).
+CLI_SAMPLES = 512
+CLI_COUNT_ACCUM = 2
 
 
 class SmokeFailure(RuntimeError):
@@ -1392,6 +1416,201 @@ def long_main_path(results: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 8: the training CLI on the card
+# ---------------------------------------------------------------------------
+
+def train_cli_path(results: dict) -> dict:
+    """Generate a procedural dataset and pack it with the port's CLIs, then
+    three in-process runs of the port's ``cli.train.main`` at ViT-B/16 full
+    width: A (packed, pixel bank on the card, SPARC + AdamSPD, 2 epochs),
+    B (bare ``--resume`` of A to 3 epochs), C (live decode, the count loss
+    with AdamW, 1 epoch). Each run's launches are counted on their own and
+    must be exactly what its steps imply."""
+    import gc
+    import shutil
+    import tempfile
+
+    import torch
+    from clip_finegrained_alignment_tpu_torch import native
+    from clip_finegrained_alignment_tpu_torch.cli import (generate_data,
+                                                          pack_dataset)
+    from clip_finegrained_alignment_tpu_torch.cli import train as cli_train
+    from clip_finegrained_alignment_tpu_torch.config import CLIPConfig
+    from clip_finegrained_alignment_tpu_torch.ops import _build
+    from clip_finegrained_alignment_tpu_torch.train import engine
+
+    cfg = CLIPConfig.vit_b16()
+    layers = cfg.vision.num_layers + cfg.text.num_layers
+    out = {"gpu": gpu_line(), "samples": CLI_SAMPLES,
+           "image_size": cfg.vision.image_size}
+    work = tempfile.mkdtemp(prefix="cfa_train_cli_")
+    prev_env = os.environ.get("CFA_ALLOW_HASH_TOKENIZER")
+    # No BPE vocabulary on the card's host: the hermetic hash tokenizer.
+    os.environ["CFA_ALLOW_HASH_TOKENIZER"] = "1"
+    seen_keys, restored = set(), {}
+    step, load_state_dict = engine.Trainer.step, engine.Trainer.load_state_dict
+
+    def spy_step(self, batch):
+        seen_keys.update(batch)
+        return step(self, batch)
+
+    def spy_load(self, state):
+        load_state_dict(self, state)
+        restored["weights"] = {k: v.detach().cpu().clone()
+                               for k, v in self.model.state_dict().items()}
+
+    def counted(name, argv):
+        seen_keys.clear()
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        t0 = time.time()
+        res = cli_train.main(argv)
+        torch.cuda.synchronize()
+        launches = _build.launch_counts()
+        hist = res["history"]
+        run = {"steps": res["trainer"].global_step,
+               "epoch_losses": [h["avg_loss"] for h in hist],
+               "epoch_pairs_per_s": [h["pairs_per_sec"] for h in hist],
+               "epoch_s": [h["seconds"] for h in hist],
+               "peak_memory_gb": res["peak_memory_bytes"] / 1e9,
+               "run_s": time.time() - t0, "launches": launches,
+               "batch_keys": sorted(seen_keys)}
+        check(hist and all(map(math.isfinite, run["epoch_losses"])),
+              f"train cli {name}: epoch losses {run['epoch_losses']}")
+        log(f"train cli run {name}: launches {launches}")
+        return res, run
+
+    def expect(steps, accum, per_microbatch, sparc):
+        want = {n: 0 for n in _build.SOURCES}
+        want.update({"attention_fwd": steps * accum * per_microbatch,
+                     "attention_bwd": steps * accum * per_microbatch,
+                     "sparc_fwd": steps * accum * sparc,
+                     "sparc_bwd": steps * accum * sparc})
+        return want
+
+    engine.Trainer.step, engine.Trainer.load_state_dict = spy_step, spy_load
+    try:
+        t0 = time.time()
+        out["native_available"] = native.available()
+        out["native_build_s"] = time.time() - t0
+        if not out["native_available"]:   # "auto" then decodes with PIL
+            out["native_build_error"] = (native.build_error() or "")[-300:]
+        data, packed = os.path.join(work, "data"), os.path.join(work, "packed")
+        ckpt = os.path.join(work, "ckpt")
+        anns = os.path.join(data, "synthetic_annotations.json")
+        t0 = time.time()
+        generate_data.main(["--procedural", "--output-dir", data,
+                            "--num-samples", str(CLI_SAMPLES),
+                            "--image-size", str(cfg.vision.image_size),
+                            "--seed", str(SEED)])
+        out["generate_s"] = time.time() - t0
+        t0 = time.time()
+        pack_dataset.main(["--annotations", anns, "--output", packed,
+                           "--model", "ViT-B/16", "--loss-type", "sparc"])
+        out["pack_s"] = time.time() - t0
+        out["disk_free_gb"] = shutil.disk_usage(work).free / 1e9
+
+        sparc = ["--model", "ViT-B/16", "--loss-type", "sparc",
+                 "--optimizer", "adamspd", "--batch-size", str(TRAIN_B),
+                 "--grad-accum", str(TRAIN_ACCUM), "--inverse-temperature",
+                 "0.07", "--save-every", "1", "--packed", packed,
+                 "--device-data", "--checkpoint-dir", ckpt,
+                 "--experiment-name", "sparc", "--seed", str(SEED),
+                 "--log-every", "1"]
+        spe = CLI_SAMPLES // (TRAIN_B * TRAIN_ACCUM)
+        # Run A: packed, the pixel bank on the card.
+        res, a = counted("A", sparc + ["--epochs", "2", "--metrics-file",
+                                       os.path.join(work, "metrics.jsonl")])
+        bank = res["trainer"].pixel_bank
+        a["pixel_bank"] = {"device": str(bank.device),
+                           "shape": list(bank.shape), "dtype": str(bank.dtype)}
+        check(bank.device.type == "cuda" and bank.dtype == torch.uint8
+              and tuple(bank.shape) == (CLI_SAMPLES, cfg.vision.image_size,
+                                        cfg.vision.image_size, 3),
+              f"train cli A: pixel bank {a['pixel_bank']}")
+        check("pixel_index" in a["batch_keys"]
+              and "pixel_values" not in a["batch_keys"],
+              f"train cli A: batches carried {a['batch_keys']}")
+        check(a["steps"] == 2 * spe, f"train cli A: {a['steps']} steps")
+        want = expect(a["steps"], TRAIN_ACCUM, layers, 1)
+        check(a["launches"] == want,
+              f"train cli A: launches {a['launches']} != {want}")
+        exp = os.path.join(ckpt, "sparc")
+        check(sorted(os.listdir(exp)) == ["best", "epoch_0", "epoch_1"],
+              f"train cli A: checkpoints {sorted(os.listdir(exp))}")
+        with open(os.path.join(exp, "best", "meta.json")) as f:
+            best_step = json.load(f)["global_step"]
+        best = torch.load(os.path.join(exp, "best", "state.pt"),
+                          map_location="cpu", weights_only=True)["model"]
+        del res, bank
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # Run B: bare --resume (best/) to 3 epochs.
+        restored.clear()
+        res, b = counted("B", sparc + ["--epochs", "3", "--resume"])
+        check(set(restored.get("weights", {})) == set(best)
+              and all(torch.equal(restored["weights"][k], v)
+                      for k, v in best.items()),
+              "train cli B: the restored weights are not best/'s")
+        b["resumed_at_step"] = res["resumed_at_step"]
+        check(res["resumed_at_step"] == best_step and b["steps"] == 3 * spe,
+              f"train cli B: resumed at {res['resumed_at_step']} (best/ "
+              f"holds {best_step}), ended at {b['steps']}")
+        want = expect(b["steps"] - best_step, TRAIN_ACCUM, layers, 1)
+        check(b["launches"] == want,
+              f"train cli B: launches {b['launches']} != {want}")
+        del res, best
+        gc.collect()
+        torch.cuda.empty_cache()
+        shutil.rmtree(exp)
+
+        # Run C: live decode, the count loss (one more text tower: the
+        # counterfactual captions) with AdamW.
+        res, c = counted("C", [
+            "--model", "ViT-B/16", "--loss-type", "count", "--optimizer",
+            "adamw", "--batch-size", str(TRAIN_B), "--grad-accum",
+            str(CLI_COUNT_ACCUM), "--epochs", "1", "--annotations", anns,
+            "--checkpoint-dir", ckpt, "--experiment-name", "count",
+            "--seed", str(SEED), "--log-every", "1"])
+        c["image_path"] = res["image_path"]
+        log(f"train cli run C: image decode {res['image_path']}")
+        # The live pipeline alone, no step: the host's decode rate.
+        t0 = time.time()
+        pairs = sum(len(batch["input_ids"])
+                    for batch in res["pipeline"].epoch(0))
+        c["decode_only_pairs_per_s"] = pairs / (time.time() - t0)
+        check(c["steps"] == CLI_SAMPLES // (TRAIN_B * CLI_COUNT_ACCUM),
+              f"train cli C: {c['steps']} steps")
+        check("pixel_values" in c["batch_keys"]
+              and "cf_input_ids" in c["batch_keys"],
+              f"train cli C: batches carried {c['batch_keys']}")
+        want = expect(c["steps"], CLI_COUNT_ACCUM, layers + cfg.text.num_layers,
+                      0)
+        check(c["launches"] == want,
+              f"train cli C: launches {c['launches']} != {want}")
+        del res
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        engine.Trainer.step = step
+        engine.Trainer.load_state_dict = load_state_dict
+        if prev_env is None:
+            os.environ.pop("CFA_ALLOW_HASH_TOKENIZER", None)
+        else:
+            os.environ["CFA_ALLOW_HASH_TOKENIZER"] = prev_env
+        shutil.rmtree(work, ignore_errors=True)
+
+    out.update({"A": a, "B": b, "C": c,
+                "kernels_build_s": results.get("build_s")})
+    log("train cli:", json.dumps(out))
+    results["train_cli"] = out
+    total = {n: a["launches"][n] + b["launches"][n] + c["launches"][n]
+             for n in _build.SOURCES}
+    return {"launches": total}
+
+
+# ---------------------------------------------------------------------------
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -1474,6 +1693,7 @@ def main(argv=None) -> int:
     train = train_main_path(results)
     flash_fwd, flash_dq, flash_dkdv = check_long_attention(results)
     long = long_main_path(results)
+    train_cli = train_cli_path(results)
 
     csrc = "clip_finegrained_alignment_tpu_torch/csrc/"
     ref = "clip_finegrained_alignment_tpu/ops/"
@@ -1507,7 +1727,8 @@ def main(argv=None) -> int:
              if r["dtype"] == "bfloat16"), long_shape),
     ]
     by_path = {"serve": {"attention_fwd": serve["launches"]},
-               "train": train["launches"], "long": long["launches"]}
+               "train": train["launches"], "long": long["launches"],
+               "train_cli": train_cli["launches"]}
     kernels = []
     for name, replaces, row, err, shape in entries:
         counts = {path: c.get(name, 0) for path, c in by_path.items()}

@@ -3,15 +3,16 @@
 The port's own copy of ``clip_finegrained_alignment_tpu/config.py``'s
 ``VisionConfig``, ``TextConfig`` and ``CLIPConfig`` (same fields, same
 defaults, same named models), and of the ``PrecisionConfig`` and
-``TrainConfig`` fields the training step reads (same names and defaults).
-The TPU-only knobs (``remat``, ``unroll*``, ``unstack_layers``,
-``use_pallas_attention``, ``use_fused_sparc``, ``quant``) are not carried:
-the port always runs its kernels. Mesh and parallel fields come with the
-multi-GPU slice.
+``TrainConfig`` fields the train step, the trainer and the training CLI
+read (same names and defaults). The TPU-only knobs (``remat``,
+``unroll*``, ``unstack_layers``, ``use_pallas_attention``,
+``use_fused_sparc``, ``quant``) are not carried: the port always runs its
+kernels. Mesh and parallel fields come with the multi-GPU slice.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field, replace
 from typing import Tuple
 
@@ -134,13 +135,19 @@ class PrecisionConfig:
 
 @dataclass
 class TrainConfig:
-    """Training hyperparameters the train step reads (the JAX package's
-    ``TrainConfig`` fields of the same names and defaults)."""
+    """Training hyperparameters (the JAX package's ``TrainConfig`` fields
+    of the same names and defaults, without the TPU and mesh knobs)."""
     lr: float = 1e-5
     batch_size: int = 32
     max_grad_norm: float = 1.0
+    warmup_steps: int = 1000
+    max_epochs: int = 400
+    save_every: int = 1
     weight_decay: float = 0.2
     use_amp: bool = True                  # bf16 compute
+    clip_model: str = "ViT-B/32"
+    max_length: int = 77
+    experiment_name: str = "clip_default"
     gradient_accumulation_steps: int = 4
     loss_type: str = "count"              # clip | sparc | count | clip_count
     similarity_threshold: float = 0.5
@@ -154,6 +161,8 @@ class TrainConfig:
     count_alpha: float = 1.0
     seed: int = 42
     precision: PrecisionConfig = field(default_factory=PrecisionConfig)
+    checkpoint_dir: str = "checkpoints"
+    log_every: int = 10
 
     def __post_init__(self):
         if self.loss_type not in ("clip", "sparc", "count", "clip_count"):
@@ -162,3 +171,81 @@ class TrainConfig:
             raise ValueError(f"invalid optimizer_type {self.optimizer_type!r}")
         if self.gradient_accumulation_steps < 1:
             raise ValueError("gradient_accumulation_steps must be >= 1")
+
+    @property
+    def effective_batch_size(self) -> int:
+        return self.batch_size * self.gradient_accumulation_steps
+
+    def model_config(self) -> CLIPConfig:
+        return CLIPConfig.from_name(self.clip_model)
+
+    def to_dict(self) -> dict:
+        d = dataclasses.asdict(self)
+        d["betas"] = list(d["betas"])
+        return d
+
+    @staticmethod
+    def from_dict(d: dict) -> "TrainConfig":
+        """Inverse of :meth:`to_dict`; keys this config does not have (the
+        JAX package's TPU and mesh fields) are dropped."""
+        d = dict(d)
+        if "betas" in d:
+            d["betas"] = tuple(d["betas"])
+        if isinstance(d.get("precision"), dict):
+            known = {f.name for f in dataclasses.fields(PrecisionConfig)}
+            d["precision"] = PrecisionConfig(
+                **{k: v for k, v in d["precision"].items() if k in known})
+        known = {f.name for f in dataclasses.fields(TrainConfig)}
+        return TrainConfig(**{k: v for k, v in d.items() if k in known})
+
+    def print_config(self) -> None:
+        """The configuration report, grouped as the JAX package prints it."""
+        print("\n" + "=" * 50)
+        print("TRAINING CONFIGURATION")
+        print("=" * 50)
+        sparc = self.loss_type == "sparc"
+        groups = {
+            "Training Hyperparameters": {
+                "Learning Rate": self.lr,
+                "Batch Size": self.batch_size,
+                "Gradient Accumulation Steps": self.gradient_accumulation_steps,
+                "Effective Batch Size": self.effective_batch_size,
+                "Max Gradient Norm": self.max_grad_norm,
+                "Warmup Steps": self.warmup_steps,
+                "Weight Decay": self.weight_decay,
+                "Mixed Precision": self.use_amp,
+            },
+            "Model Configuration": {
+                "CLIP Model": self.clip_model,
+                "Max Token Length": self.max_length,
+                "Experiment Name": self.experiment_name,
+                "Loss Type": self.loss_type,
+            },
+            "Loss Parameters": {
+                "Count Alpha": self.count_alpha
+                if "count" in self.loss_type else "N/A",
+                "Similarity Threshold": self.similarity_threshold
+                if sparc else "N/A",
+                "Global Loss Weight": self.global_loss_weight
+                if sparc else "N/A",
+                "Local Loss Weight": self.local_loss_weight
+                if sparc else "N/A",
+                "Inverse Temperature": self.inverse_temperature,
+            },
+            "Optimizer Configuration": {
+                "Type": self.optimizer_type,
+                "Betas": self.betas,
+                "Epsilon": self.eps,
+                "AMSGrad": self.amsgrad,
+            },
+            "Precision": {
+                "Compute dtype": self.precision.compute_dtype
+                if self.use_amp else "float32",
+                "Parameter dtype": self.precision.param_dtype,
+            },
+        }
+        for group, params in groups.items():
+            print(f"\n{group}:")
+            for k, v in params.items():
+                print(f"  {k}: {v}")
+        print("\n" + "=" * 50 + "\n")

@@ -1,9 +1,11 @@
-"""Image preprocessing: host-side resize and crop, device-side normalize.
+"""Image preprocessing: host-side decode, pad, resize and crop,
+device-side normalize.
 
-The port of ``clip_finegrained_alignment_tpu/data/preprocess.py``'s serving
-pieces. Decode and uint8 resize stay on the host (PIL); the arithmetic
-(rescale and normalize) runs on the device on the batch the model reads.
-Images are NHWC throughout, as in the JAX package.
+The port of ``clip_finegrained_alignment_tpu/data/preprocess.py`` without
+its ``jax.image`` batch resize, which nothing calls. Decode and uint8
+geometry stay on the host (PIL); the arithmetic (rescale and normalize)
+runs on the device on the batch the model reads. Images are NHWC
+throughout, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -37,3 +39,32 @@ def resize_center_crop(image: np.ndarray,
     top = (nh - image_size) // 2
     left = (nw - image_size) // 2
     return arr[top:top + image_size, left:left + image_size]
+
+
+def load_image(path: str) -> np.ndarray:
+    """Decode to RGB uint8 [H, W, 3]."""
+    from PIL import Image
+    with Image.open(path) as im:
+        return np.asarray(im.convert("RGB"))
+
+
+def pad_to_square(image: np.ndarray, fill: int = 255) -> np.ndarray:
+    """Pad to square with white, centred: the counterfactual loader's
+    geometry (the aspect ratio is kept, not squashed)."""
+    h, w = image.shape[:2]
+    if h == w:
+        return image
+    side = max(h, w)
+    out = np.full((side, side, image.shape[2]), fill, image.dtype)
+    top = (side - h) // 2
+    left = (side - w) // 2
+    out[top:top + h, left:left + w] = image
+    return out
+
+
+def preprocess_host(image: np.ndarray, image_size: int = 224) -> np.ndarray:
+    """The whole pipeline on the host → float32 [S, S, 3] normalized (for
+    eval paths that need the HF processor's geometry on any image)."""
+    arr = resize_center_crop(image, image_size).astype(np.float32) / 255.0
+    return ((arr - np.asarray(CLIP_MEAN, np.float32))
+            / np.asarray(CLIP_STD, np.float32))

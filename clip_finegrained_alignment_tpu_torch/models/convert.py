@@ -1,5 +1,6 @@
-"""Weights into the port: the JAX package's param tree, random weights from
-a seed, and HF-named reference ``.pt`` checkpoints.
+"""Weights into and out of the port: the JAX package's param tree, random
+weights from a seed, and HF-named reference ``.pt`` checkpoints (read by
+``load_reference_checkpoint``, written by ``save_reference_checkpoint``).
 
 ``state_dict_from_jax`` is the port's copy of ``clip_finegrained_alignment_
 tpu/models/hf_export.py::hf_state_dict_from_params`` (same names, same
@@ -9,7 +10,8 @@ it takes numpy arrays, or JAX arrays without importing JAX here.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Tuple
+import os
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -178,3 +180,36 @@ def load_reference_checkpoint(path: str) -> Tuple[Dict[str, torch.Tensor],
     meta = {k: v for k, v in ckpt.items() if k != "model_state_dict"} \
         if "model_state_dict" in ckpt else {}
     return sd, meta
+
+
+def save_reference_checkpoint(path: str, model, cfg: CLIPConfig, *,
+                              global_step: int = 0,
+                              best_loss: float = float("inf"),
+                              config: Optional[dict] = None) -> None:
+    """Write the reference's training-checkpoint format
+    (``model_state_dict`` in HF ``CLIPModel`` names, ``global_step``,
+    ``best_loss``, ``config``), the port of ``clip_finegrained_alignment_
+    tpu/models/hf_export.py::save_reference_checkpoint`` with ``fmt="hf"``
+    and no optimizer state. ``model``: a ``models/clip.py::CLIPModel`` or
+    its state dict. The weights are written as fp32 CPU tensors, so HF's
+    ``CLIPModel.load_state_dict`` and the JAX package's
+    ``hf_import.load_reference_checkpoint`` read them. The file is written
+    to a temporary name and renamed."""
+    sd = model.state_dict() if hasattr(model, "state_dict") else model
+    if "vision_model.embeddings.patch_embedding.weight" not in sd:
+        raise ValueError("not an HF-named CLIP state dict")
+    shape = tuple(sd["vision_model.embeddings.position_embedding.weight"]
+                  .shape)
+    if shape != (cfg.vision.seq_len, cfg.vision.hidden_size):
+        raise ValueError(f"state dict does not fit {cfg}: vision position "
+                         f"embedding {shape}")
+    out = {
+        "model_state_dict": {k: v.detach().to("cpu", torch.float32).clone()
+                             for k, v in sd.items()},
+        "global_step": int(global_step),
+        "best_loss": float(best_loss),
+        "config": dict(config or {}),
+    }
+    tmp = f"{path}.tmp.{os.getpid()}"
+    torch.save(out, tmp)
+    os.replace(tmp, path)

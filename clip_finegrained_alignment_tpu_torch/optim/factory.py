@@ -1,6 +1,7 @@
 """Optimizer construction, the port of
 ``clip_finegrained_alignment_tpu/optim/factory.py``: clip by global norm,
-then AdamW (decay masked) or AdamSPD, at a constant learning rate.
+then AdamW (decay masked) or AdamSPD, at a constant learning rate (or,
+when asked, optax's linear warmup from 0 over ``warmup_steps``).
 
 * :func:`decay_mask`: decay every parameter but the biases. The reference
   matches ``("ln", "bn", "bias")`` against HF names, where only ``bias``
@@ -14,11 +15,15 @@ then AdamW (decay masked) or AdamSPD, at a constant learning rate.
   would skip them.
 * optax's AdamW ``p − lr·(m̂ / (√v̂ + eps) + wd·p)`` equals torch's
   ``p·(1 − lr·wd) − lr·m̂ / (√v̂ + eps)``.
+* ``ClippedOptimizer.state_dict()`` holds the inner optimizer's state
+  (AdamSPD's anchors, moments and step; AdamW's moments and steps) and the
+  update count the schedule reads, so a checkpoint resumes the same
+  trajectory.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterable, List, Optional, Tuple
+from typing import Callable, Dict, Iterable, List, Optional, Tuple, Union
 
 import torch
 
@@ -31,9 +36,19 @@ def decay_mask(names: Iterable[str]) -> Dict[str, bool]:
     return {n: "bias" not in n.rsplit(".", 1)[-1] for n in names}
 
 
-def make_schedule(cfg: TrainConfig) -> float:
-    """The learning rate: constant (the reference builds no scheduler)."""
-    return cfg.lr
+def make_schedule(cfg: TrainConfig, use_warmup: bool = False
+                  ) -> Union[float, Callable[[int], float]]:
+    """The learning rate: constant by default (the reference defines
+    ``warmup_steps`` but builds no scheduler). With ``use_warmup`` and
+    ``warmup_steps > 0``, optax's ``linear_schedule(0, lr, warmup_steps)``
+    as a function of the update count: lr · min(count, warmup) / warmup."""
+    if not use_warmup or cfg.warmup_steps <= 0:
+        return cfg.lr
+
+    def schedule(count: int) -> float:
+        return cfg.lr * min(max(count, 0), cfg.warmup_steps) \
+            / cfg.warmup_steps
+    return schedule
 
 
 def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
@@ -46,9 +61,15 @@ class ClippedOptimizer:
     chain of ``make_optimizer``)."""
 
     def __init__(self, optimizer: torch.optim.Optimizer,
-                 max_grad_norm: float):
+                 max_grad_norm: float,
+                 schedule: Optional[Callable[[int], float]] = None):
+        """``schedule``: the learning rate of update ``count`` (0 for the
+        first), set on every group before the update; None keeps the
+        groups' own."""
         self.optimizer = optimizer
         self.max_grad_norm = max_grad_norm
+        self.schedule = schedule
+        self.count = 0
 
     @property
     def params(self) -> List[torch.Tensor]:
@@ -71,19 +92,35 @@ class ClippedOptimizer:
             for g in grads:
                 g.copy_(torch.where(keep, g,
                                     g / norm.to(g.dtype) * self.max_grad_norm))
+        if self.schedule is not None:
+            for group in self.optimizer.param_groups:
+                group["lr"] = self.schedule(self.count)
         self.optimizer.step()
+        self.count += 1
         return norm
+
+    def state_dict(self) -> dict:
+        return {"optimizer": self.optimizer.state_dict(),
+                "count": self.count}
+
+    def load_state_dict(self, state: dict) -> None:
+        """Restore a :meth:`state_dict` taken from an optimizer of the same
+        kind over the same parameters (tensors go to the parameters'
+        device)."""
+        self.optimizer.load_state_dict(state["optimizer"])
+        self.count = int(state["count"])
 
 
 def make_optimizer(cfg: TrainConfig,
                    named_params: Iterable[Tuple[str, torch.Tensor]],
-                   anchors: Optional[Dict[str, torch.Tensor]] = None
-                   ) -> ClippedOptimizer:
+                   anchors: Optional[Dict[str, torch.Tensor]] = None,
+                   use_warmup: bool = False) -> ClippedOptimizer:
     """Clip by ``cfg.max_grad_norm`` (0 = no clip), then AdamSPD (one
     group, anchors = ``anchors`` or the parameters now) or AdamW with
-    :func:`decay_mask`."""
+    :func:`decay_mask`, at :func:`make_schedule`'s learning rate."""
     named = [(n, p) for n, p in named_params if p.requires_grad]
-    lr = make_schedule(cfg)
+    schedule = make_schedule(cfg, use_warmup)
+    lr = schedule(0) if callable(schedule) else schedule
     if cfg.optimizer_type == "adamspd":
         opt = AdamSPD([p for _, p in named], lr=lr, betas=cfg.betas,
                       eps=cfg.eps, weight_decay=cfg.weight_decay,
@@ -99,4 +136,5 @@ def make_optimizer(cfg: TrainConfig,
              "weight_decay": 0.0}]
         opt = torch.optim.AdamW([g for g in groups if g["params"]], lr=lr,
                                 betas=cfg.betas, eps=cfg.eps)
-    return ClippedOptimizer(opt, cfg.max_grad_norm)
+    return ClippedOptimizer(opt, cfg.max_grad_norm,
+                            schedule if callable(schedule) else None)
