@@ -76,14 +76,31 @@ Phases, each of which fails the script (non-zero exit, no "ok" line):
    from ``best/``'s, launches as A's for the steps it ran); C, live decode
    of the annotations, the count loss with AdamW at 32 x 2 for 1 epoch
    (36 x 2 attention launches a step: the counterfactual captions are one
-   more text tower; no SPARC). It prints which image decode ran (the
+   more text tower; no SPARC), with ``--eval-every-epoch`` where
+   matplotlib is installed (its confusion plots need it; two evaluations
+   of 36 forward launches each). It prints which image decode ran (the
    native library or PIL), the live pipeline's rate alone, and one
    ``train cli: {...}`` line: steps, epoch losses and epoch pairs/s on the
    host clock (data included), peak memory, build and run seconds and the
-   card's line.
+   card's line;
+9. evaluation on the card: ``cli/evaluate.py``'s ``main`` in process at
+   ViT-B/16 full width in fp32, reading the ``best/`` that run A wrote:
+   ``countbench`` and ``vlmsblind`` on their procedural fixtures (40 and
+   24 samples), ``crop`` on the procedural source (500 samples), batch
+   32; then ``evaluate_batch`` on run C's held-out batch (the first of its
+   epoch 0). Each counted on its own: exactly 24 forward-kernel launches a
+   scorer call (as many calls as the samples and batch size imply), 36 an
+   ``evaluate_batch``, no other kernel; every accuracy and score finite in
+   [0, 1]. The first scorer call of each subcommand and the held-out batch
+   against the port in fp32 on the CPU (same weights). Then samples/s of
+   each subcommand on the host clock (decode and preprocessing included),
+   the device time of one scorer call (32 images x 10 templates) with its
+   kernel profile, #1 in fp32 at evaluation's shapes (vision B=32, text
+   B=320 causal) against SDPA and its bound, and peak memory.
 
 The last lines are the kernels' JSON line (``launches_by_path`` has
-``serve``, ``train``, ``long`` and ``train_cli``), the ``nvidia-smi`` line
+``serve``, ``train``, ``long``, ``train_cli`` and ``eval``; the forward
+kernel's entry also carries its ``fp32_eval`` rows), the ``nvidia-smi`` line
 and ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 rest of the repository beside it, the script exits non-zero before any
 result. It imports nothing of JAX.
@@ -98,9 +115,11 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 from http.client import HTTPConnection
@@ -199,6 +218,21 @@ MICROBENCH_STEPS = 20
 # steps at TRAIN_B x CLI_COUNT_ACCUM).
 CLI_SAMPLES = 512
 CLI_COUNT_ACCUM = 2
+# Evaluation (phase 9): the CLI's default batch, the crop protocol's
+# sample count, and #1 in fp32 at evaluation's shapes (a scorer call of
+# 32 images x 10 templates: vision B=32, text B=320 causal).
+EVAL_BATCH = 32
+EVAL_CROP_SAMPLES = 500
+EVAL_ATTENTION_SHAPES = [("eval vision", 32, 197, 12, False),
+                         ("eval text (causal)", 320, 77, 8, True)]
+# The card's fp32 evaluation against the port in fp32 on the CPU, same
+# weights and inputs (TF32 off): probabilities and similarities within
+# EVAL_MAX_ABS, the same argmax wherever the top two differ by more than
+# EVAL_TIE. The first reading on an H100 (PERF.md): 3.6e-7 at worst
+# (CountBench's first call; similarities 2.7e-7), every argmax equal. The
+# limit is ~30x that: other summation orders pass, a wrong layer does not.
+EVAL_MAX_ABS = 1e-5
+EVAL_TIE = 1e-3
 
 
 class SmokeFailure(RuntimeError):
@@ -408,12 +442,30 @@ def lse_excess(got, ref) -> float:
     return ((got - ref).abs() / lim).max().item()
 
 
+def attention_fwd_times(q, k, v, bias, scale) -> dict:
+    """The forward kernel's ``ms`` and ``graph_ms``, the plain version's
+    and ``scaled_dot_product_attention``'s ``ms`` on the same bshd
+    inputs."""
+    import torch.nn.functional as F
+    from clip_finegrained_alignment_tpu_torch.ops import attention as ta
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    mask = None if bias is None else bias.to(q.dtype)
+    return {
+        "ms": cuda_time_ms(lambda: ta.flash_attention(q, k, v, bias, scale)),
+        "graph_ms": graph_ms(
+            lambda: ta.flash_attention(q, k, v, bias, scale)),
+        "plain_ms": cuda_time_ms(
+            lambda: ta.attention_reference(q, k, v, bias, scale), reps=5),
+        "library_ms": cuda_time_ms(
+            lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, scale=scale))}
+
+
 def check_attention(results: dict) -> dict:
     """The forward kernel at the serving shapes, both layouts; its output
     against the plain version and, when asked for it, its log-sum-exp
     against ``lse_reference``."""
     import torch
-    import torch.nn.functional as F
     from clip_finegrained_alignment_tpu_torch.ops import attention as ta
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -468,19 +520,8 @@ def check_attention(results: dict) -> dict:
                       f"tolerance {lse_over}")
                 if B == BUCKET:
                     # Timed on the main path's layout.
-                    q, k, v = layouts["separate"]
-                    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-                    mask = None if bias is None else bias.to(dtype)
-                    row["ms"] = cuda_time_ms(
-                        lambda: ta.flash_attention(q, k, v, bias, scale))
-                    row["graph_ms"] = graph_ms(
-                        lambda: ta.flash_attention(q, k, v, bias, scale))
-                    row["plain_ms"] = cuda_time_ms(
-                        lambda: ta.attention_reference(q, k, v, bias, scale),
-                        reps=5)
-                    row["library_ms"] = cuda_time_ms(
-                        lambda: F.scaled_dot_product_attention(
-                            qt, kt, vt, attn_mask=mask, scale=scale))
+                    row.update(attention_fwd_times(*layouts["separate"],
+                                                   bias, scale))
                     row.update(attention_bound_ms(B, S, H, D, dname, causal))
                 log("attention", json.dumps(row))
                 rows.append(row)
@@ -1419,14 +1460,18 @@ def long_main_path(results: dict) -> dict:
 # Phase 8: the training CLI on the card
 # ---------------------------------------------------------------------------
 
-def train_cli_path(results: dict) -> dict:
+def train_cli_path(results: dict, keep_dir: str) -> dict:
     """Generate a procedural dataset and pack it with the port's CLIs, then
     three in-process runs of the port's ``cli.train.main`` at ViT-B/16 full
     width: A (packed, pixel bank on the card, SPARC + AdamSPD, 2 epochs),
     B (bare ``--resume`` of A to 3 epochs), C (live decode, the count loss
-    with AdamW, 1 epoch). Each run's launches are counted on their own and
-    must be exactly what its steps imply."""
+    with AdamW, 1 epoch, with ``--eval-every-epoch`` where matplotlib can
+    write its plots). Each run's launches are counted on their own and must
+    be exactly what its steps (and evaluations) imply. A's ``best/`` is
+    kept in ``keep_dir`` for phase 9, with C's held-out batch (the first of
+    its epoch 0)."""
     import gc
+    import importlib.util
     import shutil
     import tempfile
 
@@ -1545,6 +1590,16 @@ def train_cli_path(results: dict) -> dict:
         del res, bank
         gc.collect()
         torch.cuda.empty_cache()
+        # Phase 9 evaluates the best/ that run A wrote; B may replace it.
+        kept = os.path.join(keep_dir, "best")
+        os.makedirs(kept)
+        for name in ("state.pt", "meta.json"):
+            try:
+                os.link(os.path.join(exp, "best", name),
+                        os.path.join(kept, name))
+            except OSError:
+                shutil.copyfile(os.path.join(exp, "best", name),
+                                os.path.join(kept, name))
 
         # Run B: bare --resume (best/) to 3 epochs.
         restored.clear()
@@ -1566,13 +1621,21 @@ def train_cli_path(results: dict) -> dict:
         shutil.rmtree(exp)
 
         # Run C: live decode, the count loss (one more text tower: the
-        # counterfactual captions) with AdamW.
+        # counterfactual captions) with AdamW. --eval-every-epoch writes a
+        # confusion PNG per evaluation, as in the JAX package, so it runs
+        # only where matplotlib is installed; phase 9 evaluates the
+        # held-out batch on the card either way.
+        plots = importlib.util.find_spec("matplotlib") is not None
         res, c = counted("C", [
             "--model", "ViT-B/16", "--loss-type", "count", "--optimizer",
             "adamw", "--batch-size", str(TRAIN_B), "--grad-accum",
             str(CLI_COUNT_ACCUM), "--epochs", "1", "--annotations", anns,
             "--checkpoint-dir", ckpt, "--experiment-name", "count",
-            "--seed", str(SEED), "--log-every", "1"])
+            "--seed", str(SEED), "--log-every", "1"]
+            + (["--eval-every-epoch"] if plots else []))
+        c["eval_every_epoch"] = plots
+        log(f"train cli run C: --eval-every-epoch {plots} (matplotlib "
+            f"{'installed' if plots else 'missing'})")
         c["image_path"] = res["image_path"]
         log(f"train cli run C: image decode {res['image_path']}")
         # The live pipeline alone, no step: the host's decode rate.
@@ -1587,8 +1650,13 @@ def train_cli_path(results: dict) -> dict:
               f"train cli C: batches carried {c['batch_keys']}")
         want = expect(c["steps"], CLI_COUNT_ACCUM, layers + cfg.text.num_layers,
                       0)
+        # Before training and after its one epoch: an image tower and two
+        # text towers (GT and counterfactual captions) each.
+        want["attention_fwd"] += (2 if plots else 0) * (
+            layers + cfg.text.num_layers)
         check(c["launches"] == want,
               f"train cli C: launches {c['launches']} != {want}")
+        held_out = next(iter(res["pipeline"].epoch(0)))
         del res
         gc.collect()
         torch.cuda.empty_cache()
@@ -1607,7 +1675,254 @@ def train_cli_path(results: dict) -> dict:
     results["train_cli"] = out
     total = {n: a["launches"][n] + b["launches"][n] + c["launches"][n]
              for n in _build.SOURCES}
-    return {"launches": total}
+    return {"launches": total, "best_dir": kept, "held_out": held_out}
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: evaluation
+# ---------------------------------------------------------------------------
+
+def compare_probs(card, ref) -> dict:
+    """The card's [N, K] probabilities (or similarities) against the CPU's:
+    the largest absolute difference, and whether the argmax agrees in
+    every row whose reference top two differ by more than EVAL_TIE."""
+    import numpy as np
+    card, ref = np.asarray(card), np.asarray(ref)
+    top = np.sort(ref, axis=-1)
+    clear = top[:, -1] - top[:, -2] > EVAL_TIE
+    agree = card.argmax(-1) == ref.argmax(-1)
+    return {"rows": int(len(ref)), "max_abs_err": float(np.abs(card - ref)
+                                                         .max()),
+            "clear_rows": int(clear.sum()),
+            "argmax_agree_clear": bool(agree[clear].all()),
+            "argmax_agree_all": int(agree.sum())}
+
+
+def eval_path(results: dict, best_dir: str, held_out: dict) -> dict:
+    """The evaluation CLI at ViT-B/16 full width, fp32, on the card, from
+    the ``best/`` that phase 8's run A wrote: ``countbench`` and
+    ``vlmsblind`` on their procedural fixtures, ``crop`` on the procedural
+    source at the protocol's sample count; then ``evaluate_batch`` on run
+    C's held-out batch. Each is counted on its own: 24 forward-kernel
+    launches a scorer call, 36 an ``evaluate_batch``, nothing else. The
+    first scorer call of each subcommand and the held-out batch are held
+    to the port in fp32 on the CPU with the same weights. Then the time of
+    one scorer call (B=32 x NT=10) and #1 in fp32 at evaluation's shapes."""
+    import numpy as np
+    import torch
+    from clip_finegrained_alignment_tpu_torch.cli import evaluate as cli_eval
+    from clip_finegrained_alignment_tpu_torch.config import CLIPConfig
+    from clip_finegrained_alignment_tpu_torch.eval import (batch_eval,
+                                                           countbench,
+                                                           crop_detection,
+                                                           scoring, vlmsblind)
+    from clip_finegrained_alignment_tpu_torch.models import clip as m
+    from clip_finegrained_alignment_tpu_torch.ops import _build
+    from clip_finegrained_alignment_tpu_torch.ops import attention as ta
+
+    cfg = CLIPConfig.vit_b16()
+    layers = cfg.vision.num_layers + cfg.text.num_layers
+    out = {"gpu": gpu_line(), "checkpoint": "phase 8 run A best/"}
+    work = tempfile.mkdtemp(prefix="cfa_eval_")
+    prev_env = os.environ.get("CFA_ALLOW_HASH_TOKENIZER")
+    os.environ["CFA_ALLOW_HASH_TOKENIZER"] = "1"
+    # Spies: each scorer call's shape and host time, the first call's
+    # inputs and probabilities, the evaluator's own time.
+    state = {"calls": [], "first": None, "eval_s": 0.0}
+    score, spied = scoring.TemplateScorer.__call__, {}
+
+    def spy_score(self, px, ids, mask):
+        t0 = time.time()
+        probs = score(self, px, ids, mask)
+        state["calls"].append((len(px), ids.shape[1], time.time() - t0))
+        if state["first"] is None:
+            state["first"] = (px, ids, mask, probs)
+        return probs
+
+    def timed(fn):
+        def run(*args, **kw):
+            t0 = time.time()
+            try:
+                return fn(*args, **kw)
+            finally:
+                state["eval_s"] += time.time() - t0
+        return run
+
+    evaluators = ((countbench.CountBenchEvaluator, "evaluate_dataset"),
+                  (vlmsblind.VLMsBlindEvaluator, "run_all_tasks"),
+                  (crop_detection.CropDetectionEvaluator, "run_evaluation"))
+    scoring.TemplateScorer.__call__ = spy_score
+    for cls, name in evaluators:
+        spied[cls, name] = getattr(cls, name)
+        setattr(cls, name, timed(spied[cls, name]))
+    runs, first = {}, {}
+    try:
+        subcommands = {
+            "countbench": ["--dataset", "procedural"],
+            "vlmsblind": ["--dataset", "procedural"],
+            "crop": ["--samples", str(EVAL_CROP_SAMPLES), "--output",
+                     os.path.join(work, "crop.json")]}
+        for cmd, extra in subcommands.items():
+            state.update(calls=[], first=None, eval_s=0.0)
+            argv = [cmd, "--model", "ViT-B/16", "--checkpoint", best_dir,
+                    "--batch-size", str(EVAL_BATCH), "--output-dir",
+                    os.path.join(work, cmd), "--device", "cuda", *extra]
+            torch.cuda.synchronize()
+            _build.reset_launch_counts()
+            t0 = time.time()
+            metrics = cli_eval.main(argv)
+            torch.cuda.synchronize()
+            run = {"run_s": time.time() - t0, "eval_s": state["eval_s"],
+                   "launches": _build.launch_counts(),
+                   "scorer_calls": len(state["calls"]),
+                   "scorer_host_s": sum(c[2] for c in state["calls"]),
+                   "scorer_shapes": sorted({c[:2] for c in state["calls"]})}
+            first[cmd] = state["first"]
+            if cmd == "countbench":
+                with open(os.path.join(work, cmd,
+                                       "countbench_metrics.json")) as f:
+                    check(json.load(f) == json.loads(json.dumps(metrics)),
+                          "eval countbench: metrics file differs")
+                samples = metrics["total_samples"]
+                calls = -(-samples // EVAL_BATCH)
+                values = [metrics["accuracy"], metrics["argmax_accuracy"],
+                          metrics["avg_confidence"],
+                          metrics["high_confidence_accuracy"],
+                          *metrics["per_number_accuracy"].values()]
+            elif cmd == "vlmsblind":
+                with open(os.path.join(work, cmd,
+                                       "vlmsblind_metrics.json")) as f:
+                    check(json.load(f) == metrics,
+                          "eval vlmsblind: metrics file differs")
+                per = [t["total_samples"] for t in metrics.values()]
+                samples = sum(per)
+                calls = sum(-(-n // EVAL_BATCH) for n in per)
+                values = [t[k] for t in metrics.values()
+                          for k in ("accuracy", "avg_confidence")
+                          + (("high_confidence_accuracy",)
+                             if t["total_samples"] else ())]
+            else:
+                with open(os.path.join(work, "crop.json")) as f:
+                    check(json.load(f)["aggregate_stats"] == metrics,
+                          "eval crop: results file differs")
+                samples = EVAL_CROP_SAMPLES
+                calls = -(-samples // max(1, EVAL_BATCH // 6))
+                values = [st[k] for st in metrics.values()
+                          for k in ("accuracy", "avg_positive",
+                                    "avg_negative")]
+            run.update(samples=samples, samples_per_s=samples / run["eval_s"],
+                       expected_calls=calls, metrics=metrics)
+            check(samples > 0 and all(math.isfinite(v) and 0.0 <= v <= 1.0
+                                      for v in values),
+                  f"eval {cmd}: metrics {metrics}")
+            want = {n: 0 for n in _build.SOURCES}
+            want["attention_fwd"] = calls * layers
+            check(run["scorer_calls"] == calls and run["launches"] == want,
+                  f"eval {cmd}: {run['scorer_calls']} scorer calls, "
+                  f"launches {run['launches']}; expected {calls} calls, "
+                  f"{want}")
+            log(f"eval {cmd}: launches {run['launches']}, "
+                f"{run['scorer_calls']} scorer calls")
+            runs[cmd] = run
+    finally:
+        scoring.TemplateScorer.__call__ = score
+        for (cls, name), fn in spied.items():
+            setattr(cls, name, fn)
+        if prev_env is None:
+            os.environ.pop("CFA_ALLOW_HASH_TOKENIZER", None)
+        else:
+            os.environ["CFA_ALLOW_HASH_TOKENIZER"] = prev_env
+        shutil.rmtree(work, ignore_errors=True)
+    out["runs"] = runs
+
+    # The held-out batch of run C's live pipeline, as --eval-every-epoch
+    # evaluates it (without its plot).
+    sd = torch.load(os.path.join(best_dir, "state.pt"), map_location="cpu",
+                    weights_only=True)["model"]
+    card = m.build_model(cfg, sd, device="cuda")
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t0 = time.time()
+    acc, confusion, res = batch_eval.evaluate_batch(card, cfg, held_out)
+    torch.cuda.synchronize()
+    held = {"B": int(len(held_out["count"])), "run_s": time.time() - t0,
+            "accuracy": acc, "launches": _build.launch_counts()}
+    want = {n: 0 for n in _build.SOURCES}
+    want["attention_fwd"] = layers + cfg.text.num_layers
+    check(held["launches"] == want,
+          f"eval held-out batch: launches {held['launches']} != {want}")
+    check(0.0 <= acc <= 1.0 and bool(np.isfinite(confusion).all()),
+          f"eval held-out batch: accuracy {acc}")
+    out["held_out"] = held
+    eval_launches = {n: held["launches"][n] + sum(r["launches"][n]
+                                                  for r in runs.values())
+                     for n in _build.SOURCES}
+
+    # The card against the port in fp32 on the CPU, same weights.
+    t0 = time.time()
+    cpu = scoring.TemplateScorer(sd, cfg, device="cpu")
+    vs_cpu = {}
+    for cmd, (px, ids, mask, probs) in first.items():
+        vs_cpu[cmd] = compare_probs(probs, cpu(px, ids, mask))
+        vs_cpu[cmd]["shape"] = [len(px), ids.shape[1]]
+    _, cpu_conf, cpu_res = batch_eval.evaluate_batch(cpu.model, cfg,
+                                                     held_out)
+    vs_cpu["held_out_similarities"] = compare_probs(
+        np.stack([r["similarities"] for r in res]),
+        np.stack([r["similarities"] for r in cpu_res]))
+    vs_cpu["held_out_confusion_max_abs_err"] = float(
+        np.abs(confusion - cpu_conf).max())
+    vs_cpu["cpu_s"] = time.time() - t0
+    out["vs_cpu"] = vs_cpu
+    log("eval vs CPU fp32:", json.dumps(vs_cpu))
+    for name, r in vs_cpu.items():
+        if isinstance(r, dict):
+            check(r["max_abs_err"] <= EVAL_MAX_ABS and r["argmax_agree_clear"],
+                  f"eval {name}: the card against the CPU {r}")
+    check(vs_cpu["held_out_confusion_max_abs_err"] <= EVAL_MAX_ABS,
+          f"eval held-out confusion: {vs_cpu}")
+    del cpu
+
+    # One scorer call at countbench's first shape, B=32 x NT=10, on the
+    # device; and #1 in fp32 at evaluation's two shapes.
+    scorer = scoring.TemplateScorer(card, cfg)
+    px, ids, mask, _ = first["countbench"]
+    args = [scoring.to_device(x, scorer.device) for x in (px, ids, mask)]
+    out["scorer_call"] = {
+        "shape": [len(px), ids.shape[1]],
+        "ms": cuda_time_ms(lambda: scorer.score(*args), reps=3, warmup=1,
+                           windows=3),
+        "profile": kernel_table(lambda: scorer.score(*args))}
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    rows = []
+    for what, B, S, H, causal in EVAL_ATTENTION_SHAPES:
+        D = 64
+        q, k, v = (torch.randn(B, S, H, D, device="cuda", generator=gen)
+                   for _ in range(3))
+        bias = (torch.full((S, S), -1e9, device="cuda").triu(1)[None, None]
+                if causal else None)
+        scale = D ** -0.5
+        err = (ta.flash_attention(q, k, v, bias, scale)
+               - ta.attention_reference(q, k, v, bias, scale)).abs().max()
+        row = {"shape": what, "B": B, "S": S, "H": H, "Dh": D,
+               "dtype": "float32", "max_abs_err": err.item(),
+               "tol": KERNEL_TOL["float32"],
+               "launches_eval": eval_launches["attention_fwd"]}
+        check(row["max_abs_err"] <= KERNEL_TOL["float32"],
+              f"attention fp32 {what}: max abs err {row['max_abs_err']}")
+        row.update(attention_fwd_times(q, k, v, bias, scale))
+        row.update(attention_bound_ms(B, S, H, D, "float32", causal))
+        log("attention fp32 eval", json.dumps(row))
+        rows.append(row)
+    out["attention_fp32"] = rows
+    out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    log("eval:", json.dumps({k: v for k, v in out.items()
+                             if k not in ("runs",)}))
+    log("eval runs:", json.dumps({c: {k: v for k, v in r.items()
+                                      if k != "metrics"}
+                                  for c, r in runs.items()}))
+    results["eval"] = out
+    return {"launches": eval_launches, "attention_fp32": rows}
 
 
 # ---------------------------------------------------------------------------
@@ -1693,7 +2008,14 @@ def main(argv=None) -> int:
     train = train_main_path(results)
     flash_fwd, flash_dq, flash_dkdv = check_long_attention(results)
     long = long_main_path(results)
-    train_cli = train_cli_path(results)
+    keep_dir = tempfile.mkdtemp(prefix="cfa_best_")
+    try:
+        train_cli = train_cli_path(results, keep_dir)
+        torch.cuda.reset_peak_memory_stats()
+        evaluation = eval_path(results, train_cli["best_dir"],
+                               train_cli["held_out"])
+    finally:
+        shutil.rmtree(keep_dir, ignore_errors=True)
 
     csrc = "clip_finegrained_alignment_tpu_torch/csrc/"
     ref = "clip_finegrained_alignment_tpu/ops/"
@@ -1728,7 +2050,8 @@ def main(argv=None) -> int:
     ]
     by_path = {"serve": {"attention_fwd": serve["launches"]},
                "train": train["launches"], "long": long["launches"],
-               "train_cli": train_cli["launches"]}
+               "train_cli": train_cli["launches"],
+               "eval": evaluation["launches"]}
     kernels = []
     for name, replaces, row, err, shape in entries:
         counts = {path: c.get(name, 0) for path, c in by_path.items()}
@@ -1739,7 +2062,9 @@ def main(argv=None) -> int:
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"], "shape": shape,
-            **({"graph_ms": row["graph_ms"]} if "graph_ms" in row else {})})
+            **({"graph_ms": row["graph_ms"]} if "graph_ms" in row else {}),
+            **({"fp32_eval": evaluation["attention_fp32"]}
+               if name == "attention_fwd" else {})})
     results["kernels"] = kernels
     results["seconds"] = time.time() - t_start
     if args.out:

@@ -18,8 +18,13 @@ steps are skipped, not trained again.
 Left out, against the JAX CLI: the TPU knobs (``--pallas``,
 ``--fused-sparc``, ``--remat``, ``--unroll-*``, ``--unstack-layers``,
 ``--quant``) and the mesh flags, which the multi-GPU slice brings.
-Refused until their slice: ``--eval-every-epoch`` (evaluation) and
-``--import-optimizer-state`` (interop). ``--pretrained`` takes a local
+Refused until its slice: ``--import-optimizer-state`` (interop).
+``--eval-every-epoch`` (count loss only) holds out the first batch of
+epoch 0 and runs ``eval/batch_eval.py::evaluate_batch`` on it in fp32 on
+the trainer's master weights, before training (when the run starts at
+epoch 0) and after every epoch, between the epochs' timings; it logs
+``count_eval_accuracy`` and writes ``confusion_{pretrain|epoch_<n>}.png``
+into the checkpoint directory. ``--pretrained`` takes a local
 reference checkpoint only (``.pt``, ``.pth``, ``.bin``, HF names): HF
 downloads are out of reach. Deliberate
 differences: with no ``--pretrained`` the weights are
@@ -92,8 +97,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "CFA_ALLOW_HASH_TOKENIZER=1 opts into the "
                         "hermetic hash tokenizer")
     p.add_argument("--eval-every-epoch", action="store_true",
-                   help="refused: the counting batch-eval waits for the "
-                        "evaluation slice (ROADMAP A4)")
+                   help="with --loss-type count: the counting batch-eval "
+                        "of a held-out batch before training and after "
+                        "every epoch")
     p.add_argument("--metrics-file", default=None)
     p.add_argument("--profile-dir", default=None,
                    help="write a torch.profiler trace of steps 2-4 into "
@@ -105,10 +111,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def _refuse(args) -> None:
     """Exit non-zero on every flag whose slice is not ported, naming it."""
-    if args.eval_every_epoch:
-        raise SystemExit("--eval-every-epoch is not ported yet: the "
-                         "counting batch-eval comes with the evaluation "
-                         "slice (ROADMAP A4)")
     if args.import_optimizer_state:
         raise SystemExit("--import-optimizer-state is not ported yet: the "
                          "reference optimizer-state import comes with the "
@@ -139,6 +141,7 @@ def main(argv=None) -> Dict[str, Any]:
                                  CountingDataPipeline,
                                  SyntheticCaptionDataset)
     from ..data.tokenizer import HashTokenizer, load_tokenizer
+    from ..eval.batch_eval import evaluate_batch
     from ..models import clip as m
     from ..train.checkpoint import CheckpointManager
     from ..train.engine import Trainer, install_preemption_handler
@@ -248,6 +251,21 @@ def main(argv=None) -> Dict[str, Any]:
 
     metrics_log = MetricsLogger(args.metrics_file)
     meter = ThroughputMeter()
+
+    def count_eval(tag: str, step: int) -> float:
+        acc, _, _ = evaluate_batch(
+            trainer.model, model_cfg, eval_batch, dtype=torch.float32,
+            filename=os.path.join(ckpt_dir, f"confusion_{tag}.png"))
+        metrics_log.log(step, count_eval_accuracy=acc)
+        return acc
+
+    # The counting eval's held-out batch: the first of epoch 0.
+    eval_batch = None
+    if args.eval_every_epoch and mode == "counterfactual":
+        eval_batch = next(iter(pipeline.epoch(0)))
+        if args.device_data:   # the eval needs pixels, not bank indices
+            eval_batch = pipeline.materialize(eval_batch)
+
     profile = contextlib.ExitStack()
     profiling = {"active": False}
     skip_once = {"n": resume_skip}
@@ -285,6 +303,11 @@ def main(argv=None) -> Dict[str, Any]:
               "resumed_at_step": resumed_at, "start_epoch": start_epoch,
               "skipped_steps": resume_skip}
     try:
+        # Evaluated before training too: the chance-level anchor of the
+        # accuracy curve (not on resume; the anchor belongs to step 0).
+        if eval_batch is not None and start_epoch == 0:
+            acc = count_eval("pretrain", 0)
+            print(f"pre-training counting-eval accuracy: {acc:.3f}")
         for epoch in range(start_epoch, args.epochs):
             out = trainer.train(batches, num_epochs=epoch + 1,
                                 start_epoch=epoch,
@@ -296,6 +319,9 @@ def main(argv=None) -> Dict[str, Any]:
                       f"(resume with --resume <that path>)")
                 result["preempted"] = True
                 return result
+            if eval_batch is not None:
+                acc = count_eval(f"epoch_{epoch}", trainer.global_step)
+                print(f"epoch {epoch} counting-eval accuracy: {acc:.3f}")
     finally:
         if profiling["active"]:  # the run ended before the stop step
             profile.close()

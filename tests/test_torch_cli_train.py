@@ -160,7 +160,6 @@ def test_resume_of_a_preempt_directory_is_step_exact(runs, fixture,
 
 
 @pytest.mark.parametrize("extra,message", [
-    (["--eval-every-epoch"], "A4"),
     (["--import-optimizer-state"], "A8"),
     (["--pretrained", "openai/clip-vit-base-patch32"], "out of reach"),
     (["--device-data"], "requires --packed"),
