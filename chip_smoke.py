@@ -10,7 +10,8 @@ Phases, each of which fails the script (non-zero exit, no "ok" line):
    started together); report each kernel's registers and spills, and hold
    the bf16 blockwise kernels (forward, dq, dk/dv) to ``HGMMA`` (wgmma) in
    their machine code (``cuobjdump``) and to a ``wgmma`` chain ptxas did
-   not serialize, and every SPARC kernel to TF32 ``HMMA`` (``mma.sync``) in
+   not serialize, and every SPARC kernel and the float32 attention forward
+   (``attention_fwd_tf32<64|32|16>``) to TF32 ``HMMA`` (``mma.sync``) in
    its machine code and to no spills;
 3. each kernel against its plain PyTorch version on the card, with its
    time, the plain version's, the one-call PyTorch yardstick's where there
@@ -21,7 +22,9 @@ Phases, each of which fails the script (non-zero exit, no "ok" line):
      passes them, and as strided slices of one fused projection), and at
      S=77 H=4 with Dh=32 and Dh=16, causal and not; its output and, as the
      train path asks for it, its log-sum-exp; against
-     ``scaled_dot_product_attention``;
+     ``scaled_dot_product_attention``; the float32 rows bounded on the TF32
+     tensor cores (three TF32 products for each fp32 one, as the kernel
+     takes them) with the fp32-core bound beside it;
    - the attention backward at the train shapes (B=32: ViT-B/16 vision,
      the causal text tower and the Dh=32 / Dh=16 rows, bf16 and fp32, both
      layouts), fed the forward kernel's log-sum-exp, against the backward
@@ -96,7 +99,8 @@ Phases, each of which fails the script (non-zero exit, no "ok" line):
    each subcommand on the host clock (decode and preprocessing included),
    the device time of one scorer call (32 images x 10 templates) with its
    kernel profile, #1 in fp32 at evaluation's shapes (vision B=32, text
-   B=320 causal) against SDPA and its bound, and peak memory.
+   B=320 causal) against SDPA and its bounds (TF32 tensor cores and fp32
+   cores), and peak memory.
 
 The last lines are the kernels' JSON line (``launches_by_path`` has
 ``serve``, ``train``, ``long``, ``train_cli`` and ``eval``; the forward
@@ -411,6 +415,19 @@ def attention_bound_ms(B, S, H, D, dtype_name, causal, tensors=4,
     return bound_ms(nbytes, 2.0 * products * B * H * S * S * D, dtype_name)
 
 
+def attention_fwd_bound_ms(B, S, H, D, dtype_name, causal) -> dict:
+    """The forward kernel's bound: bf16 products on the bf16 tensor cores;
+    float32 ones as the kernel takes them, three TF32 products each on the
+    TF32 tensor cores, with the bound on the fp32 CUDA cores (one fp32
+    product each) beside it as ``bound_ms_fp32_cores``."""
+    if dtype_name != "float32":
+        return attention_bound_ms(B, S, H, D, dtype_name, causal)
+    cores = attention_bound_ms(B, S, H, D, dtype_name, causal)
+    row = bound_ms(cores["bytes"], 3 * cores["flops"], "tf32")
+    row["bound_ms_fp32_cores"] = cores["bound_ms"]
+    return row
+
+
 def lse_reference(q, k, bias, scale):
     """float64 ``[B, H, S]`` log-sum-exp of the scores the kernels form: q
     scaled and rounded to its type, fp32 products with k, plus the bias,
@@ -522,7 +539,8 @@ def check_attention(results: dict) -> dict:
                     # Timed on the main path's layout.
                     row.update(attention_fwd_times(*layouts["separate"],
                                                    bias, scale))
-                    row.update(attention_bound_ms(B, S, H, D, dname, causal))
+                    row.update(attention_fwd_bound_ms(B, S, H, D, dname,
+                                                      causal))
                 log("attention", json.dumps(row))
                 rows.append(row)
     results["attention"] = rows
@@ -1911,7 +1929,7 @@ def eval_path(results: dict, best_dir: str, held_out: dict) -> dict:
         check(row["max_abs_err"] <= KERNEL_TOL["float32"],
               f"attention fp32 {what}: max abs err {row['max_abs_err']}")
         row.update(attention_fwd_times(q, k, v, bias, scale))
-        row.update(attention_bound_ms(B, S, H, D, "float32", causal))
+        row.update(attention_fwd_bound_ms(B, S, H, D, "float32", causal))
         log("attention fp32 eval", json.dumps(row))
         rows.append(row)
     out["attention_fp32"] = rows
@@ -1984,20 +2002,25 @@ def main(argv=None) -> int:
                       if r.get("wgmma_serialized")]
         check(not serialized,
               f"{name}: ptxas serialized the wgmma chain of {serialized}")
-    # The SPARC kernels run their products as 3xTF32 mma.sync: HMMA with
-    # TF32 in every one of their kernels, and no spills.
+    # The SPARC kernels and the float32 attention forward run their
+    # products as 3xTF32 mma.sync: HMMA with TF32 in every one of those
+    # kernels (named: the forward's library also holds the bf16 kernel),
+    # and no spills.
     results["sass_hmma_tf32"] = {}
-    for name in ("sparc_fwd", "sparc_bwd"):
+    for name, prefix, count in (("sparc_fwd", "sparc_fwd_kernel", 1),
+                                ("sparc_bwd", "sparc_bwd_", 2),
+                                ("attention_fwd", "attention_fwd_tf32<", 3)):
         hmma = sass_count(_build.library_path(name), "HMMA", "TF32")
         results["sass_hmma_tf32"][name] = hmma
         log(f"sass {name}: HMMA TF32 {json.dumps(hmma)}")
-        check(len(hmma) == (1 if name == "sparc_fwd" else 2)
-              and all(n > 0 for n in hmma.values()),
+        tf32 = {k: n for k, n in hmma.items() if k.startswith(prefix)}
+        check(len(tf32) == count and all(n > 0 for n in tf32.values()),
               f"{name}: a kernel lacks TF32 HMMA: {hmma}")
         check(name in results["ptxas"],
               f"{name}: no ptxas report (built before this run)")
         spilled = {k: r for k, r in results["ptxas"][name].items()
-                   if r.get("spill_stores") or r.get("spill_loads")}
+                   if k.startswith(prefix)
+                   and (r.get("spill_stores") or r.get("spill_loads"))}
         check(not spilled, f"{name}: ptxas spilled in {spilled}")
 
     fwd = check_attention(results)

@@ -63,12 +63,13 @@
 // bound by bytes, not operations, and 16-row warp tiles fit S=77 and S=197
 // with little padding; 16-row slices past S are skipped.
 //
-// float32 (no path on the card runs it): the first version, kept as it was
-// (TF32 tensor cores would not hold the 1e-4 fp32 tolerance): fp32 CUDA
-// cores from fp32 copies of the tiles, a dq pass with an online softmax
-// that writes its own per-row m, l (the padded keys' share added at the
-// end, m started at -1e9 when there are any) and r / l (it does not read
-// lse), and a dk/dv pass that recomputes p = exp(s - m) / l.
+// float32 (no path on the card runs it; evaluation runs the float32
+// forward only): the first version, kept as it was: fp32 CUDA cores from
+// fp32 copies of the tiles (the forward's 3xTF32 products would carry over
+// when a path needs them), a dq pass with an online softmax that writes
+// its own per-row m, l (the padded keys' share added at the end, m started
+// at -1e9 when there are any) and r / l (it does not read lse), and a
+// dk/dv pass that recomputes p = exp(s - m) / l.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

@@ -6,7 +6,7 @@
 // Products: fp32-accurate on the tensor cores. Every matrix product is
 // mma.sync.m16n8k8 TF32 with fp32 sums, three of them per step: each fp32
 // operand x is split into hi = tf32(x) and lo = tf32(x - hi) (rounded to
-// nearest, ties away, as cvt.rna; see split), and the step adds lo·hi,
+// nearest, ties away, as cvt.rna; tf32_mma.cuh), and the step adds lo·hi,
 // hi·lo, then hi·hi onto the same accumulator. The lo·lo term it leaves out
 // is below 2^-22 of each product, so a sum over D = 512 lands within ~1e-7
 // of the fp32 one; plain TF32 (hi·hi alone) misses the 1e-4 tolerance.
@@ -50,6 +50,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "tf32_mma.cuh"
 
 namespace sparc {
 
@@ -217,29 +219,11 @@ __device__ __forceinline__ void load_tile(float* dst, int lds, const float* __re
 
 // ---- 3xTF32 products ----
 
-// hi = x rounded to TF32, to nearest with ties away from zero (what
-// cvt.rna.tf32.f32 gives a finite x), and lo = x - hi rounded the same way.
-// By integer arithmetic on the bits, four instructions for the pair: ptxas
-// lowers cvt.rna to a test for inf and NaN, a select and a mask besides.
-// lo keeps its low 13 bits: the tensor core reads a TF32 operand's top 19
-// bits only (ptxas's own lowering of cvt.rna relies on that too).
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-  lo = __float_as_uint(x - __uint_as_float(hi)) + 0x1000u;
-}
+using tf32::mma_tf32;
+using tf32::split;
 
-__device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a, const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// Fragments (lane = 4 g + t): A 16 x 8 row-major holds (g, t), (g + 8, t),
-// (g, t + 4), (g + 8, t + 4); B 8 x 8 holds (k = t, n = g), (k = t + 4,
-// n = g); the accumulator 16 x 8 holds (g, 2t), (g, 2t + 1), (g + 8, 2t),
-// (g + 8, 2t + 1).
+// The A fragment (layouts in tf32_mma.cuh) of rows [0, 16) of a (row
+// stride lda) at column k.
 __device__ __forceinline__ void load_a(const float* a, int lda, int k, float* x) {
   const int g = (threadIdx.x % 32) / 4, t = threadIdx.x % 4;
   x[0] = a[g * lda + k + t];

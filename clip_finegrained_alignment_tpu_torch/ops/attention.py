@@ -13,8 +13,9 @@ Pallas TPU kernels of ``clip_finegrained_alignment_tpu/ops/attention.py``:
 both written by hand for Hopper and loaded through ``ops/_build.py``.
 
 * q, k, v are ``[B, S, H, Dh]`` (bshd) views of the projection outputs;
-  any batch / sequence / head strides (in bf16, multiples of 16 bytes),
-  last dim contiguous; float32 or bfloat16; Dh in {16, 32, 64}.
+  any batch / sequence / head strides (in the forward, and in the bf16
+  backward, multiples of 16 bytes), last dim contiguous; float32 or
+  bfloat16; Dh in {16, 32, 64}.
 * bias is None or additive fp32, broadcastable to ``[B|1, 1, S, S]``
   (head-invariant: CLIP's causal and padding masks). It gets no gradient,
   as in the JAX package (``_fa_bwd`` returns None for it).
@@ -37,20 +38,30 @@ the kernel is chosen by dtype alone.
 Bound at B=32 on an H100 (3.35 TB/s, 989 TFLOP/s bf16): the ViT-B/16
 vision forward (S=197, H=12, Dh=64, bf16) moves ~39 MB of q/k/v/o for
 ~3.8 GFLOP (~11.5 us, bytes); its backward moves ~68 MB of q/k/v/do/dq/
-dk/dv for ~9.5 GFLOP (~20 us, bytes). In bf16, the type of every path on
-the card, the kernels run every product on the tensor cores
-(``mma.sync`` m16n8k16, fp32 sums) from bf16 tiles that ``cp.async``
-streams into shared memory through the tensors' strides, so each pointer
-and stride must be a multiple of 16 bytes (true of every projection view
-the model makes). When a gradient will be taken, the forward also writes
-the per-row log-sum-exp, which ``FlashAttention`` saves so that the
-backward reads exact probabilities instead of recomputing the softmax
-statistics; serving (no gradient) writes none. It is an fp32 pair
+dk/dv for ~9.5 GFLOP (~20 us, bytes). Both forward kernels run every
+product on the tensor cores (``mma.sync``, fp32 sums) from tiles read 16
+bytes at a time through the tensors' strides into shared memory, so each
+pointer and stride must be a multiple of 16 bytes (true of every
+projection view the model makes; anything else raises ``ValueError``):
+
+* bf16, the type of serving and training: m16n8k16 bf16 products, and
+  the bf16 backward on the same design;
+* float32, the type of evaluation's towers (``eval/scoring.py``): each
+  fp32 product as three m16n8k8 TF32 products of hi / lo halves
+  (hi·hi + hi·lo + lo·hi), which holds the fp32 tolerance one TF32
+  product would miss, the tiles split once into those halves as they are
+  stored; the same bound in bytes, and three times the flops at 495
+  TFLOP/s (~23 us at evaluation's B=32 either way).
+
+When a gradient will be taken, the forward also writes the per-row
+log-sum-exp, which ``FlashAttention`` saves so that the bf16 backward
+reads exact probabilities instead of recomputing the softmax statistics;
+serving and evaluation (no gradient) write none. It is an fp32 pair
 ``[2, B, H, S]``: lse[0] the log-sum-exp rounded to fp32 and lse[1] what
 that rounding left out, since at a fully masked row's −1e9 one fp32 has a
 spacing of 64 and would lose log Sp.
-The float32 kernels are the first CUDA-core versions, kept for exactness
-(TF32 would not hold a 1e-4 tolerance); no path on the card runs them.
+The float32 backward is the first CUDA-core version, kept for exactness;
+no path on the card runs it (evaluation runs the float32 forward only).
 The designs are described in the sources.
 """
 
@@ -192,19 +203,20 @@ def _strides(*ts):
 
 
 def _copy_aligned(t: torch.Tensor) -> bool:
-    """Whether a bf16 tensor's pointer and batch / sequence / head strides
-    (of a dim longer than 1) are multiples of 16 bytes (8 elements), as the
-    bf16 kernels' 16-byte ``cp.async`` copies need."""
-    st, n = t.stride(), t.shape
-    return not (t.data_ptr() % 16 or (st[0] % 8 and n[0] > 1)
-                or (st[1] % 8 and n[1] > 1) or (st[2] % 8 and n[2] > 1))
+    """Whether a tensor's pointer and batch / sequence / head strides (of a
+    dim longer than 1) are multiples of 16 bytes, as the kernels' 16-byte
+    loads and ``cp.async`` copies need."""
+    st, n, quantum = t.stride(), t.shape, 16 // t.element_size()
+    return not (t.data_ptr() % 16 or (st[0] % quantum and n[0] > 1)
+                or (st[1] % quantum and n[1] > 1)
+                or (st[2] % quantum and n[2] > 1))
 
 
 def _check_copy_aligned(*ts) -> None:
-    if ts[0].dtype == torch.bfloat16 and not all(map(_copy_aligned, ts)):
-        raise ValueError("bf16 attention operands on the card need pointers "
-                         "and batch / sequence / head strides that are "
-                         "multiples of 16 bytes")
+    if not all(map(_copy_aligned, ts)):
+        raise ValueError(f"{ts[0].dtype} attention operands on the card need "
+                         "pointers and batch / sequence / head strides that "
+                         "are multiples of 16 bytes")
 
 
 def _dtype_code(t: torch.Tensor) -> int:
@@ -244,8 +256,9 @@ def _launch_backward(q, k, v, bias, scale, do, lse):
     forward's ``lse``; the float32 path recomputes its statistics and
     ignores it."""
     B, S, H, D = q.shape
-    _check_copy_aligned(q, k, v)
     bf16 = q.dtype == torch.bfloat16
+    if bf16:    # the float32 backward reads scalars
+        _check_copy_aligned(q, k, v)
     if bf16 and (lse is None or lse.shape != (2, B, H, S)
                  or lse.dtype != torch.float32 or not lse.is_contiguous()):
         raise ValueError("the bf16 attention backward needs the forward's "
