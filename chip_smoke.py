@@ -11,8 +11,10 @@ Phases, each of which fails the script (non-zero exit, no "ok" line):
    the bf16 blockwise kernels (forward, dq, dk/dv) to ``HGMMA`` (wgmma) in
    their machine code (``cuobjdump``) and to a ``wgmma`` chain ptxas did
    not serialize, and every SPARC kernel and the float32 attention forward
-   (``attention_fwd_tf32<64|32|16>``) to TF32 ``HMMA`` (``mma.sync``) in
-   its machine code and to no spills;
+   (``attention_fwd_tf32<64|32|16>``) and backward
+   (``attention_bwd_dq_tf32<...>``, ``attention_bwd_dkdv_tf32<...>``) to
+   TF32 ``HMMA`` (``mma.sync``) in its machine code and to no spills; count
+   the fused attention kernels' machine instructions;
 3. each kernel against its plain PyTorch version on the card, with its
    time, the plain version's, the one-call PyTorch yardstick's where there
    is one (never called by the port) and the least time the card could
@@ -26,9 +28,11 @@ Phases, each of which fails the script (non-zero exit, no "ok" line):
      tensor cores (three TF32 products for each fp32 one, as the kernel
      takes them) with the fp32-core bound beside it;
    - the attention backward at the train shapes (B=32: ViT-B/16 vision,
-     the causal text tower and the Dh=32 / Dh=16 rows, bf16 and fp32, both
+     the causal text tower and the Dh=32 / Dh=16 rows; the count loss's
+     counterfactual text tower, B=288 S=77 H=8 causal; bf16 and fp32, both
      layouts), fed the forward kernel's log-sum-exp, against the backward
-     alone of ``scaled_dot_product_attention``;
+     alone of ``scaled_dot_product_attention``, the float32 rows bounded on
+     the TF32 tensor cores with the fp32-core bound beside it;
    - both attention kernels on fully masked rows (B=32, S=197 and the
      causal S=77, bf16 and fp32; sample 0 masks every key): against the
      plain versions, and the rows against the TPU's Σv / Sp and its dv
@@ -51,9 +55,10 @@ Phases, each of which fails the script (non-zero exit, no "ok" line):
    counted: 24 x accum attention forward and backward launches and accum
    SPARC forward and backward launches; every step's loss and gradient
    norm finite and the parameters moved; one microbatch of 4 pairs on the
-   card in bf16 against the port in fp32 on the CPU (loss, gradient norm,
-   per-tensor gradient cosine); then the step time, pairs/s, model-FLOP
-   utilization and a profile of one step;
+   card in bf16, then in fp32 (``use_amp=False``: the fp32 attention
+   kernels), against the port in fp32 on the CPU (loss, gradient norm,
+   per-tensor gradient cosine, each dtype with limits of its own); then the
+   step time, pairs/s, model-FLOP utilization and a profile of one step;
 7. long-sequence attention: the three blockwise kernels (forward, dq,
    dk/dv) against their plain versions at the flash microbenchmark's design
    points ([B, 12, S, 64] bf16; S=1024, 2048, 4096 at B=8, 4, 1), a causal
@@ -81,8 +86,11 @@ Phases, each of which fails the script (non-zero exit, no "ok" line):
    (36 x 2 attention launches a step: the counterfactual captions are one
    more text tower; no SPARC), with ``--eval-every-epoch`` where
    matplotlib is installed (its confusion plots need it; two evaluations
-   of 36 forward launches each). It prints which image decode ran (the
-   native library or PIL), the live pipeline's rate alone, and one
+   of 36 forward launches each); D, C's data and loss in fp32
+   (``--no-amp``, the reference count fine-tune's forced fp32: the fp32
+   attention kernels, 36 x 2 launches each a step, no SPARC). It prints
+   which image decode ran (the native library or PIL), the live
+   pipeline's rate alone, and one
    ``train cli: {...}`` line: steps, epoch losses and epoch pairs/s on the
    host clock (data included), peak memory, build and run seconds and the
    card's line;
@@ -104,7 +112,8 @@ Phases, each of which fails the script (non-zero exit, no "ok" line):
 
 The last lines are the kernels' JSON line (``launches_by_path`` has
 ``serve``, ``train``, ``long``, ``train_cli`` and ``eval``; the forward
-kernel's entry also carries its ``fp32_eval`` rows), the ``nvidia-smi`` line
+kernel's entry also carries its ``fp32_eval`` rows, the backward's its
+``fp32_train`` rows), the ``nvidia-smi`` line
 and ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 rest of the repository beside it, the script exits non-zero before any
 result. It imports nothing of JAX.
@@ -114,6 +123,7 @@ from __future__ import annotations
 
 import argparse
 import base64
+import dataclasses
 import io
 import json
 import math
@@ -184,6 +194,32 @@ TRAIN_MAX_LOSS_REL = 1e-5
 TRAIN_MAX_GNORM_REL = 2e-3
 TRAIN_MIN_GRAD_COSINE = 0.996
 TRAIN_MAX_ZERO_GRAD_SHARE = 1e-4
+# The same microbatch with the card in fp32 (use_amp=False, as
+# ``cli/train.py --no-amp``) against the CPU in fp32. Set before any card
+# reading, from the CPU emulation in tests/test_torch_attention_tf32.py
+# (the same ViT-B/16 weights and 4 pairs, SPARC, every layer's attention
+# forward and backward taken as the kernels take them, three TF32 products
+# for each fp32 one, against the plain fp32 path; statistics in float64):
+# loss relative difference 0 (below fp32's spacing, 1.2e-7), gradient
+# norm 1.9e-8, largest per-tensor cosine gap (1 − cosine) 1.3e-11; the
+# limits: loss 1e-6 (8 fp32 steps), gradient norm 5e-6, cosine gap 1e-8
+# (740x). That emulation rounds its sums to nearest; the card's mma.sync
+# TF32 sums mostly round toward zero (perf/fp32_grad_bias_study.py), so the
+# backward kernels' dq, dk, dv come out ~2e-6 smaller than exact and the
+# card's gradient norm 2.31e-6 below the CPU's (the plain backward on the
+# card: 1.9e-8; PERF.md). The emulation with its sums rounded toward zero
+# reads 2.1e-6, under half the gradient-norm limit, and a cosine gap of
+# 1.8e-11. With one TF32 product each (hi·hi), the emulation reads a
+# gradient norm of 2.0e-5 and a cosine gap of 6.5e-7: a kernel at plain
+# TF32 accuracy, or a wrong gradient path, fails them.
+TRAIN_F32_MAX_LOSS_REL = 1e-6
+TRAIN_F32_MAX_GNORM_REL = 5e-6
+TRAIN_F32_MIN_GRAD_COSINE = 1 - 1e-8
+TRAIN_CHECK_LIMITS = {  # card dtype -> (loss rel, grad norm rel, cosine)
+    "bfloat16": (TRAIN_MAX_LOSS_REL, TRAIN_MAX_GNORM_REL,
+                 TRAIN_MIN_GRAD_COSINE),
+    "float32": (TRAIN_F32_MAX_LOSS_REL, TRAIN_F32_MAX_GNORM_REL,
+                TRAIN_F32_MIN_GRAD_COSINE)}
 # Blockwise kernels vs their plain versions (same inputs, the plain
 # forward's o and lse fed to both backwards), per element: BWD_TOL, for the
 # same reasons:
@@ -393,6 +429,13 @@ ATTENTION_SHAPES = [  # (what, S, H, Dh, causal, also in the backward check)
 ]
 
 
+# The backward at the count loss's counterfactual text tower: 9 captions
+# for each of a microbatch's 32 samples, one [288, 77] causal forward.
+BACKWARD_EXTRA_SHAPES = [  # (what, B, S, H, Dh, causal)
+    ("counterfactual text (causal)", 9 * TRAIN_B, 77, 8, 64, True),
+]
+
+
 def bound_ms(nbytes: float, flops: float, dtype_name: str) -> dict:
     """The least time for ``nbytes`` of device memory traffic and ``flops``
     operations at the card's peak rates for ``dtype_name``."""
@@ -415,14 +458,18 @@ def attention_bound_ms(B, S, H, D, dtype_name, causal, tensors=4,
     return bound_ms(nbytes, 2.0 * products * B * H * S * S * D, dtype_name)
 
 
-def attention_fwd_bound_ms(B, S, H, D, dtype_name, causal) -> dict:
-    """The forward kernel's bound: bf16 products on the bf16 tensor cores;
-    float32 ones as the kernel takes them, three TF32 products each on the
-    TF32 tensor cores, with the bound on the fp32 CUDA cores (one fp32
-    product each) beside it as ``bound_ms_fp32_cores``."""
+def fused_attention_bound_ms(B, S, H, D, dtype_name, causal, tensors=4,
+                             products=2) -> dict:
+    """The bound of a fused attention kernel (by default the forward's;
+    the backward's with ``tensors=7, products=5``): bf16 products on the
+    bf16 tensor cores; float32 ones as the kernels take them, three TF32
+    products each on the TF32 tensor cores, with the bound on the fp32
+    CUDA cores (one fp32 product each) beside it as
+    ``bound_ms_fp32_cores``."""
+    cores = attention_bound_ms(B, S, H, D, dtype_name, causal, tensors,
+                               products)
     if dtype_name != "float32":
-        return attention_bound_ms(B, S, H, D, dtype_name, causal)
-    cores = attention_bound_ms(B, S, H, D, dtype_name, causal)
+        return cores
     row = bound_ms(cores["bytes"], 3 * cores["flops"], "tf32")
     row["bound_ms_fp32_cores"] = cores["bound_ms"]
     return row
@@ -539,8 +586,8 @@ def check_attention(results: dict) -> dict:
                     # Timed on the main path's layout.
                     row.update(attention_fwd_times(*layouts["separate"],
                                                    bias, scale))
-                    row.update(attention_fwd_bound_ms(B, S, H, D, dname,
-                                                      causal))
+                    row.update(fused_attention_bound_ms(B, S, H, D, dname,
+                                                        causal))
                 log("attention", json.dumps(row))
                 rows.append(row)
     results["attention"] = rows
@@ -636,17 +683,19 @@ def bwd_excess(got, ref, dname) -> float:
 
 
 def check_attention_backward(results: dict) -> dict:
-    """The backward kernel at the train shapes (B=32), both layouts."""
+    """The backward kernels at the train shapes (B=32) and the count
+    loss's counterfactual text tower (B=288), both layouts, fed the forward
+    kernel's lse pair."""
     import torch
     import torch.nn.functional as F
     from clip_finegrained_alignment_tpu_torch.ops import attention as ta
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
     rows = []
-    B = TRAIN_B
-    for what, S, H, D, causal, backward in ATTENTION_SHAPES:
-        if not backward:
-            continue
+    shapes = [(what, TRAIN_B, S, H, D, causal)
+              for what, S, H, D, causal, backward in ATTENTION_SHAPES
+              if backward] + BACKWARD_EXTRA_SHAPES
+    for what, B, S, H, D, causal in shapes:
         for dtype in (torch.bfloat16, torch.float32):
             dname = str(dtype).split(".")[-1]
             x = torch.randn(B, S, 3 * H * D, device="cuda",
@@ -700,8 +749,8 @@ def check_attention_backward(results: dict) -> dict:
             dot = do.transpose(1, 2)
             row["library_ms"] = cuda_time_ms(lambda: torch.autograd.grad(
                 out, (qt, kt, vt), dot, retain_graph=True))
-            row.update(attention_bound_ms(B, S, H, D, dname, causal,
-                                          tensors=7, products=5))
+            row.update(fused_attention_bound_ms(B, S, H, D, dname, causal,
+                                                tensors=7, products=5))
             log("attention backward", json.dumps(row))
             rows.append(row)
     results["attention_backward"] = rows
@@ -1105,29 +1154,34 @@ def train_batch(cfg, accum, B, seed):
     return {"pixel_values": pix, "input_ids": ids}
 
 
-def grads_vs_cpu(sd, cfg, tcfg, batch) -> dict:
-    """One microbatch's loss, gradient norm and gradients on the card
-    (bf16 compute) against the port in fp32 on the CPU."""
+def microbatch_grads(model, batch, tcfg, cfg, dtype) -> tuple:
+    """(loss, gradient norm, {name: fp32 CPU gradient}) of the first
+    TRAIN_CHECK_PAIRS pairs of ``batch``'s first microbatch, on the
+    model's device in ``dtype``; the norm in float64."""
     import torch
-    from clip_finegrained_alignment_tpu_torch.models import clip as tm
-    from clip_finegrained_alignment_tpu_torch.optim.factory import \
-        global_norm
     from clip_finegrained_alignment_tpu_torch.train.engine import \
         accumulate_grads
 
-    side = {}
-    for device, dtype in (("cuda", torch.bfloat16), ("cpu", torch.float32)):
-        model = tm.build_train_model(cfg, sd, device=device)
-        mb = {k: torch.from_numpy(x[:1, :TRAIN_CHECK_PAIRS]).to(device)
-              for k, x in batch.items()}
-        losses = accumulate_grads(model, mb, tcfg, cfg, dtype=dtype)
-        grads = {n: (p.grad if p.grad is not None
-                     else torch.zeros_like(p)).detach().float().cpu()
-                 for n, p in model.named_parameters()}
-        side[device] = (losses["total_loss"].item(),
-                        global_norm(grads.values()).item(), grads)
-        del model
-    (l_gpu, n_gpu, g_gpu), (l_cpu, n_cpu, g_cpu) = side["cuda"], side["cpu"]
+    device = next(model.parameters()).device
+    mb = {k: torch.from_numpy(x[:1, :TRAIN_CHECK_PAIRS]).to(device)
+          for k, x in batch.items()}
+    losses = accumulate_grads(model, mb, tcfg, cfg, dtype=dtype)
+    grads = {n: (p.grad if p.grad is not None
+                 else torch.zeros_like(p)).detach().float().cpu()
+             for n, p in model.named_parameters()}
+    norm = math.sqrt(sum(g.double().square().sum().item()
+                         for g in grads.values()))
+    return losses["total_loss"].item(), norm, grads
+
+
+def compare_grads(card, cpu) -> dict:
+    """Loss and gradient-norm relative differences and per-tensor
+    gradient cosines (float64) of two :func:`microbatch_grads` results.
+    A key projection's bias gradient is zero by math (softmax ignores a
+    constant added to a row's scores): what both sides hold is rounding
+    noise, so it is held to be small, not to agree."""
+    import torch
+    (l_gpu, n_gpu, g_gpu), (l_cpu, n_cpu, g_cpu) = card, cpu
     cos, zero, noise = {}, [], 0.0
     for n, want in g_cpu.items():
         got = g_gpu[n]
@@ -1136,14 +1190,11 @@ def grads_vs_cpu(sd, cfg, tcfg, batch) -> dict:
                   "card only")
             zero.append(n)
         elif n.endswith("self_attn.k_proj.bias"):
-            # Zero by math (softmax ignores a constant added to a row's
-            # scores): what both sides hold is rounding noise, so it is
-            # held to be small, not to agree.
             noise = max(noise, got.norm().item() / n_gpu,
                         want.norm().item() / n_cpu)
         else:
             cos[n] = (torch.nn.functional.cosine_similarity(
-                got.flatten(), want.flatten(), dim=0)).item()
+                got.double().flatten(), want.double().flatten(), dim=0)).item()
     check(noise <= TRAIN_MAX_ZERO_GRAD_SHARE,
           f"train vs CPU: a key-projection bias gradient is {noise} of the "
           "global norm; it is zero by math")
@@ -1156,6 +1207,33 @@ def grads_vs_cpu(sd, cfg, tcfg, batch) -> dict:
             "median_grad_cosine": sorted(cos.values())[len(cos) // 2],
             "tensors_compared": len(cos), "zero_grad_tensors": zero,
             "k_proj_bias_grad_share_of_norm": noise}
+
+
+def grads_vs_cpu(sd, cfg, tcfg, batch, dtype_name) -> dict:
+    """One microbatch's loss, gradient norm and gradients on the card in
+    ``dtype_name`` (the compute dtype: bfloat16, or float32 as
+    ``use_amp=False`` gives it) against the port in fp32 on the CPU, held
+    to that dtype's TRAIN_CHECK_LIMITS."""
+    import torch
+    from clip_finegrained_alignment_tpu_torch.models import clip as tm
+
+    side = {}
+    for device, dtype in (("cuda", getattr(torch, dtype_name)),
+                          ("cpu", torch.float32)):
+        model = tm.build_train_model(cfg, sd, device=device)
+        side[device] = microbatch_grads(model, batch, tcfg, cfg, dtype)
+        del model
+    out = {"card_dtype": dtype_name,
+           **compare_grads(side["cuda"], side["cpu"])}
+    max_loss, max_norm, min_cos = TRAIN_CHECK_LIMITS[dtype_name]
+    out["limits"] = {"loss_rel": max_loss, "grad_norm_rel": max_norm,
+                     "min_grad_cosine": min_cos}
+    log(f"train vs CPU fp32 (card {dtype_name}):", json.dumps(out))
+    check(out["loss_rel"] <= max_loss and out["grad_norm_rel"] <= max_norm
+          and out["min_grad_cosine"] >= min_cos,
+          f"train step on the card ({dtype_name}) vs CPU fp32 out of "
+          f"limits: {out}")
+    return out
 
 
 def train_main_path(results: dict) -> dict:
@@ -1274,13 +1352,12 @@ def train_main_path(results: dict) -> dict:
     del step, opt, model, batch
     torch.cuda.empty_cache()
 
-    agree = grads_vs_cpu(sd, cfg, tcfg, host_batch)
-    log("train vs CPU fp32:", json.dumps(agree))
-    check(agree["loss_rel"] <= TRAIN_MAX_LOSS_REL
-          and agree["grad_norm_rel"] <= TRAIN_MAX_GNORM_REL
-          and agree["min_grad_cosine"] >= TRAIN_MIN_GRAD_COSINE,
-          f"train step on the card vs CPU fp32 out of limits: {agree}")
-    out["vs_cpu_fp32"] = agree
+    # The card in bf16 (this phase's steps), then in fp32 (use_amp=False,
+    # the fp32 attention kernels), each against the CPU in fp32.
+    out["vs_cpu_fp32"] = grads_vs_cpu(sd, cfg, tcfg, host_batch, "bfloat16")
+    out["fp32_vs_cpu_fp32"] = grads_vs_cpu(
+        sd, cfg, dataclasses.replace(tcfg, use_amp=False), host_batch,
+        "float32")
     results["train"] = out
     return out
 
@@ -1480,14 +1557,14 @@ def long_main_path(results: dict) -> dict:
 
 def train_cli_path(results: dict, keep_dir: str) -> dict:
     """Generate a procedural dataset and pack it with the port's CLIs, then
-    three in-process runs of the port's ``cli.train.main`` at ViT-B/16 full
+    four in-process runs of the port's ``cli.train.main`` at ViT-B/16 full
     width: A (packed, pixel bank on the card, SPARC + AdamSPD, 2 epochs),
     B (bare ``--resume`` of A to 3 epochs), C (live decode, the count loss
     with AdamW, 1 epoch, with ``--eval-every-epoch`` where matplotlib can
-    write its plots). Each run's launches are counted on their own and must
-    be exactly what its steps (and evaluations) imply. A's ``best/`` is
-    kept in ``keep_dir`` for phase 9, with C's held-out batch (the first of
-    its epoch 0)."""
+    write its plots), D (C in fp32: ``--no-amp``). Each run's launches are
+    counted on their own and must be exactly what its steps (and
+    evaluations) imply. A's ``best/`` is kept in ``keep_dir`` for phase 9,
+    with C's held-out batch (the first of its epoch 0)."""
     import gc
     import importlib.util
     import shutil
@@ -1499,6 +1576,8 @@ def train_cli_path(results: dict, keep_dir: str) -> dict:
                                                           pack_dataset)
     from clip_finegrained_alignment_tpu_torch.cli import train as cli_train
     from clip_finegrained_alignment_tpu_torch.config import CLIPConfig
+    from clip_finegrained_alignment_tpu_torch.core.precision import \
+        compute_dtype
     from clip_finegrained_alignment_tpu_torch.ops import _build
     from clip_finegrained_alignment_tpu_torch.train import engine
 
@@ -1678,6 +1757,30 @@ def train_cli_path(results: dict, keep_dir: str) -> dict:
         del res
         gc.collect()
         torch.cuda.empty_cache()
+
+        # Run D: C's data and loss in fp32 (--no-amp, the reference count
+        # fine-tune's forced fp32): the fp32 attention forward and backward
+        # kernels in every layer of all three towers, no SPARC.
+        res, d = counted("D", [
+            "--model", "ViT-B/16", "--loss-type", "count", "--optimizer",
+            "adamw", "--no-amp", "--batch-size", str(TRAIN_B),
+            "--grad-accum", str(CLI_COUNT_ACCUM), "--epochs", "1",
+            "--annotations", anns, "--checkpoint-dir", ckpt,
+            "--experiment-name", "count_fp32", "--seed", str(SEED),
+            "--log-every", "1"])
+        d["compute_dtype"] = str(compute_dtype(res["trainer"].cfg))
+        check(d["compute_dtype"] == "torch.float32",
+              f"train cli D: compute dtype {d['compute_dtype']}")
+        check(d["steps"] == CLI_SAMPLES // (TRAIN_B * CLI_COUNT_ACCUM),
+              f"train cli D: {d['steps']} steps")
+        want = expect(d["steps"], CLI_COUNT_ACCUM,
+                      layers + cfg.text.num_layers, 0)
+        check(d["launches"] == want,
+              f"train cli D: launches {d['launches']} != {want}")
+        d["step_ms"] = [s / d["steps"] * 1e3 for s in d["epoch_s"]]
+        del res
+        gc.collect()
+        torch.cuda.empty_cache()
     finally:
         engine.Trainer.step = step
         engine.Trainer.load_state_dict = load_state_dict
@@ -1687,11 +1790,11 @@ def train_cli_path(results: dict, keep_dir: str) -> dict:
             os.environ["CFA_ALLOW_HASH_TOKENIZER"] = prev_env
         shutil.rmtree(work, ignore_errors=True)
 
-    out.update({"A": a, "B": b, "C": c,
+    out.update({"A": a, "B": b, "C": c, "D": d,
                 "kernels_build_s": results.get("build_s")})
     log("train cli:", json.dumps(out))
     results["train_cli"] = out
-    total = {n: a["launches"][n] + b["launches"][n] + c["launches"][n]
+    total = {n: sum(r["launches"][n] for r in (a, b, c, d))
              for n in _build.SOURCES}
     return {"launches": total, "best_dir": kept, "held_out": held_out}
 
@@ -1929,7 +2032,7 @@ def eval_path(results: dict, best_dir: str, held_out: dict) -> dict:
         check(row["max_abs_err"] <= KERNEL_TOL["float32"],
               f"attention fp32 {what}: max abs err {row['max_abs_err']}")
         row.update(attention_fwd_times(q, k, v, bias, scale))
-        row.update(attention_fwd_bound_ms(B, S, H, D, "float32", causal))
+        row.update(fused_attention_bound_ms(B, S, H, D, "float32", causal))
         log("attention fp32 eval", json.dumps(row))
         rows.append(row)
     out["attention_fp32"] = rows
@@ -2002,15 +2105,19 @@ def main(argv=None) -> int:
                       if r.get("wgmma_serialized")]
         check(not serialized,
               f"{name}: ptxas serialized the wgmma chain of {serialized}")
-    # The SPARC kernels and the float32 attention forward run their
-    # products as 3xTF32 mma.sync: HMMA with TF32 in every one of those
-    # kernels (named: the forward's library also holds the bf16 kernel),
-    # and no spills.
+    # The SPARC kernels and the float32 attention forward and backward run
+    # their products as 3xTF32 mma.sync: HMMA with TF32 in every one of
+    # those kernels (named: the attention libraries also hold the bf16
+    # kernels), and no spills.
     results["sass_hmma_tf32"] = {}
     for name, prefix, count in (("sparc_fwd", "sparc_fwd_kernel", 1),
                                 ("sparc_bwd", "sparc_bwd_", 2),
-                                ("attention_fwd", "attention_fwd_tf32<", 3)):
-        hmma = sass_count(_build.library_path(name), "HMMA", "TF32")
+                                ("attention_fwd", "attention_fwd_tf32<", 3),
+                                ("attention_bwd", "attention_bwd_dq_tf32<", 3),
+                                ("attention_bwd", "attention_bwd_dkdv_tf32<",
+                                 3)):
+        hmma = results["sass_hmma_tf32"].get(name) or sass_count(
+            _build.library_path(name), "HMMA", "TF32")
         results["sass_hmma_tf32"][name] = hmma
         log(f"sass {name}: HMMA TF32 {json.dumps(hmma)}")
         tf32 = {k: n for k, n in hmma.items() if k.startswith(prefix)}
@@ -2087,7 +2194,16 @@ def main(argv=None) -> int:
             "library_ms": row["library_ms"], "shape": shape,
             **({"graph_ms": row["graph_ms"]} if "graph_ms" in row else {}),
             **({"fp32_eval": evaluation["attention_fp32"]}
-               if name == "attention_fwd" else {})})
+               if name == "attention_fwd" else {}),
+            **({"fp32_train": [
+                {k: r[k] for k in ("shape", "B", "S", "H", "Dh", "ms",
+                                   "graph_ms", "plain_ms", "library_ms",
+                                   "bound_ms", "bound_by",
+                                   "bound_ms_fp32_cores",
+                                   "max_err_over_tol")}
+                for r in results["attention_backward"]
+                if r["dtype"] == "float32"]}
+               if name == "attention_bwd" else {})})
     results["kernels"] = kernels
     results["seconds"] = time.time() - t_start
     if args.out:

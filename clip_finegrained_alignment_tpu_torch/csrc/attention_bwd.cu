@@ -17,8 +17,9 @@
 // Same function, not the same blocking. The TPU kernel holds the padded
 // S x S fp32 p, dp and ds tiles of a whole head group in VMEM (~5.8 MB at
 // ViT-B/16, S=197 padded to 200, 12 heads); a Hopper block has 227 KB of
-// shared memory. So both passes stream 64-wide tiles, and no sum crosses
-// blocks (no atomics: the result is the same on every run). Since
+// shared memory. So each dtype's two passes hold 64 rows of their own a
+// block and stream the other side's tiles, and no sum crosses blocks (no
+// atomics: the result is the same on every run). Since
 //   dq_i = sum_j p_ij (dp_ij - r_i) k_j = sum_j p_ij dp_ij k_j - r_i sum_j p_ij k_j,
 // the dq pass needs the row term r_i = sum_j dp_ij p_ij only at its end:
 // it accumulates A = (p * dp) k, B = p k and r, and ends with dq = A - r B.
@@ -29,7 +30,7 @@
 // memory-bound at ~20 us at 3.35 TB/s; the text tower (S=77, H=8) ~18 MB,
 // ~5 us.
 //
-// bf16 (every path on the card): two tensor-core kernels (building blocks
+// bf16 (training's default compute type): two tensor-core kernels (building blocks
 // and fragment layouts in attention_mma.cuh), one block of 4 warps per
 // 64-row tile, the streamed tiles bf16 in shared memory through a 2-stage
 // cp.async ring, every product mma.sync.m16n8k16 bf16 with fp32 sums:
@@ -63,13 +64,58 @@
 // bound by bytes, not operations, and 16-row warp tiles fit S=77 and S=197
 // with little padding; 16-row slices past S are skipped.
 //
-// float32 (no path on the card runs it; evaluation runs the float32
-// forward only): the first version, kept as it was: fp32 CUDA cores from
-// fp32 copies of the tiles (the forward's 3xTF32 products would carry over
-// when a path needs them), a dq pass with an online softmax that writes
-// its own per-row m, l (the padded keys' share added at the end, m started
-// at -1e9 when there are any) and r / l (it does not read lse), and a
-// dk/dv pass that recomputes p = exp(s - m) / l.
+// float32 (cli/train.py --no-amp: every layer of every tower), near fp32
+// accuracy (see Accuracy below) on the TF32 tensor cores:
+// attention_bwd_dq_tf32 and attention_bwd_dkdv_tf32, the same two passes,
+// every product mma.sync.m16n8k8 TF32 with fp32 sums, three of them for each
+// fp32 one (attention_tf32.cuh: hi·hi + hi·lo + lo·hi; p, p * dp and ds are
+// split into hi and lo like any other operand). Both read the forward's lse
+// pair, as the bf16 passes do; dq is A - r B. 4 warps, 64 rows a block (dq:
+// query rows; dk/dv: keys), whose two tiles (qs and do, or k and v) stay fp32
+// in shared memory, split by each warp as it reads its fragments; 16-row
+// tiles of the streamed pair (k and v, or qs and do) are read from device
+// memory into registers while the tile before them is computed, then split
+// once into hi / lo words in the other of two buffers (one barrier a tile).
+// 68 KB of shared memory at Dh=64: the dq pass fits two blocks an SM (188
+// registers), the dk/dv pass three (168).
+//
+// What bounds it: not the tensor cores alone. Plain TF32 (hi·hi alone, a
+// third of the products) saves only 19-28 % of the time: each warp reads
+// its operands' words from shared memory for every tile and runs its
+// products, exponentials and splits in sequence, with 8 (dq) or 12 (dk/dv)
+// warps an SM to overlap them. Own tiles split once into hi / lo words in
+// shared memory (twice their bytes) measured 9-22 % slower, 32-row tiles
+// and 8-warp blocks slower on two of three shapes, and a software
+// pipeline that overlaps tile s + 1's products over the head dim with
+// tile s's products over the rows (a third buffer, 224 registers) 25-63 %
+// slower (perf/attention_bwd_fp32_study.py on an NVIDIA H100 80GB HBM3 at
+// 700 W; PERF.md).
+//
+// Layouts. Each streamed tile is read from two sides: as the B operand of
+// a product over the head dim (s = qs k^T: lane (g, t) takes row g and the
+// head-dim pair of column t) and as the B operand of a product over the
+// tile's rows (A += (p * dp) k: lane (g, t) takes rows 2t and 2t + 1, the
+// key pair the m16n8k8 accumulator holds in place of columns t, t + 4,
+// and head dims of column g). One layout serves both with 16-byte loads
+// and no bank conflicts: a row is its DH / 2 chunks with no padding,
+// chunk c of row r stored at chunk c ^ swizzle(r). The product over rows
+// takes the gradient's n dim in an order of its own: n8 tile j, column c
+// holds head dim (DH / 8) c + j, so lane g reads (DH / 8) contiguous head
+// dims (DH / 16 chunks) of each of its two rows, and lane t ends with
+// 2 DH / 8 contiguous head dims of a gradient row, stored as float4s.
+//
+// Accuracy. The tensor cores round each fp32 sum mostly toward zero, not
+// to nearest (perf/fp32_grad_bias_study.py), and a vision row's sums take
+// 26 k8 steps of three products each: dq, dk and dv come out 1.5-1.9e-6
+// smaller than exact, about 15 units of fp32's last place, with or
+// without a fourth product (lo·lo). That is within a tenth of the card's
+// tolerance against the plain version, but it shows in a model's gradient
+// norm, 2.3e-6 below the CPU's at ViT-B/16 (PERF.md).
+//
+// Bound on the card: the vision backward at B=32 moves 136 MB for 9.5
+// GFLOP of fp32 products, 28.6 GFLOP of TF32 ones, 0.058 ms at 495
+// TFLOP/s (operations); its text tower (S=77, causal) 35 MB, 0.011 ms
+// (bytes).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -77,378 +123,9 @@
 #include <stdint.h>
 
 #include "attention_mma.cuh"
+#include "attention_tf32.cuh"
 
 namespace {
-
-constexpr int BQ = 64;          // query rows per tile
-constexpr int BK = 64;          // keys per tile
-constexpr int TX = 16;
-constexpr int TY = 16;
-constexpr int NT = TX * TY;     // threads per block
-constexpr int R4 = 4;           // rows / keys per thread in a score tile
-constexpr int QSTR = BQ + 4;    // row stride of query-indexed tiles
-constexpr int KSTR = BK + 4;    // row stride of key-indexed tiles
-
-static_assert(BQ == TY * R4 && BK == TX * R4 && BK == TY * R4 && BQ == TX * R4,
-              "the float4 tile reads below assume 64 x 64 tiles of 4 x 4");
-
-__device__ __forceinline__ float group16_max(float x) {
-#pragma unroll
-  for (int off = TX / 2; off > 0; off >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
-__device__ __forceinline__ float group16_sum(float x) {
-#pragma unroll
-  for (int off = TX / 2; off > 0; off >>= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
-__device__ __forceinline__ void load4(const float* p, float out[4]) {
-  const float4 a = *reinterpret_cast<const float4*>(p);
-  out[0] = a.x; out[1] = a.y; out[2] = a.z; out[3] = a.w;
-}
-
-// RD consecutive floats (RD in {1, 2, 4}) from 16-byte-aligned shared memory.
-template <int RD>
-__device__ __forceinline__ void load_rd(const float* p, float out[RD]) {
-  if constexpr (RD == 4) {
-    load4(p, out);
-  } else if constexpr (RD == 2) {
-    const float2 a = *reinterpret_cast<const float2*>(p);
-    out[0] = a.x; out[1] = a.y;
-  } else {
-#pragma unroll
-    for (int j = 0; j < RD; ++j) out[j] = p[j];
-  }
-}
-
-// Loads rows [r0, r0 + 64) of one head of x (bshd view through strides)
-// into shared memory as fp32: transposed into xt[DH][STR] and, if xs is
-// not null, row-major into xs[64][DH]. Rows >= S are zero. With scale != 0
-// the value is x * scale, as the TPU wrapper prescales q.
-template <int DH, int STR>
-__device__ __forceinline__ void load_tile(const float* __restrict__ xb, int64_t x_ss,
-                                          int r0, int S, float scale,
-                                          float* __restrict__ xt,
-                                          float* __restrict__ xs) {
-  for (int i = threadIdx.x; i < 64 * DH; i += NT) {
-    const int r = i / DH, d = i % DH;
-    const int row = r0 + r;
-    float x = 0.f;
-    if (row < S) {
-      x = xb[row * x_ss + d];
-      if (scale != 0.f) x *= scale;
-    }
-    xt[d * STR + r] = x;
-    if (xs) xs[r * DH + d] = x;
-  }
-}
-
-// s[i][j] = sum_d At[d][a0 + i] * Bt[d][b0 + j] for a 4 x 4 block.
-template <int DH>
-__device__ __forceinline__ void dot4x4(const float* __restrict__ At, int astr, int a0,
-                                       const float* __restrict__ Bt, int bstr, int b0,
-                                       float s[R4][R4]) {
-#pragma unroll
-  for (int i = 0; i < R4; ++i)
-#pragma unroll
-    for (int j = 0; j < R4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-  for (int d = 0; d < DH; ++d) {
-    float a[R4], b[R4];
-    load4(&At[d * astr + a0], a);
-    load4(&Bt[d * bstr + b0], b);
-#pragma unroll
-    for (int i = 0; i < R4; ++i)
-#pragma unroll
-      for (int j = 0; j < R4; ++j) s[i][j] = fmaf(a[i], b[j], s[i][j]);
-  }
-}
-
-// ---------------------------------------------------------------------------
-// float32, pass 1: dq and the per-row statistics
-// ---------------------------------------------------------------------------
-
-// Kt / Vt and the Et / EDt written after the scores share their space, as
-// Qt / DOt and Pq / DSq do in pass 2: under ~113 KB a block, two blocks
-// fit on an SM.
-template <int DH>
-__host__ __device__ constexpr size_t ke_floats() {
-  return (size_t)DH * KSTR > (size_t)BK * QSTR ? (size_t)DH * KSTR : (size_t)BK * QSTR;
-}
-
-template <int DH>
-constexpr size_t dq_smem_floats() {
-  // Qt, DOt [DH][QSTR]; Kt then Et, Vt then EDt; Ks [BK][DH]
-  return 2 * (size_t)DH * QSTR + 2 * ke_floats<DH>() + (size_t)BK * DH;
-}
-
-template <int DH>
-__global__ void __launch_bounds__(NT, 2) attention_bwd_dq_kernel(
-    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-    const float* __restrict__ bias, const float* __restrict__ dout,
-    float* __restrict__ dq, float* __restrict__ stats, int B, int S, int H,
-    int64_t q_sb, int64_t q_ss, int64_t q_sh, int64_t k_sb, int64_t k_ss, int64_t k_sh,
-    int64_t v_sb, int64_t v_ss, int64_t v_sh, int64_t o_sb, int64_t o_ss, int64_t o_sh,
-    int64_t bias_sb, float scale) {
-  constexpr int RD = DH / TX;
-  extern __shared__ __align__(16) float smem[];
-  float* Qt = smem;
-  float* DOt = Qt + DH * QSTR;
-  float* Kt = DOt + DH * QSTR;            // [DH][KSTR], then Et [BK][QSTR]
-  float* Vt = Kt + ke_floats<DH>();       // [DH][KSTR], then EDt [BK][QSTR]
-  float* Ks = Vt + ke_floats<DH>();       // [BK][DH]
-  float* Et = Kt;
-  float* EDt = Vt;
-
-  const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
-  const float* kb = k + b * k_sb + h * k_sh;
-  const float* vb = v + b * v_sb + h * v_sh;
-  const float* biasb = bias ? bias + b * bias_sb : nullptr;
-  const int npad = tc::padded_keys(S);
-
-  load_tile<DH, QSTR>(q + b * q_sb + h * q_sh, q_ss, q0, S, scale, Qt, nullptr);
-  load_tile<DH, QSTR>(dout + b * o_sb + h * o_sh, o_ss, q0, S, 0.f, DOt, nullptr);
-
-  float m[R4], l[R4], r[R4], A[R4][RD], Bc[R4][RD];
-#pragma unroll
-  for (int i = 0; i < R4; ++i) {
-    m[i] = npad ? tc::kNeg : -INFINITY;
-    l[i] = 0.f;
-    r[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < RD; ++j) A[i][j] = Bc[i][j] = 0.f;
-  }
-
-  for (int k0 = 0; k0 < S; k0 += BK) {
-    __syncthreads();  // the previous tile's readers are done
-    load_tile<DH, KSTR>(kb, k_ss, k0, S, 0.f, Kt, Ks);
-    load_tile<DH, KSTR>(vb, v_ss, k0, S, 0.f, Vt, nullptr);
-    __syncthreads();
-
-    // Scores and dp for rows ty*4+i, keys k0 + tx*4+j.
-    float s[R4][R4], dp[R4][R4];
-    dot4x4<DH>(Qt, QSTR, ty * R4, Kt, KSTR, tx * R4, s);
-    dot4x4<DH>(DOt, QSTR, ty * R4, Vt, KSTR, tx * R4, dp);
-
-#pragma unroll
-    for (int i = 0; i < R4; ++i) {
-      const int row = q0 + ty * R4 + i;
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < R4; ++j) {
-        const int col = k0 + tx * R4 + j;
-        float x = -INFINITY;
-        if (col < S) {
-          x = s[i][j];
-          if (biasb && row < S) x += biasb[(int64_t)row * S + col];
-        }
-        s[i][j] = x;
-        mx = fmaxf(mx, x);
-      }
-      // Column k0 < S lies in every tile, so the new max is finite.
-      const float m_new = fmaxf(m[i], group16_max(mx));
-      const float alpha = expf(m[i] - m_new);
-      float se = 0.f, sed = 0.f;
-#pragma unroll
-      for (int j = 0; j < R4; ++j) {
-        const float e = expf(s[i][j] - m_new);
-        s[i][j] = e;
-        dp[i][j] *= e;
-        se += e;
-        sed += dp[i][j];
-      }
-      l[i] = l[i] * alpha + group16_sum(se);
-      r[i] = r[i] * alpha + group16_sum(sed);
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < RD; ++j) {
-        A[i][j] *= alpha;
-        Bc[i][j] *= alpha;
-      }
-    }
-    __syncthreads();  // Kt and Vt are read; Et and EDt take their space
-#pragma unroll
-    for (int j = 0; j < R4; ++j) {
-      *reinterpret_cast<float4*>(&Et[(tx * R4 + j) * QSTR + ty * R4]) =
-          make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
-      *reinterpret_cast<float4*>(&EDt[(tx * R4 + j) * QSTR + ty * R4]) =
-          make_float4(dp[0][j], dp[1][j], dp[2][j], dp[3][j]);
-    }
-    __syncthreads();
-
-    const int kmax = min(BK, S - k0);
-    for (int kk = 0; kk < kmax; ++kk) {
-      float e[R4], ed[R4], kv[RD];
-      load4(&Et[kk * QSTR + ty * R4], e);
-      load4(&EDt[kk * QSTR + ty * R4], ed);
-      load_rd<RD>(&Ks[kk * DH + tx * RD], kv);
-#pragma unroll
-      for (int i = 0; i < R4; ++i)
-#pragma unroll
-        for (int j = 0; j < RD; ++j) {
-          A[i][j] = fmaf(ed[i], kv[j], A[i][j]);
-          Bc[i][j] = fmaf(e[i], kv[j], Bc[i][j]);
-        }
-    }
-  }
-
-  const int64_t BHS = (int64_t)B * H * S;
-#pragma unroll
-  for (int i = 0; i < R4; ++i) {
-    const int row = q0 + ty * R4 + i;
-    if (row >= S) continue;
-    // The padded keys' share of the sum (zero v: none of r's, A's or B's).
-    l[i] += npad ? npad * expf(tc::kNeg - m[i]) : 0.f;
-    const float inv = 1.f / l[i];
-    const float rowterm = r[i] * inv;
-    float* out = dq + (((int64_t)b * S + row) * H + h) * DH + tx * RD;
-#pragma unroll
-    for (int j = 0; j < RD; ++j) out[j] = (A[i][j] - rowterm * Bc[i][j]) * inv * scale;
-    if (tx == 0) {
-      const int64_t at = ((int64_t)b * H + h) * S + row;
-      stats[at] = m[i];
-      stats[BHS + at] = l[i];
-      stats[2 * BHS + at] = rowterm;
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// float32, pass 2: dk and dv
-// ---------------------------------------------------------------------------
-
-template <int DH>
-__host__ __device__ constexpr size_t qp_floats() {
-  return (size_t)DH * QSTR > (size_t)BQ * KSTR ? (size_t)DH * QSTR : (size_t)BQ * KSTR;
-}
-
-template <int DH>
-constexpr size_t dkdv_smem_floats() {
-  // Kt, Vt [DH][KSTR]; Qt then Pq, DOt then DSq; Qs, DOs [BQ][DH];
-  // per-row m, l, r [BQ]
-  return 2 * (size_t)DH * KSTR + 2 * qp_floats<DH>() + 2 * (size_t)BQ * DH +
-         3 * (size_t)BQ;
-}
-
-template <int DH>
-__global__ void __launch_bounds__(NT, 2) attention_bwd_dkdv_kernel(
-    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-    const float* __restrict__ bias, const float* __restrict__ dout,
-    float* __restrict__ dk, float* __restrict__ dv, const float* __restrict__ stats,
-    int B, int S, int H,
-    int64_t q_sb, int64_t q_ss, int64_t q_sh, int64_t k_sb, int64_t k_ss, int64_t k_sh,
-    int64_t v_sb, int64_t v_ss, int64_t v_sh, int64_t o_sb, int64_t o_ss, int64_t o_sh,
-    int64_t bias_sb, float scale) {
-  constexpr int RD = DH / TX;
-  extern __shared__ __align__(16) float smem[];
-  float* Kt = smem;
-  float* Vt = Kt + DH * KSTR;
-  float* Qt = Vt + DH * KSTR;             // [DH][QSTR], then Pq [BQ][KSTR]
-  float* DOt = Qt + qp_floats<DH>();      // [DH][QSTR], then DSq [BQ][KSTR]
-  float* Qs = DOt + qp_floats<DH>();      // [BQ][DH]
-  float* DOs = Qs + BQ * DH;
-  float* Pq = Qt;
-  float* DSq = DOt;
-  float* Mr = DOs + BQ * DH;
-  float* Lr = Mr + BQ;
-  float* Rr = Lr + BQ;
-
-  const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
-  const int kb0 = blockIdx.x * BK, h = blockIdx.y, b = blockIdx.z;
-  const float* qb = q + b * q_sb + h * q_sh;
-  const float* ob = dout + b * o_sb + h * o_sh;
-  const float* biasb = bias ? bias + b * bias_sb : nullptr;
-  const int64_t BHS = (int64_t)B * H * S;
-  const float* st = stats + ((int64_t)b * H + h) * S;
-
-  load_tile<DH, KSTR>(k + b * k_sb + h * k_sh, k_ss, kb0, S, 0.f, Kt, nullptr);
-  load_tile<DH, KSTR>(v + b * v_sb + h * v_sh, v_ss, kb0, S, 0.f, Vt, nullptr);
-
-  float dkacc[R4][RD], dvacc[R4][RD];
-#pragma unroll
-  for (int i = 0; i < R4; ++i)
-#pragma unroll
-    for (int j = 0; j < RD; ++j) dkacc[i][j] = dvacc[i][j] = 0.f;
-
-  for (int q0 = 0; q0 < S; q0 += BQ) {
-    __syncthreads();  // the previous tile's readers are done
-    load_tile<DH, QSTR>(qb, q_ss, q0, S, scale, Qt, Qs);
-    load_tile<DH, QSTR>(ob, o_ss, q0, S, 0.f, DOt, DOs);
-    for (int i = threadIdx.x; i < BQ; i += NT) {
-      const int row = q0 + i;
-      Mr[i] = row < S ? st[row] : 0.f;
-      Lr[i] = row < S ? st[BHS + row] : 1.f;
-      Rr[i] = row < S ? st[2 * BHS + row] : 0.f;
-    }
-    __syncthreads();
-
-    // Transposed scores and dp for keys kb0 + ty*4+i, rows q0 + tx*4+j,
-    // turned into p and ds in place.
-    float s[R4][R4], dp[R4][R4];
-    dot4x4<DH>(Kt, KSTR, ty * R4, Qt, QSTR, tx * R4, s);
-    dot4x4<DH>(Vt, KSTR, ty * R4, DOt, QSTR, tx * R4, dp);
-#pragma unroll
-    for (int j = 0; j < R4; ++j) {
-      const int jr = tx * R4 + j;
-      const int row = q0 + jr;
-#pragma unroll
-      for (int i = 0; i < R4; ++i) {
-        const int col = kb0 + ty * R4 + i;
-        float p = 0.f;
-        if (row < S && col < S) {
-          float x = s[i][j];
-          if (biasb) x += biasb[(int64_t)row * S + col];
-          p = expf(x - Mr[jr]) / Lr[jr];
-        }
-        s[i][j] = p;
-        dp[i][j] = p * (dp[i][j] - Rr[jr]);
-      }
-    }
-    __syncthreads();  // Qt and DOt are read; Pq and DSq take their space
-#pragma unroll
-    for (int j = 0; j < R4; ++j) {
-      const int jr = tx * R4 + j;
-      *reinterpret_cast<float4*>(&Pq[jr * KSTR + ty * R4]) =
-          make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
-      *reinterpret_cast<float4*>(&DSq[jr * KSTR + ty * R4]) =
-          make_float4(dp[0][j], dp[1][j], dp[2][j], dp[3][j]);
-    }
-    __syncthreads();
-
-    const int qmax = min(BQ, S - q0);
-    for (int qq = 0; qq < qmax; ++qq) {
-      float p[R4], ds[R4], dov[RD], qv[RD];
-      load4(&Pq[qq * KSTR + ty * R4], p);
-      load4(&DSq[qq * KSTR + ty * R4], ds);
-      load_rd<RD>(&DOs[qq * DH + tx * RD], dov);
-      load_rd<RD>(&Qs[qq * DH + tx * RD], qv);
-#pragma unroll
-      for (int i = 0; i < R4; ++i)
-#pragma unroll
-        for (int j = 0; j < RD; ++j) {
-          dvacc[i][j] = fmaf(p[i], dov[j], dvacc[i][j]);
-          dkacc[i][j] = fmaf(ds[i], qv[j], dkacc[i][j]);
-        }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < R4; ++i) {
-    const int key = kb0 + ty * R4 + i;
-    if (key >= S) continue;
-    const int64_t at = (((int64_t)b * S + key) * H + h) * DH + tx * RD;
-#pragma unroll
-    for (int j = 0; j < RD; ++j) {
-      dk[at + j] = dkacc[i][j];
-      dv[at + j] = dvacc[i][j];
-    }
-  }
-}
 
 template <typename Kern>
 cudaError_t opt_in(Kern kernel, size_t smem) {
@@ -458,25 +135,489 @@ cudaError_t opt_in(Kern kernel, size_t smem) {
                               (int)smem);
 }
 
+// ---------------------------------------------------------------------------
+// float32: 3xTF32 tensor cores
+// ---------------------------------------------------------------------------
+
+constexpr int kF32Warps = 4;       // warps a block, 16 rows of the block's own tiles each
+constexpr int kF32Rows = 16;       // rows of a streamed tile (dq: keys; dk/dv: query rows)
+// TF32 products an fp32 one: 3; 4 adds lo·lo; 1 (hi·hi, plain TF32, which
+// misses the tolerance) only to weigh the tensor cores' share of the time.
+constexpr int kF32Products = 3;
+// Blocks an SM that __launch_bounds__ leaves registers for: dq pass, dk/dv pass.
+constexpr int kF32MinBlocks = 2;
+constexpr int kF32DkdvMinBlocks = 3;
+
+template <int DH> struct F32Bwd {
+  static_assert(DH == 16 || DH == 32 || DH == 64, "head dim 16, 32 or 64");
+  static constexpr int kThreads = 32 * kF32Warps;
+  static constexpr int kOwn = 16 * kF32Warps;         // rows of the block's own tiles
+  static constexpr int kWords = 2 * DH;               // words a row: DH / 2 chunks
+  static constexpr int kSteps = DH / 8;               // k8 steps over DH; n8 tiles of a gradient
+  static constexpr int kTile = kF32Rows * kWords;     // words of one streamed tensor's tile
+  static constexpr int kLoads = kF32Rows * DH / 4;    // its float4s in device memory
+  static constexpr int kPer = (kLoads + kThreads - 1) / kThreads;
+  static constexpr int kOwnPer = kOwn * DH / 4 / kThreads;
+  // Words a row of an own tile: fp32 and 8 words of padding, which keep
+  // the fragment reads' 8-byte loads conflict-free.
+  static constexpr int kOwnWords = DH + 8;
+  static_assert(kOwn * DH / 4 % kThreads == 0, "own tiles in whole rounds of loads");
+  // two own tiles, then two stages of two streamed tiles
+  static constexpr size_t kSmem = (2 * (size_t)kOwn * kOwnWords + 4 * (size_t)kTile) * 4;
+};
+
+// The XOR of row r's chunk indices. Lanes (g, t) reading chunk 4 ks + t of
+// rows g (a product over the head dim) meet 8 distinct banks of 16 bytes
+// when rows 2i and 2i + 1 differ in bit 2; lanes reading chunk
+// (DH / 16) g + i of rows 2t (or 2t + 1: a product over the rows) when
+// rows 2t, t < 4, take the 4 values of the two bits that (DH / 16) g
+// leaves free.
 template <int DH>
-cudaError_t launch(const float* q, const float* k, const float* v, const float* bias,
-                   const float* dout, float* dq, float* dk, float* dv, float* stats,
-                   int B, int S, int H, const int64_t* st, int64_t bias_sb,
-                   float scale, cudaStream_t stream) {
-  constexpr size_t smem1 = dq_smem_floats<DH>() * sizeof(float);
-  constexpr size_t smem2 = dkdv_smem_floats<DH>() * sizeof(float);
-  cudaError_t err = opt_in(attention_bwd_dq_kernel<DH>, smem1);
+__device__ __forceinline__ int swizzle(int r) {
+  const int t = (r >> 1) & 3;
+  const int s = DH == 64 ? t : DH == 32 ? ((t & 1) | ((t & 2) << 1)) : t << 1;
+  return s ^ ((r & 1) << 2);
+}
+
+__device__ __forceinline__ uint4 lds128(const uint32_t* p) {
+  return *reinterpret_cast<const uint4*>(p);
+}
+
+// Head dims 4c .. 4c + 3 of row r of a tile, split into its words.
+template <int DH>
+__device__ __forceinline__ void store_row4(uint32_t* tile, int r, int c, float4 x) {
+  uint4 a, b;
+  tfa::split_pairs(x, a, b);
+  uint32_t* row = tile + r * F32Bwd<DH>::kWords;
+  const int m = swizzle<DH>(r);
+  *reinterpret_cast<uint4*>(row + (((2 * c) ^ m) << 2)) = a;
+  *reinterpret_cast<uint4*>(row + (((2 * c + 1) ^ m) << 2)) = b;
+}
+
+// Head dims 4c .. 4c + 3 of row `row` of one head (x offset to it; zeros
+// past S), multiplied by `scale` in fp32 when it is not 0 (qs, as the TPU
+// wrapper scales q).
+__device__ __forceinline__ float4 load_row4(const float* __restrict__ x, int64_t x_ss, int row,
+                                           int S, int c, float scale) {
+  float4 y = row < S ? *reinterpret_cast<const float4*>(x + row * x_ss + 4 * c)
+                     : make_float4(0.f, 0.f, 0.f, 0.f);
+  if (scale != 0.f)
+    y = make_float4(__fmul_rn(y.x, scale), __fmul_rn(y.y, scale), __fmul_rn(y.z, scale),
+                    __fmul_rn(y.w, scale));
+  return y;
+}
+
+// Rows [r0, r0 + kOwn) of one head into the block's own tile.
+template <int DH>
+__device__ __forceinline__ void load_own(float* tile, const float* __restrict__ x,
+                                         int64_t x_ss, int r0, int S, float scale) {
+  using T = F32Bwd<DH>;
+#pragma unroll
+  for (int i = 0; i < T::kOwnPer; ++i) {
+    const int at = threadIdx.x + i * T::kThreads, r = at / (DH / 4), c = at % (DH / 4);
+    *reinterpret_cast<float4*>(tile + r * T::kOwnWords + 4 * c) =
+        load_row4(x, x_ss, r0 + r, S, c, scale);
+  }
+}
+
+// A streamed tile pair on its way from device memory to shared memory:
+// this thread's share, held in registers while the tile before it is
+// computed.
+template <int DH> struct F32Pair {
+  float4 a[F32Bwd<DH>::kPer], b[F32Bwd<DH>::kPer];
+};
+
+// Issues the loads of rows [r0, r0 + kF32Rows) of two heads' tensors.
+template <int DH>
+__device__ __forceinline__ void pair_load(F32Pair<DH>& st, const float* __restrict__ a,
+                                          int64_t a_ss, const float* __restrict__ b,
+                                          int64_t b_ss, int r0, int S) {
+  using T = F32Bwd<DH>;
+#pragma unroll
+  for (int i = 0; i < T::kPer; ++i) {
+    const int at = threadIdx.x + i * T::kThreads, r = r0 + at / (DH / 4), c = at % (DH / 4);
+    const bool ok = T::kLoads % T::kThreads == 0 || at < T::kLoads;
+    st.a[i] = load_row4(a, a_ss, ok ? r : S, S, c, 0.f);
+    st.b[i] = load_row4(b, b_ss, ok ? r : S, S, c, 0.f);
+  }
+}
+
+// Splits this thread's share into the two tiles at `tile` (a, then b), a's
+// values multiplied by `scale_a` when it is not 0.
+template <int DH>
+__device__ __forceinline__ void pair_store(const F32Pair<DH>& st, uint32_t* tile, float scale_a) {
+  using T = F32Bwd<DH>;
+#pragma unroll
+  for (int i = 0; i < T::kPer; ++i) {
+    const int at = threadIdx.x + i * T::kThreads, r = at / (DH / 4), c = at % (DH / 4);
+    if (T::kLoads % T::kThreads == 0 || at < T::kLoads) {
+      float4 x = st.a[i];
+      if (scale_a != 0.f)
+        x = make_float4(__fmul_rn(x.x, scale_a), __fmul_rn(x.y, scale_a),
+                        __fmul_rn(x.z, scale_a), __fmul_rn(x.w, scale_a));
+      store_row4<DH>(tile, r, c, x);
+      store_row4<DH>(tile + T::kTile, r, c, st.b[i]);
+    }
+  }
+}
+
+// The A fragment of a product over the head dim at k8 step ks, split as
+// it is read: rows r0 + g and r0 + g + 8 of an own tile (fp32), head dims
+// 8 ks + 2t and 8 ks + 2t + 1.
+template <int DH>
+__device__ __forceinline__ void frag_a(uint32_t ah[4], uint32_t al[4], const float* tile,
+                                       int r0, int ks, int g, int t) {
+  constexpr int W = F32Bwd<DH>::kOwnWords;
+  const float* f = tile + 8 * ks + 2 * t;
+  const float2 x0 = *reinterpret_cast<const float2*>(f + (r0 + g) * W);
+  const float2 x1 = *reinterpret_cast<const float2*>(f + (r0 + g + 8) * W);
+  tf32::split(x0.x, ah[0], al[0]);
+  tf32::split(x1.x, ah[1], al[1]);
+  tf32::split(x0.y, ah[2], al[2]);
+  tf32::split(x1.y, ah[3], al[3]);
+}
+
+// The B fragment of a product over the head dim at k8 step ks: row n0 + g
+// of a tile, head-dim pair 4 ks + t.
+template <int DH>
+__device__ __forceinline__ void frag_b_dims(uint32_t bh[2], uint32_t bl[2], const uint32_t* tile,
+                                            int n0, int ks, int g, int t, int m) {
+  const uint4 y = lds128(tile + (n0 + g) * F32Bwd<DH>::kWords + (((4 * ks + t) ^ m) << 2));
+  bh[0] = y.x; bh[1] = y.y;
+  bl[0] = y.z; bl[1] = y.w;
+}
+
+// The B fragments of a product over the tile's rows k0 .. k0 + 7 (k0 a
+// multiple of 8), for every n8 tile j of the head dim: rows k0 + 2t and
+// k0 + 2t + 1 (the accumulator's column pair), head dim (DH / 8) g + j.
+template <int DH>
+__device__ __forceinline__ void frag_b_rows(uint32_t (*bh)[2], uint32_t (*bl)[2],
+                                            const uint32_t* tile, int k0, int g, int t) {
+  constexpr int KS = F32Bwd<DH>::kSteps, W = F32Bwd<DH>::kWords;
+  const uint32_t* r0 = tile + (k0 + 2 * t) * W;
+  const int m = swizzle<DH>(2 * t);
+#pragma unroll
+  for (int i = 0; i < KS / 2; ++i) {
+    const int c = KS / 2 * g + i;
+    const uint4 y0 = lds128(r0 + ((c ^ m) << 2));
+    const uint4 y1 = lds128(r0 + W + ((c ^ m ^ 4) << 2));
+    bh[2 * i][0] = y0.x; bh[2 * i][1] = y1.x; bl[2 * i][0] = y0.z; bl[2 * i][1] = y1.z;
+    bh[2 * i + 1][0] = y0.y; bh[2 * i + 1][1] = y1.y;
+    bl[2 * i + 1][0] = y0.w; bl[2 * i + 1][1] = y1.w;
+  }
+}
+
+// A gradient's rows g and g + 8 (null: past S), each already offset to
+// head dim 2 (DH / 8) t: accumulator n8 tile j, column 2t holds head dim
+// 2 (DH / 8) t + j and column 2t + 1 head dim 2 (DH / 8) t + DH / 8 + j.
+template <int DH>
+__device__ __forceinline__ void store_grad(float* out0, float* out1, const float (*acc)[4]) {
+  constexpr int KS = F32Bwd<DH>::kSteps;
+  float* out[2] = {out0, out1};
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (!out[i]) continue;
+    float x[2 * KS];
+#pragma unroll
+    for (int j = 0; j < KS; ++j) {
+      x[j] = acc[j][2 * i];
+      x[KS + j] = acc[j][2 * i + 1];
+    }
+#pragma unroll
+    for (int c = 0; c < KS / 2; ++c)
+      *reinterpret_cast<float4*>(out[i] + 4 * c) =
+          make_float4(x[4 * c], x[4 * c + 1], x[4 * c + 2], x[4 * c + 3]);
+  }
+}
+
+template <int DH>
+__global__ void __launch_bounds__(32 * kF32Warps, kF32MinBlocks) attention_bwd_dq_tf32(
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    const float* __restrict__ bias, const float* __restrict__ dout,
+    const float* __restrict__ lse, float* __restrict__ dq, float* __restrict__ rowterm,
+    int S, int H, int64_t q_sb, int64_t q_ss, int64_t q_sh, int64_t k_sb, int64_t k_ss,
+    int64_t k_sh, int64_t v_sb, int64_t v_ss, int64_t v_sh, int64_t o_sb, int64_t o_ss,
+    int64_t o_sh, int64_t bias_sb, float scale) {
+  using T = F32Bwd<DH>;
+  constexpr int KS = T::kSteps, NC = kF32Rows / 8;
+  extern __shared__ __align__(16) float fsmem[];
+  float* Qs = fsmem;                         // own rows: qs, then do
+  float* Os = Qs + T::kOwn * T::kOwnWords;
+  // two stages of a k tile and a v tile
+  uint32_t* ring = reinterpret_cast<uint32_t*>(Os + T::kOwn * T::kOwnWords);
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int q0 = blockIdx.x * T::kOwn, h = blockIdx.y, b = blockIdx.z;
+  const int w0 = warp * 16;                  // the warp's rows of the own tiles
+  const int64_t bhs = ((int64_t)b * H + h) * S;
+  const int64_t plane = (int64_t)gridDim.z * H * S;   // lse: hi, then lo
+  const float* kb = k + b * k_sb + h * k_sh;
+  const float* vb = v + b * v_sb + h * v_sh;
+  const float* biasb = bias ? bias + b * bias_sb : nullptr;
+  const int rows[2] = {q0 + w0 + g, q0 + w0 + g + 8};
+  // A warp whose 16 rows all lie past S only helps load the tiles.
+  const bool active = q0 + w0 < S;
+  const int mg = swizzle<DH>(g);
+
+  load_own<DH>(Qs, q + b * q_sb + h * q_sh, q_ss, q0, S, scale);
+  load_own<DH>(Os, dout + b * o_sb + h * o_sh, o_ss, q0, S, 0.f);
+  F32Pair<DH> st;
+  pair_load<DH>(st, kb, k_ss, vb, v_ss, 0, S);
+  pair_store<DH>(st, ring, 0.f);
+
+  // Per row the forward's lse pair: hi, and lo in log2 units.
+  float lh[2], ll[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    lh[i] = rows[i] < S ? lse[bhs + rows[i]] : 0.f;
+    ll[i] = rows[i] < S ? lse[plane + bhs + rows[i]] * tc::kLog2e : 0.f;
+  }
+  float A[KS][4], Bp[KS][4], r[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < KS; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) A[j][e] = Bp[j][e] = 0.f;
+  __syncthreads();
+
+  const int tiles = (S + kF32Rows - 1) / kF32Rows;
+  for (int s = 0; s < tiles; ++s) {
+    const bool more = s + 1 < tiles;
+    if (more) pair_load<DH>(st, kb, k_ss, vb, v_ss, (s + 1) * kF32Rows, S);
+    if (active) {
+      const uint32_t* Kt = ring + (s & 1) * 2 * T::kTile;
+      const uint32_t* Vt = Kt + T::kTile;
+      const int k0 = s * kF32Rows;
+
+      // s = qs k^T and dp = do v^T for rows g, g + 8, keys k0 + 8n + 2t (+1).
+      float sc[NC][4], dp[NC][4];
+#pragma unroll
+      for (int n = 0; n < NC; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        uint32_t qh[4], ql[4], oh[4], ol[4];
+        frag_a<DH>(qh, ql, Qs, w0, ks, g, t);
+        frag_a<DH>(oh, ol, Os, w0, ks, g, t);
+        uint32_t kh[NC][2], kl[NC][2], vh[NC][2], vl[NC][2];
+#pragma unroll
+        for (int n = 0; n < NC; ++n) {
+          frag_b_dims<DH>(kh[n], kl[n], Kt, 8 * n, ks, g, t, mg);
+          frag_b_dims<DH>(vh[n], vl[n], Vt, 8 * n, ks, g, t, mg);
+        }
+        tfa::mma_row<NC, kF32Products>(sc, qh, ql, kh, kl);
+        tfa::mma_row<NC, kF32Products>(dp, oh, ol, vh, vl);
+      }
+      if (biasb) {   // its loads issued together, added after the products
+#pragma unroll
+        for (int n = 0; n < NC; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = k0 + n * 8 + 2 * t + (e & 1), row = rows[e >> 1];
+            sc[n][e] += row < S && col < S ? biasb[(int64_t)row * S + col] : 0.f;
+          }
+      }
+      // p exact per tile from the lse pair (keys past S: 0), p * dp into
+      // r unrounded.
+#pragma unroll
+      for (int n = 0; n < NC; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = k0 + n * 8 + 2 * t + (e & 1);
+          const float p = col < S ? exp2f(fmaf(sc[n][e] - lh[e >> 1], tc::kLog2e, -ll[e >> 1]))
+                                  : 0.f;
+          const float pd = p * dp[n][e];
+          r[e >> 1] += pd;
+          sc[n][e] = p;
+          dp[n][e] = pd;
+        }
+      // A += (p * dp) k and B += p k over the tile's keys.
+#pragma unroll
+      for (int n = 0; n < NC; ++n) {
+        uint32_t ph[4], pl[4], dh[4], dl[4];
+        tfa::acc_to_a(ph, pl, sc[n]);
+        tfa::acc_to_a(dh, dl, dp[n]);
+        uint32_t bh[KS][2], bl[KS][2];
+        frag_b_rows<DH>(bh, bl, Kt, 8 * n, g, t);
+        tfa::mma_row<KS, kF32Products>(A, dh, dl, bh, bl);
+        tfa::mma_row<KS, kF32Products>(Bp, ph, pl, bh, bl);
+      }
+    }
+    if (more) pair_store<DH>(st, ring + ((s + 1) & 1) * 2 * T::kTile, 0.f);
+    __syncthreads();   // the next tile is in place; this one is free again
+  }
+
+  if (!active) return;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) r[i] = tc::quad_sum(r[i]);
+  // dq = (A - r B) * scale, as the TPU wrapper folds the scale in.
+#pragma unroll
+  for (int j = 0; j < KS; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) A[j][e] = __fmul_rn(A[j][e] - r[e >> 1] * Bp[j][e], scale);
+  float* out[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    out[i] = rows[i] < S ? dq + (((int64_t)b * S + rows[i]) * H + h) * DH + 2 * KS * t : nullptr;
+  store_grad<DH>(out[0], out[1], A);
+  if (t == 0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      if (rows[i] < S) rowterm[bhs + rows[i]] = r[i];
+  }
+}
+
+template <int DH>
+__global__ void __launch_bounds__(32 * kF32Warps, kF32DkdvMinBlocks) attention_bwd_dkdv_tf32(
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    const float* __restrict__ bias, const float* __restrict__ dout,
+    const float* __restrict__ lse, const float* __restrict__ rowterm, float* __restrict__ dk,
+    float* __restrict__ dv, int S, int H, int64_t q_sb, int64_t q_ss, int64_t q_sh,
+    int64_t k_sb, int64_t k_ss, int64_t k_sh, int64_t v_sb, int64_t v_ss, int64_t v_sh,
+    int64_t o_sb, int64_t o_ss, int64_t o_sh, int64_t bias_sb, float scale) {
+  using T = F32Bwd<DH>;
+  constexpr int KS = T::kSteps, NC = kF32Rows / 8;
+  extern __shared__ __align__(16) float fsmem[];
+  float* Ks = fsmem;                         // own rows: k, then v
+  float* Vs = Ks + T::kOwn * T::kOwnWords;
+  // two stages of a qs tile and a do tile
+  uint32_t* ring = reinterpret_cast<uint32_t*>(Vs + T::kOwn * T::kOwnWords);
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int kb0 = blockIdx.x * T::kOwn, h = blockIdx.y, b = blockIdx.z;
+  const int w0 = warp * 16;
+  const int64_t bhs = ((int64_t)b * H + h) * S;
+  const int64_t plane = (int64_t)gridDim.z * H * S;
+  const float* qb = q + b * q_sb + h * q_sh;
+  const float* ob = dout + b * o_sb + h * o_sh;
+  const float* biasb = bias ? bias + b * bias_sb : nullptr;
+  const int keys[2] = {kb0 + w0 + g, kb0 + w0 + g + 8};
+  const bool active = kb0 + w0 < S;
+  const int mg = swizzle<DH>(g);
+
+  load_own<DH>(Ks, k + b * k_sb + h * k_sh, k_ss, kb0, S, 0.f);
+  load_own<DH>(Vs, v + b * v_sb + h * v_sh, v_ss, kb0, S, 0.f);
+  F32Pair<DH> st;
+  pair_load<DH>(st, qb, q_ss, ob, o_ss, 0, S);
+  pair_store<DH>(st, ring, scale);
+
+  float dK[KS][4], dV[KS][4];
+#pragma unroll
+  for (int j = 0; j < KS; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dK[j][e] = dV[j][e] = 0.f;
+  __syncthreads();
+
+  const int tiles = (S + kF32Rows - 1) / kF32Rows;
+  for (int s = 0; s < tiles; ++s) {
+    const bool more = s + 1 < tiles;
+    if (more) pair_load<DH>(st, qb, q_ss, ob, o_ss, (s + 1) * kF32Rows, S);
+    if (active) {
+      const uint32_t* Qt = ring + (s & 1) * 2 * T::kTile;
+      const uint32_t* Ot = Qt + T::kTile;
+      const int q0 = s * kF32Rows;
+      // Transposed: rows are this warp's keys, columns the tile's query
+      // rows q0 + 8n + 2t + u, whose lse pair and row term are these.
+      float lh[NC][2], ll[NC][2], rt[NC][2];
+#pragma unroll
+      for (int n = 0; n < NC; ++n)
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const int row = q0 + 8 * n + 2 * t + u;
+          lh[n][u] = row < S ? lse[bhs + row] : 0.f;
+          ll[n][u] = row < S ? lse[plane + bhs + row] * tc::kLog2e : 0.f;
+          rt[n][u] = row < S ? rowterm[bhs + row] : 0.f;
+        }
+      float sc[NC][4], dp[NC][4];
+#pragma unroll
+      for (int n = 0; n < NC; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        uint32_t kh[4], kl[4], vh[4], vl[4];
+        frag_a<DH>(kh, kl, Ks, w0, ks, g, t);
+        frag_a<DH>(vh, vl, Vs, w0, ks, g, t);
+        uint32_t qh[NC][2], ql[NC][2], oh[NC][2], ol[NC][2];
+#pragma unroll
+        for (int n = 0; n < NC; ++n) {
+          frag_b_dims<DH>(qh[n], ql[n], Qt, 8 * n, ks, g, t, mg);
+          frag_b_dims<DH>(oh[n], ol[n], Ot, 8 * n, ks, g, t, mg);
+        }
+        tfa::mma_row<NC, kF32Products>(sc, kh, kl, qh, ql);
+        tfa::mma_row<NC, kF32Products>(dp, vh, vl, oh, ol);
+      }
+      if (biasb) {   // its loads issued together, added after the products
+#pragma unroll
+        for (int n = 0; n < NC; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int row = q0 + 8 * n + 2 * t + (e & 1), key = keys[e >> 1];
+            sc[n][e] += row < S && key < S ? biasb[(int64_t)row * S + key] : 0.f;
+          }
+      }
+      // p^T and ds^T = p^T (dp^T - r); rows or keys past S: 0.
+#pragma unroll
+      for (int n = 0; n < NC; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int u = e & 1;
+          const bool ok = q0 + 8 * n + 2 * t + u < S && keys[e >> 1] < S;
+          const float p = ok ? exp2f(fmaf(sc[n][e] - lh[n][u], tc::kLog2e, -ll[n][u])) : 0.f;
+          dp[n][e] = p * (dp[n][e] - rt[n][u]);
+          sc[n][e] = p;
+        }
+      // dv += p^T do and dk += ds^T qs over the tile's rows.
+#pragma unroll
+      for (int n = 0; n < NC; ++n) {
+        uint32_t ph[4], pl[4], dh[4], dl[4];
+        tfa::acc_to_a(ph, pl, sc[n]);
+        tfa::acc_to_a(dh, dl, dp[n]);
+        uint32_t bh[KS][2], bl[KS][2];
+        frag_b_rows<DH>(bh, bl, Ot, 8 * n, g, t);
+        tfa::mma_row<KS, kF32Products>(dV, ph, pl, bh, bl);
+        frag_b_rows<DH>(bh, bl, Qt, 8 * n, g, t);
+        tfa::mma_row<KS, kF32Products>(dK, dh, dl, bh, bl);
+      }
+    }
+    if (more) pair_store<DH>(st, ring + ((s + 1) & 1) * 2 * T::kTile, scale);
+    __syncthreads();   // the next tile is in place; this one is free again
+  }
+
+  if (!active) return;
+  float* kout[2];
+  float* vout[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int64_t at = (((int64_t)b * S + keys[i]) * H + h) * DH + 2 * KS * t;
+    kout[i] = keys[i] < S ? dk + at : nullptr;
+    vout[i] = keys[i] < S ? dv + at : nullptr;
+  }
+  store_grad<DH>(kout[0], kout[1], dK);
+  store_grad<DH>(vout[0], vout[1], dV);
+}
+
+template <int DH>
+cudaError_t launch_tf32(const float* q, const float* k, const float* v, const float* bias,
+                        const float* dout, const float* lse, float* dq, float* dk, float* dv,
+                        float* rowterm, int B, int S, int H, const int64_t* st,
+                        int64_t bias_sb, float scale, cudaStream_t stream) {
+  using T = F32Bwd<DH>;
+  cudaError_t err = opt_in(attention_bwd_dq_tf32<DH>, T::kSmem);
   if (err != cudaSuccess) return err;
-  err = opt_in(attention_bwd_dkdv_kernel<DH>, smem2);
+  err = opt_in(attention_bwd_dkdv_tf32<DH>, T::kSmem);
   if (err != cudaSuccess) return err;
-  attention_bwd_dq_kernel<DH><<<dim3((S + BQ - 1) / BQ, H, B), NT, smem1, stream>>>(
-      q, k, v, bias, dout, dq, stats, B, S, H, st[0], st[1], st[2], st[3], st[4], st[5],
+  const dim3 grid((S + T::kOwn - 1) / T::kOwn, H, B);
+  attention_bwd_dq_tf32<DH><<<grid, T::kThreads, T::kSmem, stream>>>(
+      q, k, v, bias, dout, lse, dq, rowterm, S, H, st[0], st[1], st[2], st[3], st[4], st[5],
       st[6], st[7], st[8], st[9], st[10], st[11], bias_sb, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  attention_bwd_dkdv_kernel<DH><<<dim3((S + BK - 1) / BK, H, B), NT, smem2, stream>>>(
-      q, k, v, bias, dout, dk, dv, stats, B, S, H, st[0], st[1], st[2], st[3], st[4], st[5],
-      st[6], st[7], st[8], st[9], st[10], st[11], bias_sb, scale);
+  attention_bwd_dkdv_tf32<DH><<<grid, T::kThreads, T::kSmem, stream>>>(
+      q, k, v, bias, dout, lse, rowterm, dk, dv, S, H, st[0], st[1], st[2], st[3], st[4],
+      st[5], st[6], st[7], st[8], st[9], st[10], st[11], bias_sb, scale);
   return cudaGetLastError();
 }
 
@@ -831,16 +972,16 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, const float*
 }  // namespace
 
 // Plain C entry, loaded with ctypes. Strides are in elements (batch,
-// sequence, head) for q, k, v and do; their last dim is contiguous; in bf16
-// every pointer and stride is a multiple of 16 bytes (the cp.async copies).
-// dq, dk, dv are written [B, S, H, Dh] contiguous. dtype: 0 = float32,
-// 1 = bfloat16. bias is null or a contiguous fp32 [B|1, S, S] with batch
-// stride bias_sb (0 = shared). scale is already rounded to the input type.
-// lse is the forward's fp32 [2, B, H, S] log-sum-exp pair (hi, lo), read
-// by the bf16 path (the float32 path recomputes its statistics and takes
-// null). stats is fp32 scratch: 3 * B * H * S floats in float32 (m, l,
-// r / l), B * H * S in bf16 (r). Returns the cudaError_t of the launches,
-// or -1 for an unsupported dtype / Dh or a bf16 call without lse.
+// sequence, head) for q, k, v and do; their last dim is contiguous; every
+// pointer and stride is a multiple of 16 bytes (the kernels' 16-byte
+// loads). dq, dk, dv are written [B, S, H, Dh] contiguous. dtype: 0 =
+// float32, 1 = bfloat16. bias is null or a contiguous fp32 [B|1, S, S]
+// with batch stride bias_sb (0 = shared). scale is already rounded to the
+// input type. lse is the forward's fp32 [2, B, H, S] log-sum-exp pair (hi,
+// lo), which both paths read. stats is fp32 scratch of B * H * S floats,
+// each row's term r, written by the dq pass and read by the dk/dv pass.
+// Returns the cudaError_t of the launches, or -1 for an unsupported dtype
+// / Dh or a call without lse.
 extern "C" int cfa_attention_bwd(const void* q, const void* k, const void* v,
                                  const void* bias, const void* dout, const void* lse,
                                  void* dq, void* dk, void* dv, void* stats, int B,
@@ -856,18 +997,20 @@ extern "C" int cfa_attention_bwd(const void* q, const void* k, const void* v,
   const float* lp = static_cast<const float*>(lse);
   float* sp = static_cast<float*>(stats);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define CFA_F32(D)                                                                      \
-  return (int)launch<D>(static_cast<const float*>(q), static_cast<const float*>(k),      \
-                        static_cast<const float*>(v), bp, static_cast<const float*>(dout), \
-                        static_cast<float*>(dq), static_cast<float*>(dk),                \
-                        static_cast<float*>(dv), sp, B, S, H, st, bias_sb, scale, s)
+#define CFA_F32(D)                                                                         \
+  return (int)launch_tf32<D>(static_cast<const float*>(q), static_cast<const float*>(k),    \
+                             static_cast<const float*>(v), bp,                              \
+                             static_cast<const float*>(dout), lp, static_cast<float*>(dq), \
+                             static_cast<float*>(dk), static_cast<float*>(dv), sp, B, S, H, \
+                             st, bias_sb, scale, s)
 #define CFA_BF16(D) \
   return (int)launch_mma<D>(q, k, v, bp, dout, lp, dq, dk, dv, sp, B, S, H, st, bias_sb, scale, s)
+  if (!lp) return -1;
   if (dtype == 0) {
     if (Dh == 16) CFA_F32(16);
     if (Dh == 32) CFA_F32(32);
     if (Dh == 64) CFA_F32(64);
-  } else if (dtype == 1 && lp) {
+  } else if (dtype == 1) {
     if (Dh == 16) CFA_BF16(16);
     if (Dh == 32) CFA_BF16(32);
     if (Dh == 64) CFA_BF16(64);

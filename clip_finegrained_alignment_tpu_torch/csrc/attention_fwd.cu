@@ -99,7 +99,7 @@
 #include <stdint.h>
 
 #include "attention_mma.cuh"
-#include "tf32_mma.cuh"
+#include "attention_tf32.cuh"
 
 namespace {
 
@@ -147,13 +147,10 @@ constexpr size_t f32_smem_bytes() {
 
 // Head dims 4c .. 4c + 3 of one q or k row, split into that row's words.
 __device__ __forceinline__ void store_split4(uint32_t* row, int c, float4 x) {
-  uint32_t h[4], l[4];
-  tf32::split(x.x, h[0], l[0]);
-  tf32::split(x.y, h[1], l[1]);
-  tf32::split(x.z, h[2], l[2]);
-  tf32::split(x.w, h[3], l[3]);
-  *reinterpret_cast<uint4*>(row + 8 * c) = make_uint4(h[0], h[1], l[0], l[1]);
-  *reinterpret_cast<uint4*>(row + 8 * c + 4) = make_uint4(h[2], h[3], l[2], l[3]);
+  uint4 a, b;
+  tfa::split_pairs(x, a, b);
+  *reinterpret_cast<uint4*>(row + 8 * c) = a;
+  *reinterpret_cast<uint4*>(row + 8 * c + 4) = b;
 }
 
 // A k/v tile on its way from device memory to shared memory: this thread's
@@ -213,26 +210,6 @@ __device__ __forceinline__ void f32_store(const F32Stage<DH>& st, uint32_t* tile
       *reinterpret_cast<uint4*>(w + 4) = make_uint4(h0, h1, l0, l1);
     }
   }
-}
-
-// c[n] += a·b[n] with fp32 accuracy for the n8 tiles n < N: the lo·hi
-// products of all of them, then hi·lo, then hi·hi (lo·lo first when
-// kF32Products is 4), so one accumulator's products sit N apart.
-template <int N>
-__device__ __forceinline__ void mma3_row(float (*c)[4], const uint32_t* ah, const uint32_t* al,
-                                         const uint32_t (*bh)[2], const uint32_t (*bl)[2]) {
-  if (kF32Products == 4) {
-#pragma unroll
-    for (int n = 0; n < N; ++n) tf32::mma_tf32(c[n], al, bl[n]);
-  }
-  if (kF32Products >= 3) {
-#pragma unroll
-    for (int n = 0; n < N; ++n) tf32::mma_tf32(c[n], al, bh[n]);
-#pragma unroll
-    for (int n = 0; n < N; ++n) tf32::mma_tf32(c[n], ah, bl[n]);
-  }
-#pragma unroll
-  for (int n = 0; n < N; ++n) tf32::mma_tf32(c[n], ah, bh[n]);
 }
 
 template <int DH>
@@ -325,7 +302,7 @@ __global__ void __launch_bounds__(32 * kF32Warps, kF32MinBlocks) attention_fwd_t
           bl[n][0] = y.z;
           bl[n][1] = y.w;
         }
-        mma3_row<NC>(sc, ah, al, bh, bl);
+        tfa::mma_row<NC, kF32Products>(sc, ah, al, bh, bl);
       }
 
       if (biasb) {   // its loads issued together, added after the product
@@ -377,10 +354,7 @@ __global__ void __launch_bounds__(32 * kF32Warps, kF32MinBlocks) attention_fwd_t
 #pragma unroll
       for (int n = 0; n < NC; ++n) {
         uint32_t ah[4], al[4];
-        tf32::split(sc[n][0], ah[0], al[0]);
-        tf32::split(sc[n][2], ah[1], al[1]);
-        tf32::split(sc[n][1], ah[2], al[2]);
-        tf32::split(sc[n][3], ah[3], al[3]);
+        tfa::acc_to_a(ah, al, sc[n]);
         uint32_t vh[KS][2], vl[KS][2];
         const uint32_t* vp = Vt + (n * 4 + t) * T::kVStride + g * 4;
 #pragma unroll
@@ -391,7 +365,7 @@ __global__ void __launch_bounds__(32 * kF32Warps, kF32MinBlocks) attention_fwd_t
           vl[j][0] = y.z;
           vl[j][1] = y.w;
         }
-        mma3_row<KS>(acc, ah, al, vh, vl);
+        tfa::mma_row<KS, kF32Products>(acc, ah, al, vh, vl);
       }
     }
     if (more) f32_store<DH>(st, wsmem + ((s + 1) & 1) * T::kTile);

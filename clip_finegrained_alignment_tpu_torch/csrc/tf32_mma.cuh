@@ -1,11 +1,15 @@
 // fp32-accurate products on the TF32 tensor cores, for Hopper (sm_90a).
 // Shared by the SPARC pooling kernels (sparc_common.cuh) and the float32
-// attention forward (attention_fwd.cu).
+// attention kernels (attention_tf32.cuh).
 //
 // An fp32 product a·b is taken as three mma.sync.m16n8k8 TF32 products
 // with fp32 sums: each operand x is split into hi = tf32(x) and lo =
 // tf32(x - hi) (see split), and lo·hi, hi·lo, hi·hi are added onto one
 // accumulator. The lo·lo term left out is below 2^-22 of each product.
+// The sums are the tensor cores' own: mma.sync rounds each fp32 result
+// mostly toward zero, by about a third of a unit in the last place an
+// addition on the H100 (perf/fp32_grad_bias_study.py), so a long sum
+// comes out a little small.
 //
 // Fragments of m16n8k8 TF32 (lane = 4 g + t): A 16 x 8 row-major holds
 // (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4); B 8 x 8 holds (k = t,

@@ -13,9 +13,8 @@ Pallas TPU kernels of ``clip_finegrained_alignment_tpu/ops/attention.py``:
 both written by hand for Hopper and loaded through ``ops/_build.py``.
 
 * q, k, v are ``[B, S, H, Dh]`` (bshd) views of the projection outputs;
-  any batch / sequence / head strides (in the forward, and in the bf16
-  backward, multiples of 16 bytes), last dim contiguous; float32 or
-  bfloat16; Dh in {16, 32, 64}.
+  any batch / sequence / head strides that are multiples of 16 bytes,
+  last dim contiguous; float32 or bfloat16; Dh in {16, 32, 64}.
 * bias is None or additive fp32, broadcastable to ``[B|1, 1, S, S]``
   (head-invariant: CLIP's causal and padding masks). It gets no gradient,
   as in the JAX package (``_fa_bwd`` returns None for it).
@@ -38,31 +37,32 @@ the kernel is chosen by dtype alone.
 Bound at B=32 on an H100 (3.35 TB/s, 989 TFLOP/s bf16): the ViT-B/16
 vision forward (S=197, H=12, Dh=64, bf16) moves ~39 MB of q/k/v/o for
 ~3.8 GFLOP (~11.5 us, bytes); its backward moves ~68 MB of q/k/v/do/dq/
-dk/dv for ~9.5 GFLOP (~20 us, bytes). Both forward kernels run every
-product on the tensor cores (``mma.sync``, fp32 sums) from tiles read 16
-bytes at a time through the tensors' strides into shared memory, so each
-pointer and stride must be a multiple of 16 bytes (true of every
-projection view the model makes; anything else raises ``ValueError``):
+dk/dv for ~9.5 GFLOP (~20 us, bytes). Every kernel runs every product on
+the tensor cores (``mma.sync``, fp32 sums) from tiles read 16 bytes at a
+time through the tensors' strides into shared memory, so each pointer
+and stride must be a multiple of 16 bytes (true of every projection view
+the model makes; anything else raises ``ValueError``; a misaligned
+cotangent is copied):
 
-* bf16, the type of serving and training: m16n8k16 bf16 products, and
-  the bf16 backward on the same design;
-* float32, the type of evaluation's towers (``eval/scoring.py``): each
-  fp32 product as three m16n8k8 TF32 products of hi / lo halves
-  (hi·hi + hi·lo + lo·hi), which holds the fp32 tolerance one TF32
-  product would miss, the tiles split once into those halves as they are
-  stored; the same bound in bytes, and three times the flops at 495
-  TFLOP/s (~23 us at evaluation's B=32 either way).
+* bf16, the type of serving and of training by default: m16n8k16 bf16
+  products;
+* float32, the type of evaluation's towers (``eval/scoring.py``) and of
+  training under ``cli/train.py --no-amp``: each fp32 product as three
+  m16n8k8 TF32 products of hi / lo halves (hi·hi + hi·lo + lo·hi), which
+  holds the fp32 tolerance one TF32 product would miss, the tiles split
+  once into those halves as they are stored; the same bound in bytes, and
+  three times the flops at 495 TFLOP/s (~23 us for the forward at
+  evaluation's B=32 either way; ~58 us of operations for the vision
+  backward at B=32).
 
 When a gradient will be taken, the forward also writes the per-row
-log-sum-exp, which ``FlashAttention`` saves so that the bf16 backward
-reads exact probabilities instead of recomputing the softmax statistics;
-serving and evaluation (no gradient) write none. It is an fp32 pair
-``[2, B, H, S]``: lse[0] the log-sum-exp rounded to fp32 and lse[1] what
-that rounding left out, since at a fully masked row's −1e9 one fp32 has a
-spacing of 64 and would lose log Sp.
-The float32 backward is the first CUDA-core version, kept for exactness;
-no path on the card runs it (evaluation runs the float32 forward only).
-The designs are described in the sources.
+log-sum-exp, which ``FlashAttention`` saves so that the backward, in
+either dtype, reads exact probabilities instead of recomputing the
+softmax statistics; serving and evaluation (no gradient) write none. It
+is an fp32 pair ``[2, B, H, S]``: lse[0] the log-sum-exp rounded to fp32
+and lse[1] what that rounding left out, since at a fully masked row's
+−1e9 one fp32 has a spacing of 64 and would lose log Sp. The designs are
+described in the sources.
 """
 
 from __future__ import annotations
@@ -252,17 +252,14 @@ def _launch(q, k, v, bias, scale, want_lse=False):
 
 
 def _launch_backward(q, k, v, bias, scale, do, lse):
-    """The backward kernels: ``(dq, dk, dv)``. The bf16 path reads the
-    forward's ``lse``; the float32 path recomputes its statistics and
-    ignores it."""
+    """The backward kernels: ``(dq, dk, dv)``, from the forward's ``lse``
+    pair in either dtype."""
     B, S, H, D = q.shape
-    bf16 = q.dtype == torch.bfloat16
-    if bf16:    # the float32 backward reads scalars
-        _check_copy_aligned(q, k, v)
-    if bf16 and (lse is None or lse.shape != (2, B, H, S)
-                 or lse.dtype != torch.float32 or not lse.is_contiguous()):
-        raise ValueError("the bf16 attention backward needs the forward's "
-                         "fp32 [2, B, H, S] log-sum-exp pair")
+    _check_copy_aligned(q, k, v)
+    if lse is None or lse.shape != (2, B, H, S) \
+            or lse.dtype != torch.float32 or not lse.is_contiguous():
+        raise ValueError("the attention backward needs the forward's fp32 "
+                         "[2, B, H, S] log-sum-exp pair")
     fn = _build.load(BACKWARD_KERNEL).cfa_attention_bwd
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
@@ -270,18 +267,18 @@ def _launch_backward(q, k, v, bias, scale, do, lse):
                        + [ctypes.c_longlong] * 13
                        + [ctypes.c_float, ctypes.c_void_p])
     if do.dtype != q.dtype or do.shape != q.shape or do.stride(-1) != 1 \
-            or (bf16 and not _copy_aligned(do)):
-        do = do.to(q.dtype).contiguous()
+            or not _copy_aligned(do):
+        # A fresh copy: .contiguous() would keep a contiguous view whose
+        # pointer is not 16-byte aligned.
+        do = do.to(q.dtype, memory_format=torch.contiguous_format, copy=True)
     dq, dk, dv = (torch.empty((B, S, H, D), dtype=q.dtype, device=q.device)
                   for _ in range(3))
-    # fp32 scratch: the float32 dq pass's per-row max, sum and row term,
-    # the bf16 dq pass's row term; read by the dk/dv pass.
-    stats = torch.empty((1 if bf16 else 3, B, H, S), dtype=torch.float32,
-                        device=q.device)
+    # fp32 scratch: the dq pass's row term, read by the dk/dv pass.
+    stats = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
     bias_ptr, bias_sb, _ = _kernel_bias(bias, S)
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_ptr,
-                 do.data_ptr(), lse.data_ptr() if bf16 else None,
+                 do.data_ptr(), lse.data_ptr(),
                  dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                  stats.data_ptr(), B, S, H, D, _dtype_code(q),
                  *_strides(q, k, v, do), bias_sb,

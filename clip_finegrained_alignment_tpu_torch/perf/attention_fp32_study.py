@@ -121,15 +121,16 @@ def tf32_ceiling(where: Path) -> dict:
             "peak_tf32_tflops": smoke.PEAK_FLOPS["tf32"] / 1e12}
 
 
-def with_constants(values: Dict[str, int]) -> str:
-    """attention_fwd.cu with each ``constexpr int <name> = <n>;`` of
-    ``values`` set to its value; each must be on exactly one line."""
-    source = (_build.CSRC / _build.SOURCES[NAME]).read_text()
+def with_constants(values: Dict[str, int], name: str = NAME) -> str:
+    """The source of kernel ``name`` (by default attention_fwd.cu) with
+    each ``constexpr int <const> = <n>;`` of ``values`` set to its value;
+    each must be on exactly one line."""
+    source = (_build.CSRC / _build.SOURCES[name]).read_text()
     for const, value in values.items():
         source, n = re.subn(rf"constexpr int {const} = \d+;",
                             f"constexpr int {const} = {value};", source)
         if n != 1:
-            raise ValueError(f"{const} is set on {n} lines of {NAME}")
+            raise ValueError(f"{const} is set on {n} lines of {name}")
     return source
 
 
@@ -199,8 +200,8 @@ def main(argv: Optional[List[str]] = None) -> List[dict]:
             lambda: torch.nn.functional.scaled_dot_product_attention(
                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                 attn_mask=bias, scale=scale))
-        row.update(smoke.attention_fwd_bound_ms(B, S, H, D, "float32",
-                                                causal))
+        row.update(smoke.fused_attention_bound_ms(B, S, H, D, "float32",
+                                                  causal))
         print(json.dumps(row), flush=True)
         rows.append(row)
         del x, q, k, v, ref

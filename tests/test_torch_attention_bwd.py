@@ -222,27 +222,43 @@ def test_forward_asks_for_statistics_only_under_grad(mode, monkeypatch):
     assert calls[0][1] is (mode == "grad")
 
 
-@pytest.mark.parametrize("what", ["pointer", "stride", "lse", "lse_single"])
-def test_bf16_launchers_refuse_what_the_copies_cannot_take(what):
-    """The bf16 kernels copy 16 bytes at a time and the backward reads the
-    forward's statistics, the lse pair [2, B, H, S] (a single fp32 lse
-    cannot hold a fully masked row): anything else raises before a kernel
-    is built or launched, and nothing is rerouted."""
+def _refusals(what, dtype):
+    """The launchers of ``dtype`` raise ValueError before a kernel is
+    built or launched on ``what``: a q pointer or sequence stride that is
+    not a multiple of 16 bytes (both directions), or a missing or
+    single-plane lse (the backward)."""
     B, S, H, D = 2, 5, 2, 16
-    q = torch.zeros(B, S, H, D, dtype=torch.bfloat16)
-    if what == "pointer":       # 2 bytes past a 16-byte boundary
-        q = torch.zeros(B * S * H * D + 1, dtype=torch.bfloat16)[1:] \
-            .view(B, S, H, D)
+    pad = 8 // torch.tensor([], dtype=dtype).element_size()
+    q = torch.zeros(B, S, H, D, dtype=dtype)
+    if what == "pointer":       # one element past a 16-byte boundary
+        q = torch.zeros(B * S * H * D + 1, dtype=dtype)[1:].view(B, S, H, D)
     elif what == "stride":      # rows 8 bytes longer than H·D
-        q = torch.zeros(B, S, H * D + 4, dtype=torch.bfloat16)[..., :H * D] \
+        q = torch.zeros(B, S, H * D + pad, dtype=dtype)[..., :H * D] \
             .view(B, S, H, D)
-    k = v = do = torch.zeros(B, S, H, D, dtype=torch.bfloat16)
+    k = v = do = torch.zeros(B, S, H, D, dtype=dtype)
     lse = torch.zeros(B, H, S) if what == "lse_single" else None
     with pytest.raises(ValueError):
         ta._launch_backward(q, k, v, None, 0.25, do, lse)
     if what not in ("lse", "lse_single"):
         with pytest.raises(ValueError):
             ta._launch(q, k, v, None, 0.25)
+
+
+@pytest.mark.parametrize("what", ["pointer", "stride", "lse", "lse_single"])
+def test_bf16_launchers_refuse_what_the_copies_cannot_take(what):
+    """The bf16 kernels copy 16 bytes at a time and the backward reads the
+    forward's statistics, the lse pair [2, B, H, S] (a single fp32 lse
+    cannot hold a fully masked row): anything else raises before a kernel
+    is built or launched, and nothing is rerouted."""
+    _refusals(what, torch.bfloat16)
+
+
+@pytest.mark.parametrize("what", ["pointer", "stride", "lse", "lse_single"])
+def test_fp32_launchers_refuse_what_the_copies_cannot_take(what):
+    """The float32 kernels read 16 bytes at a time too, and the float32
+    backward reads the forward's lse pair as the bf16 one does: the same
+    refusals."""
+    _refusals(what, torch.float32)
 
 
 def test_no_graph_under_inference_mode():

@@ -1,20 +1,24 @@
-"""The error budget of the float32 attention forward on the TF32 tensor
-cores (``csrc/attention_fwd.cu::attention_fwd_tf32``), checked on the CPU.
+"""The error budget of the float32 attention kernels on the TF32 tensor
+cores (``csrc/attention_fwd.cu::attention_fwd_tf32``, and the backward's
+``attention_bwd_dq_tf32`` and ``attention_bwd_dkdv_tf32`` in
+``csrc/attention_bwd.cu``), checked on the CPU.
 
-The kernel takes every fp32 product as three TF32 products of hi / lo
+The kernels take every fp32 product as three TF32 products of hi / lo
 halves (lo·hi + hi·lo + hi·hi, ``ops/sparc_kernel.py::tf32_split``
-rounds them as the kernel does). :func:`tf32_attention` repeats that
-arithmetic in plain PyTorch and is held here against the Pallas kernel
-``_fused_forward`` (interpret mode) at evaluation's shapes, on fully
-masked rows, and, through one ``TemplateScorer`` call at ViT-B/16 full
-width, against the plain fp32 path with ``chip_smoke.py``'s card limit
-``EVAL_MAX_ABS``. One TF32 product alone (hi·hi) would miss both. The
-kernel itself is held to the plain version on the card by
-``chip_smoke.py``.
+rounds them as the kernels do). :func:`tf32_attention` and
+:func:`tf32_attention_backward` repeat that arithmetic in plain PyTorch
+and are held here against the Pallas kernels ``_fused_forward`` and
+``_fused_backward`` (interpret mode) at evaluation's and training's
+shapes and on fully masked rows; through one ``TemplateScorer`` call at
+ViT-B/16 full width against the plain fp32 path with ``chip_smoke.py``'s
+card limit ``EVAL_MAX_ABS``; and through one ViT-B/16 train microbatch
+against the plain fp32 path with the limits of ``chip_smoke.py``'s fp32
+gradient check (``TRAIN_F32_*``), which were set from this emulation.
+One TF32 product alone (hi·hi) would miss each. The kernels themselves
+are held to the plain versions on the card by ``chip_smoke.py``.
 
-Also here: what the float32 launcher hands the C entry, its refusal of
-views the 16-byte copies cannot take, and that the float32 backward, which
-reads scalars, takes them.
+Also here: what the float32 launchers hand the C entries, and their
+refusal of views the 16-byte loads cannot take.
 """
 
 import contextlib
@@ -27,15 +31,21 @@ import pytest
 import torch
 import torch.nn.functional as F
 
-from clip_finegrained_alignment_tpu.ops.attention import _fused_forward
-from clip_finegrained_alignment_tpu_torch.config import CLIPConfig
+from clip_finegrained_alignment_tpu.ops.attention import (_fused_backward,
+                                                         _fused_forward)
+from clip_finegrained_alignment_tpu_torch.config import (CLIPConfig,
+                                                         TrainConfig)
 from clip_finegrained_alignment_tpu_torch.data.tokenizer import HashTokenizer
 from clip_finegrained_alignment_tpu_torch.eval import scoring
+from clip_finegrained_alignment_tpu_torch.models import clip as tm
 from clip_finegrained_alignment_tpu_torch.models import convert
 from clip_finegrained_alignment_tpu_torch.ops import _build
 from clip_finegrained_alignment_tpu_torch.ops import attention as ta
 from clip_finegrained_alignment_tpu_torch.ops import sparc_kernel as sk
-from clip_finegrained_alignment_tpu_torch.perf import attention_fp32_study
+from clip_finegrained_alignment_tpu_torch.perf import (
+    attention_bwd_fp32_study, attention_fp32_study)
+from clip_finegrained_alignment_tpu_torch.perf import \
+    fp32_grad_bias_study as bias_study
 
 _spec = importlib.util.spec_from_file_location(
     "chip_smoke", Path(__file__).resolve().parent.parent / "chip_smoke.py")
@@ -48,24 +58,50 @@ NEG = -1e9
 EMULATION_TOL = 1e-5
 
 
-def _products(eq, a, b, products=3):
+def _products(eq, a, b, products=3, sums="nearest"):
     """``einsum(eq, a, b)`` as the kernel takes it: lo·hi + hi·lo, then
-    + hi·hi, in fp32 (``products`` 1: hi·hi alone, plain TF32)."""
+    + hi·hi, in fp32 (``products`` 1: hi·hi alone, plain TF32). ``sums``
+    "toward zero" adds them as the tensor cores do (:func:`_core_sums`)."""
     ah, al = sk.tf32_split(a)
     bh, bl = sk.tf32_split(b)
+    if sums == "toward zero":
+        pairs = [(al, bh), (ah, bl)] if products == 3 else []
+        return _core_sums(eq, pairs + [(ah, bh)])
     hh = torch.einsum(eq, ah, bh)
     if products == 1:
         return hh
     return (torch.einsum(eq, al, bh) + torch.einsum(eq, ah, bl)) + hh
 
 
-def tf32_attention(q, k, v, bias, scale, products=3):
+def _core_sums(eq, pairs):
+    """Σ over ``pairs`` of ``einsum(eq, x, y)`` as ``mma.sync`` TF32 sums
+    it: over the contracted index 8 at a time, in order, each pair's
+    product of those 8 added exactly to the fp32 accumulator and the
+    result rounded toward zero, as ``perf/fp32_grad_bias_study.py`` finds
+    the H100 rounds it."""
+    ins, out = eq.split("->")
+    ia, ib = ins.split(",")
+    (kdim,) = (set(ia) & set(ib)) - set(out)
+    xa, xb = ia.index(kdim), ib.index(kdim)
+    K = pairs[0][0].shape[xa]
+    acc = None
+    for j in range(0, K, 8):
+        n = min(8, K - j)
+        for x, y in pairs:
+            part = torch.einsum(eq, x.narrow(xa, j, n).double(),
+                                y.narrow(xb, j, n).double())
+            acc = bias_study.round_toward_zero(
+                part if acc is None else acc.double() + part)
+    return acc
+
+
+def tf32_attention(q, k, v, bias, scale, products=3, sums="nearest"):
     """The float32 kernel's arithmetic over bshd q, k, v: qs = (q·scale)
     rounded to fp32, scores qs·kᵀ + bias, the softmax over the TPU
     wrapper's Sp = round_up(S, 8) keys (the padded ones at −1e9), and
     o = (Σ e·v) / Σ e with both products in TF32 halves."""
     qs = ta._scaled_q(q, scale)
-    logits = _products("bqhd,bkhd->bhqk", qs, k.float(), products)
+    logits = _products("bqhd,bkhd->bhqk", qs, k.float(), products, sums)
     if bias is not None:
         logits = logits + bias.float()
     S = logits.shape[-1]
@@ -74,8 +110,46 @@ def tf32_attention(q, k, v, bias, scale, products=3):
     e = torch.exp(logits - logits.amax(-1, keepdim=True))
     l = e.sum(-1)                                          # [B, H, S]
     o = _products("bhqk,bkhd->bqhd", e[..., :S].contiguous(), v.float(),
-                  products)
+                  products, sums)
     return o / l.transpose(1, 2)[..., None]
+
+
+def tf32_attention_backward(q, k, v, bias, scale, do, products=3,
+                            sums="nearest"):
+    """The float32 backward kernels' arithmetic over bshd q, k, v, do: the
+    forward's log-sum-exp pair (hi, lo) from the emulated scores over Sp
+    keys; p = exp((s − hi) − lo); r = Σ p·dp; dq = (A − r·B)·scale with
+    A = (p·dp)·k and B = p·k; ds = p·(dp − r), dk = dsᵀ·qs, dv = pᵀ·do;
+    every product in TF32 halves. Returns (dq, dk, dv)."""
+    qs = ta._scaled_q(q, scale)
+    s = _products("bqhd,bkhd->bhqk", qs, k.float(), products, sums)
+    if bias is not None:
+        s = s + bias.float()
+    S = s.shape[-1]
+    padded = F.pad(s, (0, ta._round_up(S, ta.SEQ_QUANTUM) - S), value=NEG)
+    m = padded.amax(-1, keepdim=True)
+    log_l = torch.log(torch.exp(padded - m).sum(-1, keepdim=True))
+    hi = m + log_l
+    lo = (m - hi) + log_l
+    p = torch.exp((s - hi) - lo)
+    dp = _products("bqhd,bkhd->bhqk", do.float(), v.float(), products, sums)
+    pd = p * dp
+    r = pd.sum(-1, keepdim=True)                           # [B, H, S, 1]
+    a = _products("bhqk,bkhd->bqhd", pd, k.float(), products, sums)
+    b = _products("bhqk,bkhd->bqhd", p, k.float(), products, sums)
+    dq = (a - r.transpose(1, 2) * b) * ta.rounded_scale(scale, torch.float32)
+    ds = p * (dp - r)
+    dk = _products("bhqk,bqhd->bkhd", ds, qs, products, sums)
+    dv = _products("bhqk,bqhd->bkhd", p, do.float(), products, sums)
+    return dq, dk, dv
+
+
+def _bwd_excess(got, ref):
+    """The largest |err| / (rtol·|ref| + atol·max|ref|) with the card's
+    ``BWD_TOL["float32"]``, as ``chip_smoke.py::bwd_excess``."""
+    rtol, atol = smoke.BWD_TOL["float32"]
+    lim = rtol * np.abs(ref) + atol * np.abs(ref).max()
+    return float((np.abs(got - ref) / lim).max())
 
 
 def _masked_bias(B, S, causal):
@@ -132,6 +206,146 @@ def test_emulated_kernel_matches_pallas(name):
         assert np.abs(got[0] - row[None]).max() <= EMULATION_TOL
     plain_tf32 = tf32_attention(tq, tk, tv, tb, scale, products=1).numpy()
     assert np.abs(plain_tf32 - want).max() > smoke.KERNEL_TOL["float32"]
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_emulated_backward_matches_pallas(name):
+    """The 3xTF32 backward within a tenth of the card's tolerance
+    (``BWD_TOL["float32"]``) of the Pallas backward at evaluation's and
+    training's widths (Dh=64) and on fully masked rows (dv of such a row's
+    keys Σdo / Sp in both), with its sums rounded to nearest and toward
+    zero; hi·hi alone misses the card's tolerance."""
+    q, k, v, bias = _case(name, seed=len(name) + 1)
+    do = np.random.default_rng(len(name)).standard_normal(
+        q.shape).astype(np.float32)
+    S, scale = q.shape[1], 64 ** -0.5
+    want = [np.asarray(x) for x in _fused_backward(
+        *(jnp.asarray(x) for x in (q, k, v)),
+        None if bias is None else jnp.asarray(bias), scale, 0,
+        jnp.asarray(do), layout="bshd")]
+    tq, tk, tv, tdo = (torch.from_numpy(x) for x in (q, k, v, do))
+    tb = None if bias is None else torch.from_numpy(bias)
+    got = tf32_attention_backward(tq, tk, tv, tb, scale, tdo)
+    for dname, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert _bwd_excess(g.numpy(), w) <= 0.1, dname
+    # The same with the sums rounded toward zero, as the card's are.
+    card = tf32_attention_backward(tq, tk, tv, tb, scale, tdo,
+                                   sums="toward zero")
+    for dname, g, w in zip(("dq", "dk", "dv"), card, want):
+        assert _bwd_excess(g.numpy(), w) <= 0.1, dname
+    if name.startswith("masked"):
+        Sp = ta._round_up(S, ta.SEQ_QUANTUM)
+        dv0 = np.broadcast_to(do[0].sum(0) / Sp, do[0].shape)
+        assert _bwd_excess(got[2][0].numpy(), dv0) <= 0.1
+    plain_tf32 = tf32_attention_backward(tq, tk, tv, tb, scale, tdo,
+                                         products=1)
+    assert max(_bwd_excess(g.numpy(), w)
+               for g, w in zip(plain_tf32, want)) > 1.0
+
+
+def _microbatch_grads(products=None, sums="nearest"):
+    """``chip_smoke.microbatch_grads`` of one ViT-B/16 fp32 microbatch on
+    the CPU (``TRAIN_CHECK_PAIRS`` pairs, SPARC), every layer's attention
+    forward and backward emulated with ``products`` and ``sums`` (None:
+    the plain path)."""
+    cfg = CLIPConfig.vit_b16()
+    tcfg = TrainConfig(loss_type="sparc", optimizer_type="adamspd",
+                       inverse_temperature=0.07, use_amp=False)
+    sd = convert.state_dict_from_jax(convert.random_params(cfg, 0), cfg)
+    batch = smoke.train_batch(cfg, 1, smoke.TRAIN_CHECK_PAIRS, 0)
+    model = tm.build_train_model(cfg, sd, device="cpu")
+    with pytest.MonkeyPatch.context() as mp:
+        if products:
+            mp.setattr(ta, "attention_reference",
+                       lambda q, k, v, bias, scale: tf32_attention(
+                           q, k, v, bias, scale, products, sums))
+            mp.setattr(ta, "attention_backward_reference",
+                       lambda q, k, v, bias, scale, do:
+                       tf32_attention_backward(q, k, v, bias, scale, do,
+                                               products, sums))
+        return smoke.microbatch_grads(model, batch, tcfg, cfg,
+                                      torch.float32)
+
+
+def test_emulated_train_microbatch_holds_the_fp32_card_limits_at_vit_b16():
+    """One ViT-B/16 train microbatch at full width (12 + 12 layers,
+    ``TRAIN_CHECK_PAIRS`` pairs, SPARC, as ``chip_smoke.py`` phase 6) in
+    fp32 on the CPU, with every layer's attention forward and backward
+    taken as the kernels take them, against the plain fp32 path: the loss,
+    gradient norm and per-tensor gradient cosines hold the limits of the
+    phase's fp32 card check (``TRAIN_F32_*``), which were set from these
+    readings with a wide margin; with hi·hi alone they do not."""
+    plain = _microbatch_grads()
+    ok = smoke.compare_grads(_microbatch_grads(3), plain)
+    # The readings the limits were set from, with the margins stated there.
+    assert ok["loss_rel"] <= smoke.TRAIN_F32_MAX_LOSS_REL / 8, ok
+    assert ok["grad_norm_rel"] <= smoke.TRAIN_F32_MAX_GNORM_REL / 100, ok
+    assert 1 - ok["min_grad_cosine"] <= \
+        (1 - smoke.TRAIN_F32_MIN_GRAD_COSINE) / 100, ok
+    off = smoke.compare_grads(_microbatch_grads(1), plain)
+    assert off["grad_norm_rel"] > smoke.TRAIN_F32_MAX_GNORM_REL
+    assert off["min_grad_cosine"] < smoke.TRAIN_F32_MIN_GRAD_COSINE
+
+
+def test_emulated_microbatch_with_the_cards_sums_holds_the_fp32_limits():
+    """The microbatch of the test above with the emulated kernels' sums
+    rounded toward zero, as ``mma.sync`` TF32 rounds them on the H100
+    (``perf/fp32_grad_bias_study.py``): every gradient shrinks by ~2e-6
+    (the card reads 2.31e-6), and the limits of the phase's fp32 card
+    check hold it with the margins stated beside them: the gradient norm
+    at under half its limit, the cosine gap at under a hundredth."""
+    plain = _microbatch_grads()
+    card = _microbatch_grads(3, "toward zero")
+    ok = smoke.compare_grads(card, plain)
+    assert card[1] < plain[1], ok
+    assert ok["loss_rel"] <= smoke.TRAIN_F32_MAX_LOSS_REL / 8, ok
+    assert ok["grad_norm_rel"] <= smoke.TRAIN_F32_MAX_GNORM_REL / 2, ok
+    assert 1 - ok["min_grad_cosine"] <= \
+        (1 - smoke.TRAIN_F32_MIN_GRAD_COSINE) / 100, ok
+
+
+def test_truncating_sums_shrink_the_backward_as_the_card_does():
+    """At ViT-B/16 vision's widths (``fp32_grad_bias_study.bias_inputs``,
+    B=2) against a float64 backward: the emulated kernel with sums rounded
+    to nearest has no magnitude bias (|scale| < 2e-8), with sums rounded
+    toward zero dq, dk and dv shrink by 1e-6 to 4e-6 (the card: 1.55e-6 to
+    1.90e-6); both stay far inside the card's tolerance."""
+    q, k, v, do = bias_study.bias_inputs()
+    scale = q.shape[-1] ** -0.5
+    ref = bias_study.backward64(q, k, v, do, scale)
+    for sums in ("nearest", "toward zero"):
+        got = tf32_attention_backward(q, k, v, None, scale, do, sums=sums)
+        for dname, g, r in zip(("dq", "dk", "dv"), got, ref):
+            stats = bias_study.bias_stats(g, r)
+            assert stats["err_rel"] < 1e-5, (sums, dname, stats)
+            if sums == "nearest":
+                assert abs(stats["scale"]) < 2e-8, (dname, stats)
+            else:
+                assert -4e-6 < stats["scale"] < -1e-6, (dname, stats)
+
+
+@pytest.mark.parametrize("rounding", ["nearest", "toward zero"])
+def test_bias_study_classes_each_rounding(rounding):
+    """The study's probe sets, summed exactly and rounded each way, are
+    classed as that rounding wherever the two differ, with the mean
+    signed error of its kind: about 0 to nearest, negative toward zero."""
+    sets = bias_study.probe_sets(torch.Generator().manual_seed(0))
+    assert set(sets) == {"random", "accumulating", "crafted"}
+    for name, (a, b, c) in sets.items():
+        assert torch.equal(sk.tf32_split(a)[0], a)
+        assert torch.equal(sk.tf32_split(b)[0], b)
+        exact = c.double() + a.double() @ b.double()
+        d = (exact.float() if rounding == "nearest"
+             else bias_study.round_toward_zero(exact))
+        got = bias_study.classify(d, exact)
+        assert got["decisive"] > 0, name
+        if rounding == "nearest":
+            assert got["rn"] == 1.0 and got["rz"] == 0.0, (name, got)
+            assert abs(got["mean_signed_ulp"]) < (0.3 if name == "crafted"
+                                                  else 1e-2), (name, got)
+        else:
+            assert got["rz"] == 1.0 and got["rn"] == 0.0, (name, got)
+            assert got["mean_signed_ulp"] < -0.3, (name, got)
 
 
 def test_emulated_scorer_holds_the_card_limit_at_vit_b16():
@@ -217,8 +431,8 @@ def _fake_lib(monkeypatch, entry_name):
 def test_fp32_forward_refuses_unaligned_views(which, kind, monkeypatch):
     """The float32 forward reads q and k 16 bytes at a time: its launcher
     refuses a view that is not 16-byte aligned with ValueError before a
-    kernel is built, and nothing is rerouted. The backward takes the same
-    views (next test)."""
+    kernel is built, and nothing is rerouted. So does the backward (next
+    test)."""
     q, k, v = _views(which, kind, torch.float32)
 
     def no_build(name):
@@ -231,15 +445,56 @@ def test_fp32_forward_refuses_unaligned_views(which, kind, monkeypatch):
 
 @pytest.mark.parametrize("kind", ["pointer", "sequence stride",
                                   "head stride"])
-def test_fp32_backward_takes_unaligned_views(kind, monkeypatch):
-    """The float32 backward reads scalars: an unaligned view reaches its C
-    entry with dtype code 0, as before the forward's redesign."""
+def test_fp32_backward_refuses_unaligned_views(kind, monkeypatch):
+    """The float32 backward reads its tiles 16 bytes at a time, as the
+    forward does: an unaligned view raises ValueError before a kernel is
+    built, as in bf16. No caller meets it: the forward refuses the same
+    views first."""
     q, k, v = _views("q", kind, torch.float32)
+    B, S, H, _ = q.shape
     do = torch.zeros(q.shape)
+
+    def no_build(name):
+        raise AssertionError(f"{name} built for a view it cannot take")
+
+    monkeypatch.setattr(_build, "load", no_build)
+    with pytest.raises(ValueError, match="multiples of 16 bytes"):
+        ta._launch_backward(q, k, v, None, 0.25, do,
+                            torch.zeros(2, B, H, S))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("aligned_do", [True, False])
+def test_backward_hands_the_c_entry_the_lse_pair(dtype, aligned_do,
+                                                  monkeypatch):
+    """Both backward paths hand ``cfa_attention_bwd`` the forward's lse
+    pair, the dtype code (0 for the float32 3xTF32 kernels, 1 for bf16),
+    q, k, v and their strides as they are, one row-term float a row as
+    scratch and the scale rounded to the input type; a cotangent view that
+    is not 16-byte aligned is copied first. One launch counted."""
+    B, S, H, D = 2, 77, 8, 64
+    x = torch.randn(B, S, 3 * H * D).to(dtype)
+    q, k, v = (x[..., i * H * D:(i + 1) * H * D].view(B, S, H, D)
+               for i in range(3))
+    do = torch.randn(B, S, H, D).to(dtype)
+    if not aligned_do:
+        do = torch.zeros(B * S * H * D + 1, dtype=dtype)[1:].view(B, S, H, D)
+    lse = torch.zeros(2, B, H, S)
     entry = _fake_lib(monkeypatch, "cfa_attention_bwd")
-    ta._launch_backward(q, k, v, None, 0.25, do, None)
+    _build.reset_launch_counts()
+    dq, dk, dv = ta._launch_backward(q, k, v, None, D ** -0.5, do, lse)
     (args,) = entry.calls
-    assert args[0] == q.data_ptr() and args[10:15] == (2, 5, 2, 16, 0)
+    assert len(entry.argtypes) == len(args)
+    assert args[:4] == (q.data_ptr(), k.data_ptr(), v.data_ptr(), None)
+    assert (args[4] == do.data_ptr()) is aligned_do
+    assert args[5] == lse.data_ptr()
+    assert args[6:9] == (dq.data_ptr(), dk.data_ptr(), dv.data_ptr())
+    assert args[10:15] == (B, S, H, D, 0 if dtype == torch.float32 else 1)
+    assert list(args[15:24]) == [s for t in (q, k, v)
+                                 for s in t.stride()[:3]]
+    assert args[-2] == ta.rounded_scale(D ** -0.5, dtype)
+    assert all(t.dtype == dtype and t.shape == q.shape for t in (dq, dk, dv))
+    assert _build.launch_counts()["attention_bwd"] == 1
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -285,3 +540,20 @@ def test_study_variants_set_each_constant_once(variant):
     assert len(changed) == len(values)
     with pytest.raises(ValueError):
         attention_fp32_study.with_constants({"kNoSuchConstant": 1})
+
+
+@pytest.mark.parametrize("variant", sorted(attention_bwd_fp32_study.VARIANTS))
+def test_bwd_study_variants_set_each_constant_once(variant):
+    """Each design variant of the float32 backward edits exactly the
+    constants it names, in attention_bwd.cu's float32 section, and nothing
+    else."""
+    values = attention_bwd_fp32_study.VARIANTS[variant]
+    name = attention_bwd_fp32_study.NAME
+    source = (_build.CSRC / _build.SOURCES[name]).read_text()
+    got = attention_fp32_study.with_constants(values, name)
+    for const, value in values.items():
+        assert const.startswith("kF32")
+        assert f"constexpr int {const} = {value};" in got
+    changed = [a for a, b in zip(source.splitlines(), got.splitlines())
+               if a != b]
+    assert len(changed) == len(values)
