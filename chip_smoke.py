@@ -59,6 +59,19 @@ Phases, each of which fails the script (non-zero exit, no "ok" line):
    kernels), against the port in fp32 on the CPU (loss, gradient norm,
    per-tensor gradient cosine, each dtype with limits of its own); then the
    step time, pairs/s, model-FLOP utilization and a profile of one step;
+6b. GradCache (``train/gradcache.py``) on the same model and batch: one
+   chunk embedded as phase 1 (no grad) and as phase 3 (grad) must be bit
+   equal; the exact launches of a GradCache step (per chunk two forwards
+   and one backward of each layer, one SPARC forward and backward over
+   the pool); the GradCache step at 32 x 8 (a pool of 256) and phase 6's
+   plain step in turns, the median of three each: step ms, pairs/s, peak
+   memory, device time and busy share (the plain step's device time from
+   phase 6's trace of it); the pool of 1024 (32 x 32): step ms,
+   peak memory, exact launches; one direct [1, 256] step's peak memory (or
+   its OOM); #3 and #4 at B=256 (timed, with bounds) and B=1024 against
+   their plain versions; in fp32, one GradCache [8, 4] step against one
+   direct [1, 32] step (loss, gradient norm, per-tensor cosine, limits set
+   from the CPU);
 7. long-sequence attention: the three blockwise kernels (forward, dq,
    dk/dv) against their plain versions at the flash microbenchmark's design
    points ([B, 12, S, 64] bf16; S=1024, 2048, 4096 at B=8, 4, 1), a causal
@@ -88,7 +101,13 @@ Phases, each of which fails the script (non-zero exit, no "ok" line):
    matplotlib is installed (its confusion plots need it; two evaluations
    of 36 forward launches each); D, C's data and loss in fp32
    (``--no-amp``, the reference count fine-tune's forced fp32: the fp32
-   attention kernels, 36 x 2 launches each a step, no SPARC). It prints
+   attention kernels, 36 x 2 launches each a step, no SPARC); E, A's data
+   and flags with ``--grad-cache`` for 1 epoch (a GradCache step's launches
+   each step); F, A's ``best/`` exported by ``cli/export_checkpoint.py
+   --include-optimizer`` and trained on from that ``.pt`` with
+   ``--pretrained --import-optimizer-state`` to B's epochs (the optimizer
+   state right after the import equal to ``best/``'s bit for bit, the
+   launches as B's, the epoch losses beside B's). It prints
    which image decode ran (the native library or PIL), the live
    pipeline's rate alone, and one
    ``train cli: {...}`` line: steps, epoch losses and epoch pairs/s on the
@@ -108,12 +127,18 @@ Phases, each of which fails the script (non-zero exit, no "ok" line):
    the device time of one scorer call (32 images x 10 templates) with its
    kernel profile, #1 in fp32 at evaluation's shapes (vision B=32, text
    B=320 causal) against SDPA and its bounds (TF32 tensor cores and fp32
-   cores), and peak memory.
+   cores), and peak memory. Last, ``best/`` exported with OpenAI
+   ``clip``-package names (``cli/export_checkpoint.py --format openai``)
+   and ``countbench`` run on that ``.pt``: every probability equal to the
+   ``best/`` run's, bit for bit.
 
 The last lines are the kernels' JSON line (``launches_by_path`` has
-``serve``, ``train``, ``long``, ``train_cli`` and ``eval``; the forward
-kernel's entry also carries its ``fp32_eval`` rows, the backward's its
-``fp32_train`` rows), the ``nvidia-smi`` line
+``serve``, ``train``, ``long``, ``train_cli`` (runs A-D), ``eval``,
+``gradcache`` (phase 6b's counted steps), ``train_cli_gradcache`` (run E),
+``train_cli_interop`` (run F) and ``eval_openai``; the forward kernel's
+entry also carries its ``fp32_eval`` rows, the backward's its
+``fp32_train`` rows, the SPARC kernels' their ``gradcache_pool`` row at
+B=256), the ``nvidia-smi`` line
 and ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 rest of the repository beside it, the script exits non-zero before any
 result. It imports nothing of JAX.
@@ -253,6 +278,25 @@ LONG_TIMED = "microbench S=2048"
 # (S, B) and its default step count, every launch counted.
 MICROBENCH_POINTS = ((1024, 8), (2048, 4), (4096, 1))
 MICROBENCH_STEPS = 20
+# GradCache (phase 6b): the large pool's accumulation (32 x 32 = 1024),
+# the timed steps of each variant at 32 x 8, and the fp32 check's shape
+# (accum, microbatch) against one direct [1, 32] step. The fp32 limits
+# were set before any card reading, from the port on the CPU at ViT-B/16
+# widths with 1, 2 and 3 layers a tower (tests/test_torch_gradcache.py::
+# test_fp32_gradcache_vs_direct_at_vit_b16_width holds the 1-layer
+# case): loss relative difference 0, gradient norm 5.5e-10, largest
+# per-tensor cosine gap 1.8e-12. On the card both sides run the same
+# kernels on the same samples (their rounding, the truncated TF32 sums
+# of #2 among it, is the same); what differs is cuBLAS's GEMM shapes
+# (4 rows against 32 a chunk) and .grad's sum over 8 chunks. The limits:
+# loss 1e-6 (8 fp32 steps), gradient norm 1e-6, cosine gap 1e-8 (5000x the
+# CPU's; the card-vs-CPU fp32 check of phase 6 reads 2e-11): a dropped
+# chunk, a 1/accum scale or a cotangent taken at other embeddings fails.
+GC_LARGE_ACCUM = 32
+GC_TIMED = 3
+GC_F32_SHAPE = (8, 4)
+GC_F32_LIMITS = {"loss_rel": 1e-6, "grad_norm_rel": 1e-6,
+                 "min_grad_cosine": 1.0 - 1e-8}
 # The training CLI (phase 8): a procedural dataset of this many 224 px
 # samples (two SPARC steps an epoch at TRAIN_B x TRAIN_ACCUM; eight count
 # steps at TRAIN_B x CLI_COUNT_ACCUM).
@@ -801,83 +845,95 @@ def sparc_near_rows(v, l, mask, tau):
 def check_sparc(results: dict) -> tuple:
     """Both SPARC kernels at the train shapes and on an edge batch."""
     import torch
-    from clip_finegrained_alignment_tpu_torch.ops import sparc_kernel as sk
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
-    T, D, tau = 77, 512, 0.5
     rows = {"fwd": [], "bwd": []}
     for what, B, P, edge in (("ViT-B/16", TRAIN_B, 197, False),
                              ("ViT-B/32", TRAIN_B, 50, False),
                              ("ViT-B/16 edge batch", 4, 197, True)):
-        v, l, mask, g = sparc_inputs(gen, B, T, P, D, edge)
-        near = sparc_near_rows(v, l, mask, tau)
-        keep_row = ~near[:, :, None]
-        keep_b = ~near.any(-1)[:, None, None]
-        out, *res = sk._launch(v, l, mask, tau)
-        dv, dl = sk._launch_backward(v, l, mask, tau, g, *res)
-        torch.cuda.synchronize()
-        ref, *rres = sk.sparc_pooling_reference(v, l, mask, tau,
-                                                return_residuals=True)
-        rdv, rdl = sk.sparc_pooling_backward_reference(v, l, mask, tau, g)
-        for t in (out, dv, dl, *res):
-            check(bool(torch.isfinite(t).all()), f"SPARC {what}: non-finite")
-        errs = {"out": ((out - ref).abs() * keep_row).max().item(),
-                "dl": ((dl - rdl).abs() * keep_row).max().item(),
-                "dv": ((dv - rdv).abs() * keep_b).max().item()}
-        res_err = {"sim": (res[0] - rres[0]).abs().max().item()}
-        for name, got, want in zip(("rl", "rv"), res[1:], rres[1:]):
-            res_err[name] = ((got - want).abs() / want.abs()).max().item()
-        check(max(res_err.values()) <= SPARC_RESIDUAL_TOL,
-              f"SPARC {what}: saved sim, rl, rv off the plain version's by "
-              f"{res_err} > {SPARC_RESIDUAL_TOL}")
-        n_near, n_rows = int(near.sum()), int((mask > 0).sum())
-        common = {"shape": what, "B": B, "T": T, "P": P, "D": D, "tau": tau,
-                  "tol": SPARC_TOL, "near_decision_rows": n_near,
-                  "rows": n_rows, "near_decision_samples":
-                  int(near.any(-1).sum())}
-        check(n_near <= SPARC_MAX_NEAR_SHARE * n_rows,
-              f"SPARC {what}: {n_near} of {n_rows} rows near a decision")
-        fwd = dict(common, max_abs_err=errs["out"], residual_err=res_err)
-        bwd = dict(common, max_abs_err=max(errs["dl"], errs["dv"]),
-                   max_abs_err_by={"dl": errs["dl"], "dv": errs["dv"]})
-        for kind, row in (("forward", fwd), ("backward", bwd)):
-            check(row["max_abs_err"] <= SPARC_TOL,
-                  f"SPARC {kind} {what}: max abs err {row['max_abs_err']} "
-                  f"> {SPARC_TOL}")
-        if not edge:
-            for row, fn in (
-                    (fwd, lambda: sk._launch(v, l, mask, tau)),
-                    (bwd, lambda: sk._launch_backward(v, l, mask, tau, g,
-                                                      *res))):
-                row["ms"], row["graph_ms"] = cuda_time_ms(fn), graph_ms(fn)
-            fwd["plain_ms"] = cuda_time_ms(
-                lambda: sk.sparc_pooling_reference(
-                    v, l, mask, tau, return_residuals=True), reps=5)
-            bwd["plain_ms"] = cuda_time_ms(
-                lambda: sk.sparc_pooling_backward_reference(
-                    v, l, mask, tau, g, residuals=res), reps=5)
-            # No single PyTorch call computes this chain.
-            fwd["library_ms"] = bwd["library_ms"] = None
-            # Each input read and each output written once. The forward
-            # reads v, l, mask and writes out, sim, rl, rv; the backward
-            # reads v, l, mask, g, sim, rl, rv and writes dv, dl. Products
-            # [T, P, D]: l·vᵀ and w·v forward; g·vᵀ, (dsim∘rv)·v, wᵀ·g,
-            # (dsim∘rl)ᵀ·l backward. The kernels issue each as three TF32
-            # products; the CUDA-core fp32 bound (one fp32 product each)
-            # stays beside it.
-            f4, prod = 4.0, 2.0 * B * T * P * D
-            io = B * T + B * T * P + B * T + B * P
-            for row, nbytes, n in (
-                    (fwd, f4 * (B * P * D + 2 * B * T * D + io), 2),
-                    (bwd, f4 * (2 * B * P * D + 3 * B * T * D + io), 4)):
-                row.update(bound_ms(nbytes, 3 * n * prod, "tf32"))
-                row["bound_ms_fp32_cores"] = bound_ms(
-                    nbytes, n * prod, "float32")["bound_ms"]
-        for kind, row in (("fwd", fwd), ("bwd", bwd)):
-            log(f"sparc {kind}", json.dumps(row))
-            rows[kind].append(row)
+        fwd, bwd = sparc_case(gen, what, B, P, edge, timed=not edge)
+        rows["fwd"].append(fwd)
+        rows["bwd"].append(bwd)
     results["sparc"] = rows
     return rows["fwd"][0], rows["bwd"][0]
+
+
+def sparc_case(gen, what, B, P, edge=False, timed=True) -> tuple:
+    """Both SPARC kernels at [B, T=77, P, D=512] against their plain
+    versions (SPARC_TOL, SPARC_RESIDUAL_TOL), the forward's saved sim, rl,
+    rv fed to the backward; with ``timed`` their ms, graph ms, plain ms and
+    bounds. Returns the forward's and the backward's rows."""
+    import torch
+    from clip_finegrained_alignment_tpu_torch.ops import sparc_kernel as sk
+
+    T, D, tau = 77, 512, 0.5
+    v, l, mask, g = sparc_inputs(gen, B, T, P, D, edge)
+    near = sparc_near_rows(v, l, mask, tau)
+    keep_row = ~near[:, :, None]
+    keep_b = ~near.any(-1)[:, None, None]
+    out, *res = sk._launch(v, l, mask, tau)
+    dv, dl = sk._launch_backward(v, l, mask, tau, g, *res)
+    torch.cuda.synchronize()
+    ref, *rres = sk.sparc_pooling_reference(v, l, mask, tau,
+                                            return_residuals=True)
+    rdv, rdl = sk.sparc_pooling_backward_reference(v, l, mask, tau, g)
+    for t in (out, dv, dl, *res):
+        check(bool(torch.isfinite(t).all()), f"SPARC {what}: non-finite")
+    errs = {"out": ((out - ref).abs() * keep_row).max().item(),
+            "dl": ((dl - rdl).abs() * keep_row).max().item(),
+            "dv": ((dv - rdv).abs() * keep_b).max().item()}
+    res_err = {"sim": (res[0] - rres[0]).abs().max().item()}
+    for name, got, want in zip(("rl", "rv"), res[1:], rres[1:]):
+        res_err[name] = ((got - want).abs() / want.abs()).max().item()
+    check(max(res_err.values()) <= SPARC_RESIDUAL_TOL,
+          f"SPARC {what}: saved sim, rl, rv off the plain version's by "
+          f"{res_err} > {SPARC_RESIDUAL_TOL}")
+    n_near, n_rows = int(near.sum()), int((mask > 0).sum())
+    common = {"shape": what, "B": B, "T": T, "P": P, "D": D, "tau": tau,
+              "tol": SPARC_TOL, "near_decision_rows": n_near,
+              "rows": n_rows, "near_decision_samples":
+              int(near.any(-1).sum())}
+    check(n_near <= SPARC_MAX_NEAR_SHARE * n_rows,
+          f"SPARC {what}: {n_near} of {n_rows} rows near a decision")
+    fwd = dict(common, max_abs_err=errs["out"], residual_err=res_err)
+    bwd = dict(common, max_abs_err=max(errs["dl"], errs["dv"]),
+               max_abs_err_by={"dl": errs["dl"], "dv": errs["dv"]})
+    for kind, row in (("forward", fwd), ("backward", bwd)):
+        check(row["max_abs_err"] <= SPARC_TOL,
+              f"SPARC {kind} {what}: max abs err {row['max_abs_err']} "
+              f"> {SPARC_TOL}")
+    if timed:
+        for row, fn in (
+                (fwd, lambda: sk._launch(v, l, mask, tau)),
+                (bwd, lambda: sk._launch_backward(v, l, mask, tau, g,
+                                                  *res))):
+            row["ms"], row["graph_ms"] = cuda_time_ms(fn), graph_ms(fn)
+        fwd["plain_ms"] = cuda_time_ms(
+            lambda: sk.sparc_pooling_reference(
+                v, l, mask, tau, return_residuals=True), reps=5)
+        bwd["plain_ms"] = cuda_time_ms(
+            lambda: sk.sparc_pooling_backward_reference(
+                v, l, mask, tau, g, residuals=res), reps=5)
+        # No single PyTorch call computes this chain.
+        fwd["library_ms"] = bwd["library_ms"] = None
+        # Each input read and each output written once. The forward
+        # reads v, l, mask and writes out, sim, rl, rv; the backward
+        # reads v, l, mask, g, sim, rl, rv and writes dv, dl. Products
+        # [T, P, D]: l·vᵀ and w·v forward; g·vᵀ, (dsim∘rv)·v, wᵀ·g,
+        # (dsim∘rl)ᵀ·l backward. The kernels issue each as three TF32
+        # products; the CUDA-core fp32 bound (one fp32 product each)
+        # stays beside it.
+        f4, prod = 4.0, 2.0 * B * T * P * D
+        io = B * T + B * T * P + B * T + B * P
+        for row, nbytes, n in (
+                (fwd, f4 * (B * P * D + 2 * B * T * D + io), 2),
+                (bwd, f4 * (2 * B * P * D + 3 * B * T * D + io), 4)):
+            row.update(bound_ms(nbytes, 3 * n * prod, "tf32"))
+            row["bound_ms_fp32_cores"] = bound_ms(
+                nbytes, n * prod, "float32")["bound_ms"]
+    for kind, row in (("fwd", fwd), ("bwd", bwd)):
+        log(f"sparc {kind}", json.dumps(row))
+    return fwd, bwd
 
 
 # ---------------------------------------------------------------------------
@@ -1110,17 +1166,20 @@ def kernel_table(run) -> dict:
             and e.self_device_time_total > 0]
     rows.sort(reverse=True)
     total = sum(r[0] for r in rows)
-    # The port's own kernels by name, wherever they rank.
-    port = {}
+    # The port's own kernels by name, wherever they rank, with the
+    # launches the trace holds (set beside the launch counters, they show
+    # whether the trace kept every record).
+    port, calls = {}, {}
     for us, k, c in rows:
         m = re.search(r"::((?:attention|sparc|flash)_\w+)", k)
         if m:
             port[m.group(1)] = port.get(m.group(1), 0.0) + us / 1e3
-    return {"device_ms": total / 1e3,
+            calls[m.group(1)] = calls.get(m.group(1), 0) + c
+    return {"device_ms": total / 1e3, "kernel_calls": sum(r[2] for r in rows),
             "top": [{"kernel": k[:90], "ms": us / 1e3, "calls": c,
                      "share": us / total if total else None}
                     for us, k, c in rows[:12]],
-            "port_kernels_ms": port}
+            "port_kernels_ms": port, "port_kernels_calls": calls}
 
 
 def profile_forward(inf, pix, ids) -> dict:
@@ -1154,6 +1213,18 @@ def train_batch(cfg, accum, B, seed):
     return {"pixel_values": pix, "input_ids": ids}
 
 
+def grad_triplet(model, losses) -> tuple:
+    """(loss, gradient norm in float64, {name: fp32 CPU gradient}) of what
+    a gradient function left in ``model``."""
+    import torch
+    grads = {n: (p.grad if p.grad is not None
+                 else torch.zeros_like(p)).detach().float().cpu()
+             for n, p in model.named_parameters()}
+    norm = math.sqrt(sum(g.double().square().sum().item()
+                         for g in grads.values()))
+    return losses["total_loss"].item(), norm, grads
+
+
 def microbatch_grads(model, batch, tcfg, cfg, dtype) -> tuple:
     """(loss, gradient norm, {name: fp32 CPU gradient}) of the first
     TRAIN_CHECK_PAIRS pairs of ``batch``'s first microbatch, on the
@@ -1165,16 +1236,12 @@ def microbatch_grads(model, batch, tcfg, cfg, dtype) -> tuple:
     device = next(model.parameters()).device
     mb = {k: torch.from_numpy(x[:1, :TRAIN_CHECK_PAIRS]).to(device)
           for k, x in batch.items()}
-    losses = accumulate_grads(model, mb, tcfg, cfg, dtype=dtype)
-    grads = {n: (p.grad if p.grad is not None
-                 else torch.zeros_like(p)).detach().float().cpu()
-             for n, p in model.named_parameters()}
-    norm = math.sqrt(sum(g.double().square().sum().item()
-                         for g in grads.values()))
-    return losses["total_loss"].item(), norm, grads
+    return grad_triplet(model, accumulate_grads(model, mb, tcfg, cfg,
+                                                dtype=dtype))
 
 
-def compare_grads(card, cpu) -> dict:
+def compare_grads(card, cpu, labels=("card", "cpu"),
+                  what="train vs CPU") -> dict:
     """Loss and gradient-norm relative differences and per-tensor
     gradient cosines (float64) of two :func:`microbatch_grads` results.
     A key projection's bias gradient is zero by math (softmax ignores a
@@ -1186,8 +1253,8 @@ def compare_grads(card, cpu) -> dict:
     for n, want in g_cpu.items():
         got = g_gpu[n]
         if not want.any():
-            check(not got.any(), f"train vs CPU: {n} has a gradient on the "
-                  "card only")
+            check(not got.any(), f"{what}: {n} has a gradient on the "
+                  f"{labels[0]} side only")
             zero.append(n)
         elif n.endswith("self_attn.k_proj.bias"):
             noise = max(noise, got.norm().item() / n_gpu,
@@ -1196,12 +1263,13 @@ def compare_grads(card, cpu) -> dict:
             cos[n] = (torch.nn.functional.cosine_similarity(
                 got.double().flatten(), want.double().flatten(), dim=0)).item()
     check(noise <= TRAIN_MAX_ZERO_GRAD_SHARE,
-          f"train vs CPU: a key-projection bias gradient is {noise} of the "
+          f"{what}: a key-projection bias gradient is {noise} of the "
           "global norm; it is zero by math")
     worst = min(cos, key=cos.get)
-    return {"pairs": TRAIN_CHECK_PAIRS, "loss_card": l_gpu, "loss_cpu": l_cpu,
+    a, b = labels
+    return {"pairs": TRAIN_CHECK_PAIRS, f"loss_{a}": l_gpu, f"loss_{b}": l_cpu,
             "loss_rel": abs(l_gpu - l_cpu) / abs(l_cpu),
-            "grad_norm_card": n_gpu, "grad_norm_cpu": n_cpu,
+            f"grad_norm_{a}": n_gpu, f"grad_norm_{b}": n_cpu,
             "grad_norm_rel": abs(n_gpu - n_cpu) / n_cpu,
             "min_grad_cosine": cos[worst], "min_grad_cosine_tensor": worst,
             "median_grad_cosine": sorted(cos.values())[len(cos) // 2],
@@ -1209,22 +1277,20 @@ def compare_grads(card, cpu) -> dict:
             "k_proj_bias_grad_share_of_norm": noise}
 
 
-def grads_vs_cpu(sd, cfg, tcfg, batch, dtype_name) -> dict:
+def grads_vs_cpu(sd, cfg, tcfg, batch, dtype_name, cpu) -> dict:
     """One microbatch's loss, gradient norm and gradients on the card in
     ``dtype_name`` (the compute dtype: bfloat16, or float32 as
-    ``use_amp=False`` gives it) against the port in fp32 on the CPU, held
-    to that dtype's TRAIN_CHECK_LIMITS."""
+    ``use_amp=False`` gives it) against ``cpu``, the port's in fp32 on the
+    CPU (:func:`microbatch_grads` of the same weights and batch), held to
+    that dtype's TRAIN_CHECK_LIMITS."""
     import torch
     from clip_finegrained_alignment_tpu_torch.models import clip as tm
 
-    side = {}
-    for device, dtype in (("cuda", getattr(torch, dtype_name)),
-                          ("cpu", torch.float32)):
-        model = tm.build_train_model(cfg, sd, device=device)
-        side[device] = microbatch_grads(model, batch, tcfg, cfg, dtype)
-        del model
-    out = {"card_dtype": dtype_name,
-           **compare_grads(side["cuda"], side["cpu"])}
+    model = tm.build_train_model(cfg, sd, device="cuda")
+    card = microbatch_grads(model, batch, tcfg, cfg,
+                            getattr(torch, dtype_name))
+    del model
+    out = {"card_dtype": dtype_name, **compare_grads(card, cpu)}
     max_loss, max_norm, min_cos = TRAIN_CHECK_LIMITS[dtype_name]
     out["limits"] = {"loss_rel": max_loss, "grad_norm_rel": max_norm,
                      "min_grad_cosine": min_cos}
@@ -1353,13 +1419,273 @@ def train_main_path(results: dict) -> dict:
     torch.cuda.empty_cache()
 
     # The card in bf16 (this phase's steps), then in fp32 (use_amp=False,
-    # the fp32 attention kernels), each against the CPU in fp32.
-    out["vs_cpu_fp32"] = grads_vs_cpu(sd, cfg, tcfg, host_batch, "bfloat16")
+    # the fp32 attention kernels), each against the CPU in fp32 (one CPU
+    # run serves both: its dtype is fp32 either way).
+    cpu = microbatch_grads(tm.build_train_model(cfg, sd, device="cpu"),
+                           host_batch, tcfg, cfg, torch.float32)
+    out["vs_cpu_fp32"] = grads_vs_cpu(sd, cfg, tcfg, host_batch, "bfloat16",
+                                      cpu)
     out["fp32_vs_cpu_fp32"] = grads_vs_cpu(
         sd, cfg, dataclasses.replace(tcfg, use_amp=False), host_batch,
-        "float32")
+        "float32", cpu)
     results["train"] = out
     return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 6b: GradCache training (train/gradcache.py)
+# ---------------------------------------------------------------------------
+
+def expected_gradcache_launches(accum: int, layers: int) -> dict:
+    """One GradCache step: every chunk's forward twice (phase 1 without
+    grad, phase 3 with it), its backward once, and the SPARC pooling
+    forward and backward once over the whole pool (phase 2)."""
+    from clip_finegrained_alignment_tpu_torch.ops import _build
+    want = {name: 0 for name in _build.SOURCES}
+    want.update({"attention_fwd": 2 * accum * layers,
+                 "attention_bwd": accum * layers,
+                 "sparc_fwd": 1, "sparc_bwd": 1})
+    return want
+
+
+def gradcache_path(results: dict) -> dict:
+    """GradCache SPARC + AdamSPD steps of ViT-B/16 on the card (phase 6b):
+    the pool of one loss at 32 x 8 = 256 beside phase 6's plain step (the
+    two alternated, the median of GC_TIMED each), its exact launches, the
+    pool at 32 x 32 = 1024, one direct step of [1, 256] (its peak memory,
+    or its OOM), #3 and #4 at B=256 and 1024 against their plain versions,
+    phase 1's and phase 3's embeddings of one chunk, and in fp32 one
+    GradCache [8, 4] step against one direct [1, 32] step."""
+    import torch
+    from clip_finegrained_alignment_tpu_torch.config import (CLIPConfig,
+                                                             TrainConfig)
+    from clip_finegrained_alignment_tpu_torch.models import clip as tm
+    from clip_finegrained_alignment_tpu_torch.models import convert
+    from clip_finegrained_alignment_tpu_torch.ops import _build
+    from clip_finegrained_alignment_tpu_torch.optim.factory import \
+        make_optimizer
+    from clip_finegrained_alignment_tpu_torch.train import gradcache as gc
+    from clip_finegrained_alignment_tpu_torch.train.engine import (
+        accumulate_grads, make_train_step)
+
+    cfg = CLIPConfig.vit_b16()
+    layers = cfg.vision.num_layers + cfg.text.num_layers
+    plain_cfg = TrainConfig(loss_type="sparc", optimizer_type="adamspd",
+                            inverse_temperature=0.07, batch_size=TRAIN_B,
+                            gradient_accumulation_steps=TRAIN_ACCUM,
+                            use_amp=True)
+    gc_cfg = dataclasses.replace(plain_cfg, grad_cache=True)
+    sd = convert.state_dict_from_jax(convert.random_params(cfg, SEED), cfg)
+    out = {"gpu": gpu_line(), "config": {
+        "model": "ViT-B/16", "loss": "sparc", "optimizer": "adamspd",
+        "microbatch": TRAIN_B, "accum": TRAIN_ACCUM, "pool": TRAIN_B
+        * TRAIN_ACCUM, "large_accum": GC_LARGE_ACCUM,
+        "inverse_temperature": 0.07, "compute_dtype": "bfloat16"}}
+    model = tm.build_train_model(cfg, sd, device="cuda")
+    opt = make_optimizer(plain_cfg, model.named_parameters())
+    batch = {k: torch.from_numpy(x).cuda() for k, x in
+             train_batch(cfg, TRAIN_ACCUM, TRAIN_B, SEED).items()}
+    out["seconds"] = {}
+    t_lap = [time.time()]
+
+    def lap(name):
+        now = time.time()
+        out["seconds"][name] = now - t_lap[0]
+        t_lap[0] = now
+
+    def same_embeddings(model, b, tcfg, dtype):
+        """Phase 1 (no grad: #1 without its lse) and phase 3 (grad: #1
+        with it) embed the first chunk of ``b``: bit-equal, or how far
+        apart."""
+        chunk = {k: x[0] for k, x in b.items()}
+        with torch.no_grad():
+            first = gc._chunk_embeddings(model, chunk, tcfg, dtype=dtype)
+        again = gc._chunk_embeddings(model, chunk, tcfg, dtype=dtype)
+        row = {"dtype": str(dtype).split(".")[-1],
+               "bit_equal": all(torch.equal(a, b.detach())
+                                for a, b in zip(first, again)),
+               "max_abs_diff": max((a.float() - b.detach().float()).abs()
+                                   .max().item()
+                                   for a, b in zip(first, again))}
+        del first, again
+        log("gradcache phase 1 vs phase 3 embeddings:", json.dumps(row))
+        check(row["bit_equal"], f"GradCache: phase 1 and phase 3 embed a "
+              f"chunk differently: {row}")
+        return row
+
+    out["phase1_vs_phase3"] = [same_embeddings(model, batch, gc_cfg,
+                                               torch.bfloat16)]
+
+    steps = {"plain": make_train_step(plain_cfg, cfg, model, opt),
+             "gradcache": make_train_step(gc_cfg, cfg, model, opt)}
+
+    def checked(name, step, b):
+        vals = {k: x.item() for k, x in step(b).items()}
+        check(all(map(math.isfinite, vals.values())),
+              f"{name} step: non-finite metrics {vals}")
+        return vals
+
+    for name, step in steps.items():      # warm-up
+        checked(name, step, batch)
+    lap("setup and warm-up")
+
+    # The two variants in turns: CUDA events around each step, the peak
+    # memory of each; the first GradCache step's launches counted.
+    times = {name: [] for name in steps}
+    peaks = {name: 0 for name in steps}
+    losses = {name: [] for name in steps}
+    launches = None
+    for _ in range(GC_TIMED):
+        for name, step in steps.items():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            counted = name == "gradcache" and launches is None
+            if counted:
+                _build.reset_launch_counts()
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            m = step(batch)
+            t1.record()
+            torch.cuda.synchronize()
+            if counted:
+                launches = _build.launch_counts()
+            times[name].append(t0.elapsed_time(t1))
+            peaks[name] = max(peaks[name], torch.cuda.max_memory_allocated())
+            losses[name].append(m["total_loss"].item())
+            check(all(math.isfinite(x.item()) for x in m.values()),
+                  f"{name} step: non-finite metrics")
+    want = expected_gradcache_launches(TRAIN_ACCUM, layers)
+    log(f"gradcache main path: launches {launches}, expected {want}")
+    check(launches == want, f"GradCache step launches {launches} != {want}")
+    out.update(launches=launches, expected_launches=want)
+    # Device time: the GradCache step's trace; the plain step's is phase
+    # 6's trace of the same step.
+    pairs = TRAIN_B * TRAIN_ACCUM
+    profiles = {"plain": results["train"]["profile"],
+                "gradcache": kernel_table(
+                    lambda: steps["gradcache"](batch))}
+    variants = {}
+    for name, prof in profiles.items():
+        ms = statistics.median(times[name])
+        variants[name] = {
+            "step_ms": ms, "step_ms_each": times[name],
+            "pairs_per_s": pairs / ms * 1e3,
+            "peak_memory_gb": peaks[name] / 1e9, "losses": losses[name],
+            "device_ms": prof["device_ms"],
+            "busy_share": prof["device_ms"] / ms,
+            "profile": prof}
+    variants["step_ratio"] = (variants["gradcache"]["step_ms"]
+                              / variants["plain"]["step_ms"])
+    variants["device_ratio"] = (variants["gradcache"]["device_ms"]
+                                / variants["plain"]["device_ms"])
+    out["pool_256"] = variants
+    log("gradcache pool 256:", json.dumps(
+        {k: {kk: vv for kk, vv in v.items() if kk != "profile"}
+         if isinstance(v, dict) else v for k, v in variants.items()}))
+    log("profile gradcache step:", json.dumps(profiles["gradcache"]))
+    del steps
+    torch.cuda.empty_cache()
+    lap("pool 256")
+
+    # The pool of 1024: 32 x 32, one GradCache step (its chunks have the
+    # shapes the steps above warmed).
+    big_cfg = dataclasses.replace(gc_cfg,
+                                  gradient_accumulation_steps=GC_LARGE_ACCUM)
+    big = {k: torch.from_numpy(x).cuda() for k, x in
+           train_batch(cfg, GC_LARGE_ACCUM, TRAIN_B, SEED + 1).items()}
+    step = make_train_step(big_cfg, cfg, model, opt)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    m = checked("gradcache 32 x 32", step, big)
+    torch.cuda.synchronize()
+    big_launches = _build.launch_counts()
+    want = expected_gradcache_launches(GC_LARGE_ACCUM, layers)
+    check(big_launches == want,
+          f"GradCache 32 x 32 launches {big_launches} != {want}")
+    ms = (time.perf_counter() - t0) * 1e3
+    out["pool_1024"] = {"step_ms": ms,
+                        "pairs_per_s": TRAIN_B * GC_LARGE_ACCUM / ms * 1e3,
+                        "peak_memory_gb": torch.cuda.max_memory_allocated()
+                        / 1e9, "batch_gb": sum(x.numel() * x.element_size()
+                                               for x in big.values()) / 1e9,
+                        "loss": m["total_loss"], "launches": big_launches}
+    log("gradcache pool 1024:", json.dumps(out["pool_1024"]))
+    del step, big
+    torch.cuda.empty_cache()
+    lap("pool 1024")
+
+    # Direct: the pool of 256 as one microbatch, for contrast.
+    direct_cfg = dataclasses.replace(plain_cfg, batch_size=pairs,
+                                     gradient_accumulation_steps=1)
+    flat = {k: x.reshape((1, pairs) + x.shape[2:]) for k, x in batch.items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        m = make_train_step(direct_cfg, cfg, model, opt)(flat)
+        loss = m["total_loss"].item()
+        out["direct_256"] = {"peak_memory_gb":
+                             torch.cuda.max_memory_allocated() / 1e9,
+                             "loss": loss}
+    except torch.cuda.OutOfMemoryError as e:     # the measurement itself
+        out["direct_256"] = {"oom": str(e).splitlines()[0][:200],
+                             "peak_memory_gb_before_oom":
+                             torch.cuda.max_memory_allocated() / 1e9}
+    log("gradcache direct [1, 256]:", json.dumps(out["direct_256"]))
+    del flat, opt
+    torch.cuda.empty_cache()
+    lap("direct")
+
+    # #3 and #4 at the pool's batch, against their plain versions.
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    out["sparc"] = {}
+    for B, timed in ((TRAIN_B * TRAIN_ACCUM, True),
+                     (TRAIN_B * GC_LARGE_ACCUM, False)):
+        fwd, bwd = sparc_case(gen, f"GradCache pool {B}", B, 197,
+                              timed=timed)
+        out["sparc"][B] = {"fwd": fwd, "bwd": bwd}
+    torch.cuda.empty_cache()
+    lap("sparc")
+
+    # fp32 (use_amp=False): GradCache [8, 4] against one direct [1, 32]
+    # step, from the same weights and batch.
+    a, b = GC_F32_SHAPE
+    f32 = {k: torch.from_numpy(x).cuda() for k, x in
+           train_batch(cfg, a, b, SEED + 2).items()}
+    f32_cfg = dataclasses.replace(gc_cfg, use_amp=False, batch_size=b,
+                                  gradient_accumulation_steps=a)
+    del model, batch
+    model = tm.build_train_model(cfg, sd, device="cuda")
+    out["phase1_vs_phase3"].append(same_embeddings(model, f32, f32_cfg,
+                                                   torch.float32))
+    side = {"gradcache": grad_triplet(model, gc.gradcache_grads(
+        model, f32, f32_cfg, cfg, dtype=torch.float32))}
+    flat = {k: x.reshape((1, a * b) + x.shape[2:]) for k, x in f32.items()}
+    side["direct"] = grad_triplet(model, accumulate_grads(
+        model, flat, dataclasses.replace(f32_cfg, grad_cache=False,
+                                         batch_size=a * b,
+                                         gradient_accumulation_steps=1),
+        cfg, dtype=torch.float32))
+    f32_row = compare_grads(side["gradcache"], side["direct"],
+                            labels=("gradcache", "direct"),
+                            what="GradCache vs direct fp32")
+    f32_row.update(pairs=a * b, shape=[a, b], limits=GC_F32_LIMITS)
+    log("gradcache fp32 [8, 4] vs direct [1, 32]:", json.dumps(f32_row))
+    check(f32_row["loss_rel"] <= GC_F32_LIMITS["loss_rel"]
+          and f32_row["grad_norm_rel"] <= GC_F32_LIMITS["grad_norm_rel"]
+          and f32_row["min_grad_cosine"] >= GC_F32_LIMITS["min_grad_cosine"],
+          f"GradCache fp32 vs direct out of limits: {f32_row}")
+    out["fp32_vs_direct"] = f32_row
+    del model, f32, flat, side
+    torch.cuda.empty_cache()
+    lap("fp32")
+    log("gradcache seconds:", json.dumps(out["seconds"]))
+    results["gradcache"] = out
+    return {"launches": {n: launches[n] + big_launches[n]
+                         for n in launches},
+            "sparc": out["sparc"]}
 
 
 # ---------------------------------------------------------------------------
@@ -1555,6 +1881,34 @@ def long_main_path(results: dict) -> dict:
 # Phase 8: the training CLI on the card
 # ---------------------------------------------------------------------------
 
+def cpu_copy(state):
+    """A copy of a state dict with every tensor cloned to the CPU."""
+    import torch
+    if isinstance(state, dict):
+        return {k: cpu_copy(v) for k, v in state.items()}
+    if isinstance(state, (list, tuple)):
+        return type(state)(cpu_copy(v) for v in state)
+    if isinstance(state, torch.Tensor):
+        return state.detach().cpu().clone()
+    return state
+
+
+def same_state(got, want) -> bool:
+    """Whether two state dicts (nested dicts, lists, numbers, tensors on
+    any device) are equal, tensors bit for bit."""
+    import torch
+    if isinstance(want, dict):
+        return isinstance(got, dict) and set(got) == set(want) and all(
+            same_state(got[k], want[k]) for k in want)
+    if isinstance(want, (list, tuple)):
+        return isinstance(got, (list, tuple)) and len(got) == len(want) \
+            and all(same_state(x, y) for x, y in zip(got, want))
+    if isinstance(want, torch.Tensor):
+        return isinstance(got, torch.Tensor) and got.dtype == want.dtype \
+            and torch.equal(got.cpu(), want.cpu())
+    return got == want
+
+
 def train_cli_path(results: dict, keep_dir: str) -> dict:
     """Generate a procedural dataset and pack it with the port's CLIs, then
     four in-process runs of the port's ``cli.train.main`` at ViT-B/16 full
@@ -1575,10 +1929,12 @@ def train_cli_path(results: dict, keep_dir: str) -> dict:
     from clip_finegrained_alignment_tpu_torch.cli import (generate_data,
                                                           pack_dataset)
     from clip_finegrained_alignment_tpu_torch.cli import train as cli_train
+    from clip_finegrained_alignment_tpu_torch.cli import export_checkpoint
     from clip_finegrained_alignment_tpu_torch.config import CLIPConfig
     from clip_finegrained_alignment_tpu_torch.core.precision import \
         compute_dtype
     from clip_finegrained_alignment_tpu_torch.ops import _build
+    from clip_finegrained_alignment_tpu_torch.optim import interop
     from clip_finegrained_alignment_tpu_torch.train import engine
 
     cfg = CLIPConfig.vit_b16()
@@ -1591,6 +1947,7 @@ def train_cli_path(results: dict, keep_dir: str) -> dict:
     os.environ["CFA_ALLOW_HASH_TOKENIZER"] = "1"
     seen_keys, restored = set(), {}
     step, load_state_dict = engine.Trainer.step, engine.Trainer.load_state_dict
+    load_reference_state = interop.load_reference_state
 
     def spy_step(self, batch):
         seen_keys.update(batch)
@@ -1712,10 +2069,79 @@ def train_cli_path(results: dict, keep_dir: str) -> dict:
         want = expect(b["steps"] - best_step, TRAIN_ACCUM, layers, 1)
         check(b["launches"] == want,
               f"train cli B: launches {b['launches']} != {want}")
-        del res, best
+        del res
         gc.collect()
         torch.cuda.empty_cache()
         shutil.rmtree(exp)
+
+        # Run E: A's data and flags with --grad-cache, one epoch: one loss
+        # over each step's pool of 256.
+        res, e = counted("E", sparc + ["--epochs", "1", "--grad-cache",
+                                       "--experiment-name", "gradcache"])
+        check(res["trainer"].cfg.grad_cache and e["steps"] == spe,
+              f"train cli E: grad_cache {res['trainer'].cfg.grad_cache}, "
+              f"{e['steps']} steps")
+        check("pixel_index" in e["batch_keys"],
+              f"train cli E: batches carried {e['batch_keys']}")
+        want = {n: spe * c for n, c in
+                expected_gradcache_launches(TRAIN_ACCUM, layers).items()}
+        check(e["launches"] == want,
+              f"train cli E: launches {e['launches']} != {want}")
+        del res
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # Run F: A's best/ exported as a reference .pt with its optimizer
+        # state (cli/export_checkpoint.py), then --pretrained that.pt
+        # --import-optimizer-state to B's epochs. The optimizer state right
+        # after the import must be best/'s exactly; the epochs' losses are
+        # held against B's (a --resume of the same best/).
+        pt = os.path.join(work, "best_reference.pt")
+        t0 = time.time()
+        export_checkpoint.main(["--checkpoint", kept, "--model", "ViT-B/16",
+                                "--output", pt, "--include-optimizer"])
+        export_s = time.time() - t0
+        imported = {}
+
+        def spy_import(optimizer, opt_sd, model_cfg):
+            n = load_reference_state(optimizer, opt_sd, model_cfg)
+            # A copy: the steps that follow update the live tensors.
+            imported["state"] = cpu_copy(optimizer.state_dict())
+            return n
+
+        interop.load_reference_state = spy_import
+        try:
+            res, f = counted("F", sparc + [
+                "--epochs", "3", "--pretrained", pt,
+                "--import-optimizer-state", "--experiment-name", "interop"])
+        finally:
+            interop.load_reference_state = load_reference_state
+        f["export_s"] = export_s
+        f["pt_gb"] = os.path.getsize(pt) / 1e9
+        want_opt = torch.load(os.path.join(kept, "state.pt"),
+                              map_location="cpu",
+                              weights_only=True)["optimizer"]
+        f["optimizer_state_equal"] = same_state(imported.get("state"),
+                                                want_opt)
+        check(f["optimizer_state_equal"],
+              "train cli F: the imported optimizer state is not best/'s")
+        check(res["trainer"].global_step == b["steps"] and res[
+            "start_epoch"] == best_step // spe,
+              f"train cli F: steps {res['trainer'].global_step}, start "
+              f"epoch {res['start_epoch']}")
+        want = expect(f["steps"] - best_step, TRAIN_ACCUM, layers, 1)
+        check(f["launches"] == want,
+              f"train cli F: launches {f['launches']} != {want}")
+        f["losses_equal_resume"] = f["epoch_losses"] == b["epoch_losses"]
+        f["loss_diff_vs_resume"] = [x - y for x, y in zip(f["epoch_losses"],
+                                                         b["epoch_losses"])]
+        log(f"train cli run F: optimizer state equal to best/'s "
+            f"{f['optimizer_state_equal']}, epoch losses {f['epoch_losses']}"
+            f" against B's {b['epoch_losses']}")
+        del res, best, want_opt, imported
+        gc.collect()
+        torch.cuda.empty_cache()
+        os.unlink(pt)
 
         # Run C: live decode, the count loss (one more text tower: the
         # counterfactual captions) with AdamW. --eval-every-epoch writes a
@@ -1790,13 +2216,15 @@ def train_cli_path(results: dict, keep_dir: str) -> dict:
             os.environ["CFA_ALLOW_HASH_TOKENIZER"] = prev_env
         shutil.rmtree(work, ignore_errors=True)
 
-    out.update({"A": a, "B": b, "C": c, "D": d,
+    out.update({"A": a, "B": b, "C": c, "D": d, "E": e, "F": f,
                 "kernels_build_s": results.get("build_s")})
     log("train cli:", json.dumps(out))
     results["train_cli"] = out
     total = {n: sum(r["launches"][n] for r in (a, b, c, d))
              for n in _build.SOURCES}
-    return {"launches": total, "best_dir": kept, "held_out": held_out}
+    return {"launches": total, "launches_gradcache": e["launches"],
+            "launches_interop": f["launches"], "best_dir": kept,
+            "held_out": held_out}
 
 
 # ---------------------------------------------------------------------------
@@ -1832,6 +2260,7 @@ def eval_path(results: dict, best_dir: str, held_out: dict) -> dict:
     import numpy as np
     import torch
     from clip_finegrained_alignment_tpu_torch.cli import evaluate as cli_eval
+    from clip_finegrained_alignment_tpu_torch.cli import export_checkpoint
     from clip_finegrained_alignment_tpu_torch.config import CLIPConfig
     from clip_finegrained_alignment_tpu_torch.eval import (batch_eval,
                                                            countbench,
@@ -1849,13 +2278,14 @@ def eval_path(results: dict, best_dir: str, held_out: dict) -> dict:
     os.environ["CFA_ALLOW_HASH_TOKENIZER"] = "1"
     # Spies: each scorer call's shape and host time, the first call's
     # inputs and probabilities, the evaluator's own time.
-    state = {"calls": [], "first": None, "eval_s": 0.0}
+    state = {"calls": [], "first": None, "eval_s": 0.0, "probs": []}
     score, spied = scoring.TemplateScorer.__call__, {}
 
     def spy_score(self, px, ids, mask):
         t0 = time.time()
         probs = score(self, px, ids, mask)
         state["calls"].append((len(px), ids.shape[1], time.time() - t0))
+        state["probs"].append(np.array(probs, copy=True))
         if state["first"] is None:
             state["first"] = (px, ids, mask, probs)
         return probs
@@ -1876,7 +2306,7 @@ def eval_path(results: dict, best_dir: str, held_out: dict) -> dict:
     for cls, name in evaluators:
         spied[cls, name] = getattr(cls, name)
         setattr(cls, name, timed(spied[cls, name]))
-    runs, first = {}, {}
+    runs, first, probs = {}, {}, {}
     try:
         subcommands = {
             "countbench": ["--dataset", "procedural"],
@@ -1884,7 +2314,7 @@ def eval_path(results: dict, best_dir: str, held_out: dict) -> dict:
             "crop": ["--samples", str(EVAL_CROP_SAMPLES), "--output",
                      os.path.join(work, "crop.json")]}
         for cmd, extra in subcommands.items():
-            state.update(calls=[], first=None, eval_s=0.0)
+            state.update(calls=[], first=None, eval_s=0.0, probs=[])
             argv = [cmd, "--model", "ViT-B/16", "--checkpoint", best_dir,
                     "--batch-size", str(EVAL_BATCH), "--output-dir",
                     os.path.join(work, cmd), "--device", "cuda", *extra]
@@ -1945,6 +2375,38 @@ def eval_path(results: dict, best_dir: str, held_out: dict) -> dict:
             log(f"eval {cmd}: launches {run['launches']}, "
                 f"{run['scorer_calls']} scorer calls")
             runs[cmd] = run
+            probs[cmd] = state["probs"]
+
+        # best/ exported with OpenAI clip-package names
+        # (cli/export_checkpoint.py --format openai) and evaluated again:
+        # the same probabilities, bit for bit.
+        pt = os.path.join(work, "best_openai.pt")
+        export_checkpoint.main(["--checkpoint", best_dir, "--model",
+                                "ViT-B/16", "--output", pt, "--format",
+                                "openai"])
+        state.update(calls=[], first=None, eval_s=0.0, probs=[])
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        metrics = cli_eval.main([
+            "countbench", "--model", "ViT-B/16", "--checkpoint", pt,
+            "--batch-size", str(EVAL_BATCH), "--output-dir",
+            os.path.join(work, "countbench_openai"), "--device", "cuda",
+            *subcommands["countbench"]])
+        torch.cuda.synchronize()
+        openai = {"launches": _build.launch_counts(),
+                  "scorer_calls": len(state["calls"]),
+                  "probs_equal": len(state["probs"]) == len(
+                      probs["countbench"]) and all(
+                      np.array_equal(x, y) for x, y in
+                      zip(state["probs"], probs["countbench"])),
+                  "accuracy": metrics["accuracy"],
+                  "accuracy_best_dir": runs["countbench"]["metrics"][
+                      "accuracy"]}
+        log("eval countbench from the OpenAI-named export:",
+            json.dumps(openai))
+        check(openai["probs_equal"] and openai["launches"]
+              == runs["countbench"]["launches"],
+              f"eval countbench from the OpenAI-named export: {openai}")
     finally:
         scoring.TemplateScorer.__call__ = score
         for (cls, name), fn in spied.items():
@@ -1955,6 +2417,7 @@ def eval_path(results: dict, best_dir: str, held_out: dict) -> dict:
             os.environ["CFA_ALLOW_HASH_TOKENIZER"] = prev_env
         shutil.rmtree(work, ignore_errors=True)
     out["runs"] = runs
+    out["openai_export"] = openai
 
     # The held-out batch of run C's live pipeline, as --eval-every-epoch
     # evaluates it (without its plot).
@@ -2043,7 +2506,8 @@ def eval_path(results: dict, best_dir: str, held_out: dict) -> dict:
                                       if k != "metrics"}
                                   for c, r in runs.items()}))
     results["eval"] = out
-    return {"launches": eval_launches, "attention_fp32": rows}
+    return {"launches": eval_launches, "attention_fp32": rows,
+            "launches_openai": openai["launches"]}
 
 
 # ---------------------------------------------------------------------------
@@ -2130,22 +2594,40 @@ def main(argv=None) -> int:
                    and (r.get("spill_stores") or r.get("spill_loads"))}
         check(not spilled, f"{name}: ptxas spilled in {spilled}")
 
+    # Each phase's seconds on the host clock, in results["phase_s"].
+    phase_s = results["phase_s"] = {"build": results["build_s"]}
+    t_phase = [time.time()]
+
+    def lap(name):
+        now = time.time()
+        phase_s[name] = now - t_phase[0]
+        t_phase[0] = now
+
     fwd = check_attention(results)
     bwd = check_attention_backward(results)
     check_attention_masked_rows(results)
     sparc_fwd, sparc_bwd = check_sparc(results)
+    lap("3 kernels")
     serve = serve_main_path(results)
+    lap("4-5 serving")
     train = train_main_path(results)
+    lap("6 train")
+    gradcache = gradcache_path(results)
+    lap("6b gradcache")
     flash_fwd, flash_dq, flash_dkdv = check_long_attention(results)
     long = long_main_path(results)
+    lap("7 long")
     keep_dir = tempfile.mkdtemp(prefix="cfa_best_")
     try:
         train_cli = train_cli_path(results, keep_dir)
+        lap("8 train cli")
         torch.cuda.reset_peak_memory_stats()
         evaluation = eval_path(results, train_cli["best_dir"],
                                train_cli["held_out"])
+        lap("9 eval")
     finally:
         shutil.rmtree(keep_dir, ignore_errors=True)
+    log("phase seconds:", json.dumps(phase_s))
 
     csrc = "clip_finegrained_alignment_tpu_torch/csrc/"
     ref = "clip_finegrained_alignment_tpu/ops/"
@@ -2181,7 +2663,12 @@ def main(argv=None) -> int:
     by_path = {"serve": {"attention_fwd": serve["launches"]},
                "train": train["launches"], "long": long["launches"],
                "train_cli": train_cli["launches"],
-               "eval": evaluation["launches"]}
+               "eval": evaluation["launches"],
+               "gradcache": gradcache["launches"],
+               "train_cli_gradcache": train_cli["launches_gradcache"],
+               "train_cli_interop": train_cli["launches_interop"],
+               "eval_openai": evaluation["launches_openai"]}
+    pool = TRAIN_B * TRAIN_ACCUM
     kernels = []
     for name, replaces, row, err, shape in entries:
         counts = {path: c.get(name, 0) for path, c in by_path.items()}
@@ -2195,6 +2682,11 @@ def main(argv=None) -> int:
             **({"graph_ms": row["graph_ms"]} if "graph_ms" in row else {}),
             **({"fp32_eval": evaluation["attention_fp32"]}
                if name == "attention_fwd" else {}),
+            **({"gradcache_pool": {
+                k: gradcache["sparc"][pool][name[-3:]][k]
+                for k in ("B", "ms", "graph_ms", "plain_ms", "bound_ms",
+                          "bound_by", "bound_ms_fp32_cores", "max_abs_err")}}
+               if name.startswith("sparc") else {}),
             **({"fp32_train": [
                 {k: r[k] for k in ("shape", "B", "S", "H", "Dh", "ms",
                                    "graph_ms", "plain_ms", "library_ms",

@@ -13,7 +13,7 @@ It runs on the card in fp32 unless ``--device cpu`` is given; with no card
 it fails, it does not fall back.
 
 ``--checkpoint`` / ``--pretrained`` take a reference ``.pt`` / ``.pth`` /
-``.bin`` (HF names), or a checkpoint directory that the port's
+``.bin`` (HF or OpenAI names), or a checkpoint directory that the port's
 ``cli/train.py`` wrote (``best/``, ``epoch_{n}/``, ``preempt/``), where the
 JAX CLI reads an orbax directory. With neither, the weights are
 ``models/convert.py::random_params(cfg, 0)`` (numpy), not ``jax.random``.
@@ -90,7 +90,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 def load_params(args, model_cfg):
     """The HF-named state dict of ``--checkpoint`` or ``--pretrained``: a
-    reference ``.pt``, a port checkpoint directory's ``state.pt``
+    reference ``.pt`` (HF or OpenAI names), a port checkpoint directory's
+    ``state.pt``
     ``"model"``, or, with neither, random weights."""
     from ..models import convert
 
@@ -100,7 +101,7 @@ def load_params(args, model_cfg):
         return convert.state_dict_from_jax(
             convert.random_params(model_cfg, 0), model_cfg)
     if src.endswith((".pt", ".pth", ".bin")):
-        state_dict, _ = convert.load_reference_checkpoint(src)
+        state_dict, _ = convert.load_reference_checkpoint(src, model_cfg)
         print(f"loaded reference checkpoint {src}")
         return state_dict
     if os.path.isdir(src):

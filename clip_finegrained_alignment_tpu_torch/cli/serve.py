@@ -398,11 +398,11 @@ def make_server(clip: ClipServer, host: str = "127.0.0.1",
 
 
 def load_state_dict(args, model_cfg):
-    """``--checkpoint`` (an HF-named reference ``.pt``), else random
-    weights from ``--seed``."""
+    """``--checkpoint`` (a reference ``.pt``, HF or OpenAI names), else
+    random weights from ``--seed``."""
     from ..models import convert
     if args.checkpoint:
-        sd, _ = convert.load_reference_checkpoint(args.checkpoint)
+        sd, _ = convert.load_reference_checkpoint(args.checkpoint, model_cfg)
         print(f"loaded reference checkpoint {args.checkpoint}", flush=True)
         return sd
     print(f"no checkpoint given: RANDOM weights from seed {args.seed}",

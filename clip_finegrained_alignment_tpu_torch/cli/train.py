@@ -13,20 +13,27 @@ Example::
 It runs on the card unless ``--device cpu`` is given; with no card it
 fails, it does not fall back. ``--resume`` restores ``best/`` (or the
 checkpoint directory given) step-exact: the interrupted epoch's completed
-steps are skipped, not trained again.
+steps are skipped, not trained again. ``--grad-cache`` (clip and sparc)
+trains one loss over the whole batch-size x grad-accum pool
+(``train/gradcache.py``). ``--pretrained x.pt --import-optimizer-state``
+goes on from a reference training checkpoint mid-run: its
+``optimizer_state_dict`` (AdamSPD or AdamW, ``optim/interop.py``) is
+restored with the weights, and the step and best loss come from its
+metadata.
 
 Left out, against the JAX CLI: the TPU knobs (``--pallas``,
-``--fused-sparc``, ``--remat``, ``--unroll-*``, ``--unstack-layers``,
-``--quant``) and the mesh flags, which the multi-GPU slice brings.
-Refused until its slice: ``--import-optimizer-state`` (interop).
+``--fused-sparc``, ``--remat``, ``--unroll-*``, ``--unstack-layers``),
+``--quant`` (the int8 slice, ROADMAP A7) and the mesh flags
+(``--global-negatives``, ``--zero1``, ``--fsdp`` and the mesh shape; the
+multi-GPU slice, ROADMAP A6).
 ``--eval-every-epoch`` (count loss only) holds out the first batch of
 epoch 0 and runs ``eval/batch_eval.py::evaluate_batch`` on it in fp32 on
 the trainer's master weights, before training (when the run starts at
 epoch 0) and after every epoch, between the epochs' timings; it logs
 ``count_eval_accuracy`` and writes ``confusion_{pretrain|epoch_<n>}.png``
 into the checkpoint directory. ``--pretrained`` takes a local
-reference checkpoint only (``.pt``, ``.pth``, ``.bin``, HF names): HF
-downloads are out of reach. Deliberate
+reference checkpoint only (``.pt``, ``.pth``, ``.bin``; HF or OpenAI
+names): HF downloads are out of reach. Deliberate
 differences: with no ``--pretrained`` the weights are
 ``models/convert.py::random_params(cfg, seed)`` (numpy), checkpoints are
 torch files, and ``--profile-dir`` writes a ``torch.profiler`` trace.
@@ -38,6 +45,7 @@ import argparse
 import contextlib
 import os
 import signal
+import warnings
 from typing import Any, Dict
 
 
@@ -85,11 +93,19 @@ def build_parser() -> argparse.ArgumentParser:
                    help="full fp32 (use_amp=False)")
     p.add_argument("--pretrained", default=None,
                    help="a local reference checkpoint (.pt, .pth or .bin; "
-                        "HF names) to start from (default: random weights "
-                        "from --seed)")
+                        "HF or OpenAI names) to start from (default: "
+                        "random weights from --seed)")
     p.add_argument("--import-optimizer-state", action="store_true",
-                   help="refused: reference optimizer-state import waits "
-                        "for the interop slice (ROADMAP A8)")
+                   help="with --pretrained <reference .pt>: also restore "
+                        "its optimizer_state_dict (AdamSPD moments, step "
+                        "and anchors, or the two-group AdamW state), its "
+                        "global_step and best_loss: a mid-run migration")
+    p.add_argument("--grad-cache", action="store_true",
+                   help="GradCache: one contrastive loss over the whole "
+                        "batch-size x grad-accum pool at one chunk's "
+                        "activation memory (embed, loss on the cache, "
+                        "re-forward and backward each chunk; "
+                        "train/gradcache.py). clip and sparc only")
     p.add_argument("--bpe-path", default=None,
                    help="CLIP BPE vocab (bpe_simple_vocab_16e6.txt.gz or "
                         "an HF tokenizer dir). Required unless "
@@ -110,11 +126,13 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def _refuse(args) -> None:
-    """Exit non-zero on every flag whose slice is not ported, naming it."""
-    if args.import_optimizer_state:
-        raise SystemExit("--import-optimizer-state is not ported yet: the "
-                         "reference optimizer-state import comes with the "
-                         "interop slice (ROADMAP A8)")
+    """Exit non-zero on flags that cannot be honoured, naming why."""
+    if args.import_optimizer_state and not args.pretrained:
+        raise SystemExit("--import-optimizer-state requires --pretrained "
+                         "<reference .pt checkpoint>")
+    if args.import_optimizer_state and args.resume:
+        raise SystemExit("--resume and --import-optimizer-state both "
+                         "restore optimizer state: pick one source")
     if args.pretrained and not args.pretrained.endswith(
             (".pt", ".pth", ".bin")):
         raise SystemExit(f"--pretrained {args.pretrained!r}: only a local "
@@ -124,6 +142,38 @@ def _refuse(args) -> None:
         raise SystemExit("pass exactly one of --annotations / --packed")
     if args.device_data and not args.packed:
         raise SystemExit("--device-data requires --packed")
+
+
+def check_optimizer_import(ref_meta, cfg, path) -> dict:
+    """The reference ``optimizer_state_dict`` that ``--import-optimizer-
+    state`` restores, checked against this run: exit if it is missing or
+    its amsgrad differs (the maxima would be dropped or made up); warn on
+    each hyperparameter that differs from this run's flags, which are
+    kept."""
+    opt_sd = ref_meta.get("optimizer_state_dict")
+    if opt_sd is None:
+        raise SystemExit(f"{path} carries no optimizer_state_dict")
+    g0 = opt_sd["param_groups"][0]
+    for key, ours in (("lr", cfg.lr), ("betas", tuple(cfg.betas)),
+                      ("eps", cfg.eps), ("weight_decay", cfg.weight_decay)):
+        theirs = g0.get(key)
+        theirs = tuple(theirs) if isinstance(theirs, (list, tuple)) \
+            else theirs
+        if theirs is not None and theirs != ours:
+            warnings.warn(
+                f"optimizer hyperparameter drift on import: checkpoint "
+                f"{key}={theirs!r}, this run uses {ours!r}; pass the "
+                "matching flag for an exact reference continuation")
+    if bool(g0.get("amsgrad", False)) != cfg.amsgrad:
+        raise SystemExit(
+            f"checkpoint amsgrad={g0.get('amsgrad')} but this run has "
+            f"amsgrad={cfg.amsgrad}: rerun with --amsgrad matching the "
+            "checkpoint (importing across the mismatch would drop or make "
+            "up the moment maxima)")
+    if cfg.optimizer_type != "adamspd" and cfg.amsgrad:
+        raise SystemExit("amsgrad AdamW has no counterpart here: only "
+                         "AdamSPD imports amsgrad state")
+    return opt_sd
 
 
 def main(argv=None) -> Dict[str, Any]:
@@ -159,7 +209,13 @@ def main(argv=None) -> Dict[str, Any]:
         optimizer_type=args.optimizer, amsgrad=args.amsgrad,
         count_alpha=args.count_alpha, seed=args.seed,
         checkpoint_dir=args.checkpoint_dir, save_every=args.save_every,
-        log_every=args.log_every)
+        log_every=args.log_every, grad_cache=args.grad_cache)
+    if cfg.grad_cache:
+        from ..train.gradcache import validate_gradcache
+        try:
+            validate_gradcache(cfg)
+        except ValueError as e:
+            raise SystemExit(str(e)) from None
     cfg.print_config()
     model_cfg = cfg.model_config()
 
@@ -204,9 +260,12 @@ def main(argv=None) -> Dict[str, Any]:
     state_dict = None
     if args.pretrained:
         from ..models.convert import load_reference_checkpoint
-        state_dict, ref_meta = load_reference_checkpoint(args.pretrained)
+        state_dict, ref_meta = load_reference_checkpoint(args.pretrained,
+                                                         model_cfg)
         print(f"loaded reference checkpoint (step "
               f"{ref_meta.get('global_step')})")
+        if args.import_optimizer_state:
+            opt_sd = check_optimizer_import(ref_meta, cfg, args.pretrained)
 
     # ---------------- engine ----------------
     ckpt_dir = os.path.join(args.checkpoint_dir, args.experiment_name)
@@ -230,6 +289,17 @@ def main(argv=None) -> Dict[str, Any]:
         resume_dir, resume_which = os.path.abspath(ckpt_dir), "best"
 
     start_epoch, resume_skip, resumed_at = 0, 0, None
+    if args.import_optimizer_state:
+        from ..optim.interop import load_reference_state
+        step = load_reference_state(trainer.optimizer, opt_sd, model_cfg)
+        trainer.global_step = int(ref_meta.get("global_step", step))
+        trainer.best_loss = float(ref_meta.get("best_loss", float("inf")))
+        start_epoch = trainer.global_step // max(
+            1, pipeline.steps_per_epoch())
+        print(f"imported reference optimizer state (step {step}"
+              + (", SPD anchors restored" if cfg.optimizer_type == "adamspd"
+                 else "") + f"); global step {trainer.global_step}, "
+              f"resuming at epoch {start_epoch}")
     if resume_which is not None:
         src = manager if resume_dir == manager.directory else \
             CheckpointManager(resume_dir, save_every=cfg.save_every)

@@ -4,10 +4,13 @@ The port's own copy of ``clip_finegrained_alignment_tpu/config.py``'s
 ``VisionConfig``, ``TextConfig`` and ``CLIPConfig`` (same fields, same
 defaults, same named models), and of the ``PrecisionConfig`` and
 ``TrainConfig`` fields the train step, the trainer and the training CLI
-read (same names and defaults). The TPU-only knobs (``remat``,
-``unroll*``, ``unstack_layers``, ``use_pallas_attention``,
-``use_fused_sparc``, ``quant``) are not carried: the port always runs its
-kernels. Mesh and parallel fields come with the multi-GPU slice.
+read (same names and defaults), ``grad_cache`` among them. Not carried:
+the TPU-only knobs (``remat``, ``unroll*``, ``unstack_layers``,
+``use_pallas_attention``, ``use_fused_sparc``), since the port always runs
+its kernels; ``quant``, which comes with the int8 slice; and the mesh and
+parallel fields (``mesh``, ``global_negatives``, ``zero1``, ``fsdp``,
+``pipeline_microbatches``, ``sequence_parallel``, ``sp_ring``), which come
+with the multi-GPU slice.
 """
 
 from __future__ import annotations
@@ -163,6 +166,9 @@ class TrainConfig:
     precision: PrecisionConfig = field(default_factory=PrecisionConfig)
     checkpoint_dir: str = "checkpoints"
     log_every: int = 10
+    # One contrastive loss over the whole batch_size x accum pool at one
+    # chunk's activation memory (train/gradcache.py); clip and sparc only.
+    grad_cache: bool = False
 
     def __post_init__(self):
         if self.loss_type not in ("clip", "sparc", "count", "clip_count"):
@@ -242,6 +248,7 @@ class TrainConfig:
                 "Compute dtype": self.precision.compute_dtype
                 if self.use_amp else "float32",
                 "Parameter dtype": self.precision.param_dtype,
+                "GradCache (full-pool negatives)": self.grad_cache,
             },
         }
         for group, params in groups.items():

@@ -1,16 +1,21 @@
 """Weights into and out of the port: the JAX package's param tree, random
-weights from a seed, and HF-named reference ``.pt`` checkpoints (read by
-``load_reference_checkpoint``, written by ``save_reference_checkpoint``).
+weights from a seed, and reference ``.pt`` checkpoints in HF ``CLIPModel``
+or OpenAI ``clip``-package naming (read by ``load_reference_checkpoint``,
+written by ``save_reference_checkpoint``).
 
 ``state_dict_from_jax`` is the port's copy of ``clip_finegrained_alignment_
 tpu/models/hf_export.py::hf_state_dict_from_params`` (same names, same
 values, as torch tensors); it reads the tree through ``numpy.asarray``, so
 it takes numpy arrays, or JAX arrays without importing JAX here.
+``state_dict_from_openai`` and ``openai_state_dict`` are the OpenAI
+halves of the JAX package's ``hf_import.py`` and ``hf_export.py``, mapped
+straight between the two namings (the port's weights carry HF names).
 """
 
 from __future__ import annotations
 
 import os
+import re
 from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
@@ -163,20 +168,142 @@ def random_params(cfg: CLIPConfig, seed: int = 0) -> Dict[str, Any]:
     }
 
 
-def load_reference_checkpoint(path: str) -> Tuple[Dict[str, torch.Tensor],
-                                                  Dict[str, Any]]:
+# ---------------------------------------------------------------------------
+# OpenAI clip-package naming (the reference count trainer's checkpoints)
+# ---------------------------------------------------------------------------
+
+def _strip_wrapper(sd: Mapping[str, Any]) -> Dict[str, Any]:
+    """Drop a ``module.`` (DDP) or ``model.`` prefix from every key."""
+    return {re.sub(r"^(module\.|model\.)", "", k): v for k, v in sd.items()}
+
+
+def is_openai_state_dict(sd: Mapping[str, Any]) -> bool:
+    """OpenAI ``clip``-package names (what the reference's count trainer
+    saves), as opposed to HF ``CLIPModel`` names."""
+    sd = _strip_wrapper(sd)
+    return "visual.conv1.weight" in sd or "visual.class_embedding" in sd
+
+
+def _towers(cfg: CLIPConfig):
+    """(OpenAI block prefix, HF layer prefix, layers, width) per tower."""
+    return (("visual.transformer.resblocks", "vision_model.encoder.layers",
+             cfg.vision.num_layers, cfg.vision.hidden_size),
+            ("transformer.resblocks", "text_model.encoder.layers",
+             cfg.text.num_layers, cfg.text.hidden_size))
+
+
+# (OpenAI, HF) names of the tensors that map one to one, weight and bias.
+_OPENAI_LAYER_PAIRS = (("ln_1", "layer_norm1"), ("attn.out_proj",
+                       "self_attn.out_proj"), ("ln_2", "layer_norm2"),
+                       ("mlp.c_fc", "mlp.fc1"), ("mlp.c_proj", "mlp.fc2"))
+_OPENAI_TOP_PAIRS = (("visual.ln_pre", "vision_model.pre_layrnorm"),
+                     ("visual.ln_post", "vision_model.post_layernorm"),
+                     ("ln_final", "text_model.final_layer_norm"))
+
+
+def state_dict_from_openai(sd: Mapping[str, Any],
+                           cfg: CLIPConfig) -> Dict[str, torch.Tensor]:
+    """An OpenAI ``clip``-package ``model.state_dict()`` → the port's HF
+    names (fp32 CPU tensors; OpenAI ships fp16). The port of
+    ``hf_import.params_from_openai_state_dict``: the fused
+    ``attn.in_proj_weight`` [3D, D] splits into q, k, v rows (torch
+    ``MultiheadAttention``'s packing), and the projections, stored as
+    ``x @ proj`` matrices, are transposed into linear weights."""
+    sd = {k: torch.as_tensor(v).detach().to("cpu", torch.float32)
+          for k, v in _strip_wrapper(sd).items()}
+    out = {
+        "vision_model.embeddings.patch_embedding.weight":
+            sd["visual.conv1.weight"],
+        "vision_model.embeddings.class_embedding":
+            sd["visual.class_embedding"].reshape(-1),
+        "vision_model.embeddings.position_embedding.weight":
+            sd["visual.positional_embedding"],
+        "visual_projection.weight": sd["visual.proj"].t(),
+        "text_model.embeddings.token_embedding.weight":
+            sd["token_embedding.weight"],
+        "text_model.embeddings.position_embedding.weight":
+            sd["positional_embedding"],
+        "text_projection.weight": sd["text_projection"].t(),
+        "logit_scale": sd["logit_scale"].reshape(()),
+    }
+    for src, dst in _OPENAI_TOP_PAIRS:
+        for leaf in ("weight", "bias"):
+            out[f"{dst}.{leaf}"] = sd[f"{src}.{leaf}"]
+    for src, dst, layers, d in _towers(cfg):
+        for i in range(layers):
+            s, t = f"{src}.{i}", f"{dst}.{i}"
+            for leaf, packed in (("weight", "in_proj_weight"),
+                                 ("bias", "in_proj_bias")):
+                rows = sd[f"{s}.attn.{packed}"]
+                for j, proj in enumerate(("q_proj", "k_proj", "v_proj")):
+                    out[f"{t}.self_attn.{proj}.{leaf}"] = \
+                        rows[j * d:(j + 1) * d]
+            for a, b in _OPENAI_LAYER_PAIRS:
+                for leaf in ("weight", "bias"):
+                    out[f"{t}.{b}.{leaf}"] = sd[f"{s}.{a}.{leaf}"]
+    return {k: v.contiguous().clone() for k, v in out.items()}
+
+
+def openai_state_dict(model, cfg: CLIPConfig) -> Dict[str, torch.Tensor]:
+    """The port's weights (a ``CLIPModel`` or its HF-named state dict) →
+    OpenAI ``clip``-package names, fp32 CPU tensors: the port of
+    ``hf_export.openai_state_dict_from_params``. q, k, v fuse into
+    ``attn.in_proj_*``; the projections become ``x @ proj`` matrices. The
+    buffers the clip package makes itself (``attn_mask``) are left out."""
+    sd = model.state_dict() if hasattr(model, "state_dict") else model
+    sd = {k: v.detach().to("cpu", torch.float32) for k, v in sd.items()}
+    out = {
+        "visual.conv1.weight":
+            sd["vision_model.embeddings.patch_embedding.weight"],
+        "visual.class_embedding":
+            sd["vision_model.embeddings.class_embedding"],
+        "visual.positional_embedding":
+            sd["vision_model.embeddings.position_embedding.weight"],
+        "visual.proj": sd["visual_projection.weight"].t(),
+        "token_embedding.weight":
+            sd["text_model.embeddings.token_embedding.weight"],
+        "positional_embedding":
+            sd["text_model.embeddings.position_embedding.weight"],
+        "text_projection": sd["text_projection.weight"].t(),
+        "logit_scale": sd["logit_scale"].reshape(()),
+    }
+    for dst, src in _OPENAI_TOP_PAIRS:
+        for leaf in ("weight", "bias"):
+            out[f"{dst}.{leaf}"] = sd[f"{src}.{leaf}"]
+    for dst, src, layers, _ in _towers(cfg):
+        for i in range(layers):
+            s, t = f"{src}.{i}", f"{dst}.{i}"
+            for leaf, packed in (("weight", "in_proj_weight"),
+                                 ("bias", "in_proj_bias")):
+                out[f"{t}.attn.{packed}"] = torch.cat(
+                    [sd[f"{s}.self_attn.{p}.{leaf}"]
+                     for p in ("q_proj", "k_proj", "v_proj")])
+            for a, b in _OPENAI_LAYER_PAIRS:
+                for leaf in ("weight", "bias"):
+                    out[f"{t}.{a}.{leaf}"] = sd[f"{s}.{b}.{leaf}"]
+    return {k: v.contiguous().clone() for k, v in out.items()}
+
+
+def load_reference_checkpoint(path: str, cfg: Optional[CLIPConfig] = None
+                              ) -> Tuple[Dict[str, torch.Tensor],
+                                         Dict[str, Any]]:
     """A reference torch checkpoint (``model_state_dict`` + metadata, or a
-    bare state dict) in HF ``CLIPModel`` naming → (state dict, metadata).
+    bare state dict) in HF ``CLIPModel`` or OpenAI ``clip``-package naming
+    → (HF-named state dict, metadata). ``cfg`` is needed for OpenAI naming
+    only (the layer counts and widths that split ``in_proj``). HF
     ``position_ids`` buffers are dropped. Loaded with ``weights_only``:
-    tensors and plain containers only."""
+    tensors and plain containers only (an ``optimizer_state_dict`` among
+    the metadata included)."""
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
     sd = ckpt.get("model_state_dict", ckpt)
-    if "visual.conv1.weight" in sd:
-        raise NotImplementedError(
-            f"{path}: OpenAI clip-package naming is not supported by the "
-            "port yet; export the checkpoint with HF naming")
-    sd = {k: v.float() for k, v in sd.items()
-          if not k.endswith("position_ids")}
+    if is_openai_state_dict(sd):
+        if cfg is None:
+            raise ValueError(f"{path}: OpenAI clip-package naming; pass the "
+                             "model config to split its fused projections")
+        sd = state_dict_from_openai(sd, cfg)
+    else:
+        sd = {k: v.float() for k, v in sd.items()
+              if not k.endswith("position_ids")}
     meta = {k: v for k, v in ckpt.items() if k != "model_state_dict"} \
         if "model_state_dict" in ckpt else {}
     return sd, meta
@@ -185,16 +312,23 @@ def load_reference_checkpoint(path: str) -> Tuple[Dict[str, torch.Tensor],
 def save_reference_checkpoint(path: str, model, cfg: CLIPConfig, *,
                               global_step: int = 0,
                               best_loss: float = float("inf"),
-                              config: Optional[dict] = None) -> None:
+                              config: Optional[dict] = None,
+                              optimizer_state_dict: Optional[dict] = None,
+                              fmt: str = "hf") -> None:
     """Write the reference's training-checkpoint format
-    (``model_state_dict`` in HF ``CLIPModel`` names, ``global_step``,
-    ``best_loss``, ``config``), the port of ``clip_finegrained_alignment_
-    tpu/models/hf_export.py::save_reference_checkpoint`` with ``fmt="hf"``
-    and no optimizer state. ``model``: a ``models/clip.py::CLIPModel`` or
-    its state dict. The weights are written as fp32 CPU tensors, so HF's
+    (``model_state_dict``, ``global_step``, ``best_loss``, ``config``),
+    the port of ``clip_finegrained_alignment_tpu/models/hf_export.py::
+    save_reference_checkpoint``. ``model``: a ``models/clip.py::CLIPModel``
+    or its state dict. ``fmt="hf"`` writes HF ``CLIPModel`` names (HF's
     ``CLIPModel.load_state_dict`` and the JAX package's
-    ``hf_import.load_reference_checkpoint`` read them. The file is written
-    to a temporary name and renamed."""
+    ``hf_import.load_reference_checkpoint`` read them), ``fmt="openai"``
+    the OpenAI ``clip``-package names (the reference count trainer's
+    resume format). ``optimizer_state_dict`` (a reference optimizer state
+    from ``optim/interop.py``) makes it a complete training checkpoint.
+    The weights are fp32 CPU tensors. The file is written to a temporary
+    name and renamed."""
+    if fmt not in ("hf", "openai"):
+        raise ValueError(f"fmt must be 'hf' or 'openai', got {fmt!r}")
     sd = model.state_dict() if hasattr(model, "state_dict") else model
     if "vision_model.embeddings.patch_embedding.weight" not in sd:
         raise ValueError("not an HF-named CLIP state dict")
@@ -203,13 +337,17 @@ def save_reference_checkpoint(path: str, model, cfg: CLIPConfig, *,
     if shape != (cfg.vision.seq_len, cfg.vision.hidden_size):
         raise ValueError(f"state dict does not fit {cfg}: vision position "
                          f"embedding {shape}")
+    sd = openai_state_dict(sd, cfg) if fmt == "openai" else \
+        {k: v.detach().to("cpu", torch.float32).clone()
+         for k, v in sd.items()}
     out = {
-        "model_state_dict": {k: v.detach().to("cpu", torch.float32).clone()
-                             for k, v in sd.items()},
+        "model_state_dict": sd,
         "global_step": int(global_step),
         "best_loss": float(best_loss),
         "config": dict(config or {}),
     }
+    if optimizer_state_dict is not None:
+        out["optimizer_state_dict"] = optimizer_state_dict
     tmp = f"{path}.tmp.{os.getpid()}"
     torch.save(out, tmp)
     os.replace(tmp, path)

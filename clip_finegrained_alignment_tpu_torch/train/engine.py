@@ -11,7 +11,9 @@
 * The step runs a forward and a backward per microbatch of the
   ``[accum, B, …]`` batch; ``.grad`` sums the microbatch gradients and is
   scaled by 1/accum at the end, which is the JAX package's order
-  (sum, then scale).
+  (sum, then scale). With ``grad_cache`` it takes
+  ``train/gradcache.py::gradcache_grads`` instead: one loss over the
+  whole ``accum·B`` pool.
 * Then ``grad_norm`` (before clipping), the global-norm clip and the
   optimizer step (``optim/factory.py``). Towers run in the compute dtype
   (bf16 by default) on fp32 master parameters; losses and the optimizer
@@ -56,6 +58,20 @@ from ..optim.factory import ClippedOptimizer, make_optimizer
 Batch = Mapping[str, torch.Tensor]
 
 
+def device_pixels(batch: Batch,
+                  pixel_bank: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The microbatch's normalized pixels: ``pixel_values``, or with
+    ``pixel_bank`` the bank's rows at ``pixel_index``; uint8 is rescaled
+    and normalized on the device."""
+    if pixel_bank is not None:
+        pixel_values = pixel_bank[batch["pixel_index"].long()]
+    else:
+        pixel_values = batch["pixel_values"]
+    if pixel_values.dtype == torch.uint8:
+        pixel_values = normalize_batch(pixel_values.float() / 255.0)
+    return pixel_values
+
+
 def compute_loss(model: m.CLIPModel, batch: Batch, cfg: TrainConfig,
                  model_cfg: CLIPConfig, *, dtype,
                  pixel_bank: Optional[torch.Tensor] = None
@@ -66,14 +82,9 @@ def compute_loss(model: m.CLIPModel, batch: Batch, cfg: TrainConfig,
     with ``pixel_bank`` pixel_index [B] (rows of the bank); input_ids
     [B, T]; cf_input_ids [B, N_cf, T] for ``count``; optional
     group_input_ids [B, G, T] for ``clip_count``."""
-    if pixel_bank is not None:
-        pixel_values = pixel_bank[batch["pixel_index"].long()]
-    else:
-        pixel_values = batch["pixel_values"]
-    if pixel_values.dtype == torch.uint8:
-        pixel_values = normalize_batch(pixel_values.float() / 255.0)
     input_ids = batch["input_ids"]
-    out = m.clip_forward(model, pixel_values, input_ids, dtype=dtype)
+    out = m.clip_forward(model, device_pixels(batch, pixel_bank), input_ids,
+                         dtype=dtype)
 
     if cfg.loss_type == "sparc":
         v_patch, l_token = m.sparc_embeddings(model, out, dtype=dtype)
@@ -136,9 +147,10 @@ def make_train_step(cfg: TrainConfig, model_cfg: CLIPConfig,
                     pixel_bank: Optional[torch.Tensor] = None) -> Callable:
     """``train_step(batch) -> metrics``: ``batch`` leaves are
     ``[accum, B, …]`` (tensors or numpy arrays, moved to the model's
-    device); ``metrics`` holds the mean losses and ``grad_norm``, the
-    global norm of the mean gradient before clipping, as 0-dim tensors on
-    the device (reading them waits for the step).
+    device); ``metrics`` holds the mean losses (with ``grad_cache``: the
+    full-pool losses) and ``grad_norm``, the global norm of the gradient
+    before clipping, as 0-dim tensors on the device (reading them waits
+    for the step).
 
     ``pixel_bank``: a uint8 ``[N, S, S, 3]`` tensor on the model's device
     (``place_pixel_bank``). Batches then carry ``pixel_index [accum, B]``
@@ -149,12 +161,19 @@ def make_train_step(cfg: TrainConfig, model_cfg: CLIPConfig,
     if pixel_bank is not None and pixel_bank.device != device:
         raise ValueError(f"pixel bank on {pixel_bank.device}, model on "
                          f"{device}")
+    grads = accumulate_grads
+    if cfg.grad_cache:
+        # One loss over the whole accum x B pool (train/gradcache.py) in
+        # place of the mean of the microbatches' losses.
+        from .gradcache import gradcache_grads, validate_gradcache
+        validate_gradcache(cfg)
+        grads = gradcache_grads
 
     def train_step(batch) -> Dict[str, torch.Tensor]:
         batch = {k: torch.as_tensor(x).to(device, non_blocking=True)
                  for k, x in batch.items()}
-        metrics = accumulate_grads(model, batch, cfg, model_cfg, dtype=dtype,
-                                   pixel_bank=pixel_bank)
+        metrics = grads(model, batch, cfg, model_cfg, dtype=dtype,
+                        pixel_bank=pixel_bank)
         metrics["grad_norm"] = optimizer.step()
         return metrics
 

@@ -160,7 +160,7 @@ def test_resume_of_a_preempt_directory_is_step_exact(runs, fixture,
 
 
 @pytest.mark.parametrize("extra,message", [
-    (["--import-optimizer-state"], "A8"),
+    (["--import-optimizer-state"], "requires --pretrained"),
     (["--pretrained", "openai/clip-vit-base-patch32"], "out of reach"),
     (["--device-data"], "requires --packed"),
 ])
