@@ -42,6 +42,18 @@ Phases, each of which fails the script (non-zero exit, no "ok" line):
      rows, a zero patch, duplicated patches), with no library yardstick;
      the forward's saved sim, rl and rv against the plain version's, and
      the backward fed them, as the train path feeds it;
+   - "int8": the quantize and dequantize kernels (``quant_rows``,
+     ``quant_cols_t``, ``dequant``, ``csrc/quant.cu``) bit-equal to their
+     plain versions in bf16 and fp32 at the slice's operand shapes
+     (ViT-B/16's vision microbatch M=6304 with 768 and 3072, the patch
+     embedding's M=6272, text M=2464 with 512 and 2048, the weights, and
+     M=308 and 788, no multiples of 8), with their times at the timed
+     shapes; ``torch._int_mm`` against bf16 ``torch.matmul`` at every
+     product shape (forward, dgrad, int8 wgrad); ``quant_linear``'s
+     forward and backward against its plain version on the card in both
+     modes (output, dx, db and the int8 dW bit-equal; switchback's float
+     dW within one step of its type); ``perf/int8_microbench.py``'s
+     GEMM-set table;
 4. the serving main path: ViT-B/16 at full width with random weights from
    a numpy seed, served by ``ClipServer`` on the card behind its HTTP
    server on 127.0.0.1; every endpoint must answer 200 with finite
@@ -72,6 +84,16 @@ Phases, each of which fails the script (non-zero exit, no "ok" line):
    their plain versions; in fp32, one GradCache [8, 4] step against one
    direct [1, 32] step (loss, gradient norm, per-tensor cosine, limits set
    from the CPU);
+6c. int8 training (``TrainConfig.quant``): phase 6's step at 32 x 8 with
+   ``quant`` none, switchback and int8, three models from the same weights
+   on the same batch: each first step counted (the int8 kernels' exact
+   launches, derived from the model's 145 quantized linears and printed
+   with the derivation; #1-#4 as none's) with its loss and gradient norm
+   beside none's; three rounds of the modes in turns (step ms, pairs/s,
+   peak memory), device time and busy share from one traced step each
+   (none's is phase 6's trace); one microbatch of 4 pairs in int8 on the
+   card (bf16, then fp32) against the CPU in fp32 int8 (QUANT_CHECK_LIMITS,
+   set from the CPU before any card reading);
 7. long-sequence attention: the three blockwise kernels (forward, dq,
    dk/dv) against their plain versions at the flash microbenchmark's design
    points ([B, 12, S, 64] bf16; S=1024, 2048, 4096 at B=8, 4, 1), a causal
@@ -107,7 +129,9 @@ Phases, each of which fails the script (non-zero exit, no "ok" line):
    --include-optimizer`` and trained on from that ``.pt`` with
    ``--pretrained --import-optimizer-state`` to B's epochs (the optimizer
    state right after the import equal to ``best/``'s bit for bit, the
-   launches as B's, the epoch losses beside B's). It prints
+   launches as B's, the epoch losses beside B's); G, A's data and flags
+   with ``--quant int8`` for 1 epoch (A's #1-#4 launches a step, and the
+   int8 kernels' exact launches). It prints
    which image decode ran (the native library or PIL), the live
    pipeline's rate alone, and one
    ``train cli: {...}`` line: steps, epoch losses and epoch pairs/s on the
@@ -135,7 +159,8 @@ Phases, each of which fails the script (non-zero exit, no "ok" line):
 The last lines are the kernels' JSON line (``launches_by_path`` has
 ``serve``, ``train``, ``long``, ``train_cli`` (runs A-D), ``eval``,
 ``gradcache`` (phase 6b's counted steps), ``train_cli_gradcache`` (run E),
-``train_cli_interop`` (run F) and ``eval_openai``; the forward kernel's
+``train_cli_interop`` (run F), ``eval_openai``, ``train_quant`` (phase
+6c's counted steps) and ``train_cli_quant`` (run G); the forward kernel's
 entry also carries its ``fp32_eval`` rows, the backward's its
 ``fp32_train`` rows, the SPARC kernels' their ``gradcache_pool`` row at
 B=256), the ``nvidia-smi`` line
@@ -148,6 +173,7 @@ from __future__ import annotations
 
 import argparse
 import base64
+import contextlib
 import dataclasses
 import io
 import json
@@ -297,6 +323,68 @@ GC_TIMED = 3
 GC_F32_SHAPE = (8, 4)
 GC_F32_LIMITS = {"loss_rel": 1e-6, "grad_norm_rel": 1e-6,
                  "min_grad_cosine": 1.0 - 1e-8}
+# Int8 GEMMs (phase 3, "int8"): the quantize passes' operands [R, C] at
+# the slice's shapes: ViT-B/16's vision microbatch (M = 32 x 197 = 6304
+# rows; x and g [M, 768] and [M, 3072]), the patch embedding's patches
+# (32 x 196 = 6272), the text microbatch (32 x 77 = 2464; 512 and 2048),
+# the weights [N, K], and the 4-pair microbatch of phase 6c's CPU check,
+# whose M (308, 788) is no multiple of 8 (quant_cols_t pads it).
+QUANT_SHAPES = [
+    ("vision x / g", 6304, 768), ("vision fc2 x / fc1 g", 6304, 3072),
+    ("patch embedding x", 6272, 768), ("text x / g", 2464, 512),
+    ("text fc2 x / fc1 g", 2464, 2048), ("vision W q/k/v/out", 768, 768),
+    ("vision W fc1", 3072, 768), ("vision W fc2", 768, 3072),
+    ("text W fc1", 2048, 512), ("text W fc2", 512, 2048),
+    ("4 pairs' text x", 308, 512), ("4 pairs' vision x", 788, 768)]
+# Every product of the slice (M, K, N): the forward's and dgrad's (x or g
+# by W), and the int8 wgrad's [N, M] x [M, K] over the padded M.
+INT_MM_SHAPES = [
+    ("vision q/k/v/out", 6304, 768, 768), ("vision fc1", 6304, 768, 3072),
+    ("vision fc2", 6304, 3072, 768), ("patch embedding", 6272, 768, 768),
+    ("text q/k/v/out", 2464, 512, 512), ("text fc1", 2464, 512, 2048),
+    ("text fc2", 2464, 2048, 512),
+    ("vision wgrad q/k/v/out", 768, 6304, 768),
+    ("vision wgrad fc1", 3072, 6304, 768),
+    ("vision wgrad fc2", 768, 6304, 3072),
+    ("patch embedding wgrad", 768, 6272, 768),
+    ("text wgrad q/k/v/out", 512, 2464, 512),
+    ("text wgrad fc1", 2048, 2464, 512), ("text wgrad fc2", 512, 2464, 2048)]
+PEAK_INT8_OPS = 1979e12             # int8 tensor cores, dense (data sheet)
+# quant_linear on the card against its plain version on the card (what,
+# dtype, M, K, N): output, dx, db and the int8 dW must be bit-equal (the
+# same int32 sums, the same fp32 arithmetic in the same order); switchback's
+# dW is a float product on both sides, held within one step of its type
+# (torch.finfo(dtype).eps of the value) should cuBLAS pick another
+# algorithm between the two calls.
+QUANT_LINEAR_CASES = [("vision fc1", "bfloat16", 6304, 768, 3072),
+                      ("vision fc2", "bfloat16", 6304, 3072, 768),
+                      ("4 pairs' text fc1", "float32", 308, 512, 2048)]
+# Phase 6c: the modes, in turns, and the rounds of timed steps.
+QUANT_MODES = ("none", "switchback", "int8")
+QUANT_TIMED = 3
+# Phase 6c's int8 microbatch (4 pairs): the card against the port on the
+# CPU, both in int8, the CPU in fp32. Set before any card reading, from
+# the port on the CPU at ViT-B/16 widths with 1, 2 and 4 layers a tower
+# (int8 on both sides; the same 4 pairs; SPARC):
+#   bf16 against fp32 reads loss 2.2e-6, 7.5e-7, 2.1e-6, gradient norm
+#     1.8e-3, 1.0e-4, 3.3e-3, smallest per-tensor cosine 0.99666, 0.99536,
+#     0.99415 (the exact path: 4.2e-7, 2.2e-4, 0.99907 at 1 layer; its
+#     card limits above). Quantization turns bf16's rounding into whole
+#     grid steps, and the cosine gap grows ~0.0013 a doubling of depth:
+#     ~0.008 at 12. The limits: loss 1e-4, gradient norm 2e-2, cosine
+#     0.96 (5x that gap).
+#   fp32 against fp32: the card's sums differ from the CPU's by ~1e-6
+#     (phase 6's fp32 check: gradient norm 2.31e-6 from the TF32 sums'
+#     truncation), and quantization turns that into grid steps as it does
+#     bf16's rounding: the weights moved by 1e-6 (relative, random) on the
+#     CPU read loss 8.3e-7, 0, 7.5e-7, gradient norm 1.0e-4, 4.1e-4,
+#     9.0e-4, cosine gap 1.0e-3, 2.0e-3, 3.3e-3 at 1, 2, 4 layers (the
+#     exact path: 0, 1e-6, 3e-7). The same limits hold for it.
+# A kernel that quantizes or dequantizes wrongly moves the loss by far
+# more (the int8 path itself sits 1.3e-4 to 3e-2 from the exact one on
+# the CPU's tiny model); phase 3 holds the kernels bit-equal.
+QUANT_CHECK_LIMITS = {"bfloat16": (1e-4, 2e-2, 0.96),
+                      "float32": (1e-4, 2e-2, 0.96)}
 # The training CLI (phase 8): a procedural dataset of this many 224 px
 # samples (two SPARC steps an epoch at TRAIN_B x TRAIN_ACCUM; eight count
 # steps at TRAIN_B x CLI_COUNT_ACCUM).
@@ -934,6 +1022,172 @@ def sparc_case(gen, what, B, P, edge=False, timed=True) -> tuple:
     for kind, row in (("fwd", fwd), ("bwd", bwd)):
         log(f"sparc {kind}", json.dumps(row))
     return fwd, bwd
+
+
+# ---------------------------------------------------------------------------
+# Phase 3, "int8": the quantize and dequantize kernels (ops/quant.py)
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def plain_quant():
+    """``ops/quant.py``'s int8 functions with the three passes taken by
+    their plain versions (the CPU path) on whatever device the tensors lie:
+    the yardstick the kernels are held to on the card."""
+    from clip_finegrained_alignment_tpu_torch.ops import quant as tq
+    saved = tq.quant_rows, tq.quant_cols_t, tq.dequant
+    tq.quant_rows, tq.quant_cols_t, tq.dequant = (
+        tq.quant_rows_reference, tq.quant_cols_t_reference,
+        tq.dequant_reference)
+    try:
+        yield
+    finally:
+        tq.quant_rows, tq.quant_cols_t, tq.dequant = saved
+
+
+def quant_pass_bound(name, R, C, item) -> dict:
+    """A pass's bound: its bytes (``perf/int8_microbench.py::kernel_bytes``)
+    or its few fp32 operations an element on the CUDA cores."""
+    from clip_finegrained_alignment_tpu_torch.perf.int8_microbench import \
+        kernel_bytes
+    return bound_ms(kernel_bytes(name, R, C, item), 4.0 * R * C, "float32")
+
+
+def check_quant(results: dict) -> dict:
+    """The three int8 kernels bit-equal to their plain versions at the
+    slice's shapes (bf16 and fp32), their times at the timed shapes, the
+    int8 products (``torch._int_mm``) against bf16 ``torch.matmul``,
+    ``quant_linear``'s forward and backward against the plain version on
+    the card in both modes, and ``perf/int8_microbench.py``'s GEMM set.
+    Returns {kernel name: its timed row}."""
+    import torch
+    from clip_finegrained_alignment_tpu_torch.ops import quant as tq
+    from clip_finegrained_alignment_tpu_torch.perf import int8_microbench
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    out = {"passes": [], "int_mm": [], "quant_linear": [], "gpu": gpu_line()}
+    for what, R, C in QUANT_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            x = (torch.randn(R, C, device="cuda", generator=gen) * 3).to(dtype)
+            x[R // 2] = 0                           # a zero row
+            q, s = tq.quant_rows(x)
+            qt, st = tq.quant_cols_t(x)
+            acc = torch.randint(-2 ** 20, 2 ** 20, (R, C), device="cuda",
+                                dtype=torch.int32, generator=gen)
+            sr = torch.rand(R, device="cuda", generator=gen) * 1e-3
+            sc = torch.rand(C, device="cuda", generator=gen) * 1e-3
+            bias = torch.randn(C, device="cuda", generator=gen).to(dtype)
+            y = tq.dequant(acc, sr, sc, bias, dtype)
+            y0 = tq.dequant(acc, sr, sc, None, dtype)
+            torch.cuda.synchronize()
+            qr, sr_ = tq.quant_rows_reference(x)
+            qtr, str_ = tq.quant_cols_t_reference(x)
+            row = {"shape": what, "R": R, "C": C,
+                   "dtype": str(dtype).split(".")[-1],
+                   "quant_rows_equal": torch.equal(q, qr)
+                   and torch.equal(s, sr_),
+                   "quant_cols_t_equal": torch.equal(qt, qtr)
+                   and torch.equal(st, str_),
+                   "padding_rows": qt.shape[1] - R,
+                   "dequant_equal": torch.equal(
+                       y, tq.dequant_reference(acc, sr, sc, bias, dtype))
+                   and torch.equal(y0, tq.dequant_reference(
+                       acc, sr, sc, None, dtype))}
+            out["passes"].append(row)
+            log("int8 pass", json.dumps(row))
+            check(row["quant_rows_equal"] and row["quant_cols_t_equal"]
+                  and row["dequant_equal"],
+                  f"int8 kernels differ from their plain versions: {row}")
+    # Times: x [6304, 768] by rows (the forward) and by columns (the int8
+    # wgrad), the fc1 sums [6304, 3072] to bf16 with the bias.
+    timed = {}
+    M = TRAIN_B * 197
+    x = torch.randn(M, 768, device="cuda", generator=gen).to(torch.bfloat16)
+    acc = torch.randint(-2 ** 20, 2 ** 20, (M, 3072), device="cuda",
+                        dtype=torch.int32, generator=gen)
+    sr = torch.rand(M, device="cuda", generator=gen) * 1e-3
+    sc = torch.rand(3072, device="cuda", generator=gen) * 1e-3
+    bias = torch.randn(3072, device="cuda", generator=gen).to(torch.bfloat16)
+    for name, R, C, fn, plain in (
+            ("quant_rows", M, 768, lambda: tq.quant_rows(x),
+             lambda: tq.quant_rows_reference(x)),
+            ("quant_cols_t", M, 768, lambda: tq.quant_cols_t(x),
+             lambda: tq.quant_cols_t_reference(x)),
+            ("dequant", M, 3072,
+             lambda: tq.dequant(acc, sr, sc, bias, torch.bfloat16),
+             lambda: tq.dequant_reference(acc, sr, sc, bias,
+                                          torch.bfloat16))):
+        row = {"kernel": name, "shape": f"[{R}, {C}] bf16", "R": R, "C": C,
+               "ms": cuda_time_ms(fn), "graph_ms": graph_ms(fn),
+               "plain_ms": cuda_time_ms(plain),
+               # No one PyTorch call computes the pass.
+               "library_ms": None, "max_abs_err": 0.0,
+               **quant_pass_bound(name, R, C, 2)}
+        timed[name] = row
+        log("int8 kernel", json.dumps(row))
+    # The int8 products against bf16 at every product shape of the slice.
+    for what, m, k, n in INT_MM_SHAPES:
+        a = torch.randint(-127, 128, (m, k), device="cuda", dtype=torch.int8,
+                          generator=gen)
+        b = torch.randint(-127, 128, (n, k), device="cuda", dtype=torch.int8,
+                          generator=gen)
+        af, bf = a.to(torch.bfloat16), b.to(torch.bfloat16)
+        exact = torch.equal(tq.int_mm(a, b.t()).double(),
+                            af.double() @ bf.double().t())
+        row = {"product": what, "M": m, "K": k, "N": n,
+               "int_mm_ms": cuda_time_ms(lambda: tq.int_mm(a, b.t())),
+               "bf16_ms": cuda_time_ms(lambda: af @ bf.t()),
+               "int_mm_exact": exact,
+               "int8_bound_ms": max((m * k + k * n + 4 * m * n)
+                                    / HBM_BYTES_PER_S, 2.0 * m * n * k
+                                    / PEAK_INT8_OPS) * 1e3,
+               "bf16_bound_ms": bound_ms(2.0 * (m * k + k * n + m * n),
+                                         2.0 * m * n * k,
+                                         "bfloat16")["bound_ms"]}
+        out["int_mm"].append(row)
+        log("int8 product", json.dumps(row))
+        check(exact, f"torch._int_mm {what}: not the exact int32 sums")
+    # quant_linear forward and backward against the plain version on the
+    # card: the output, dx and the int8 dW bit-equal; switchback's dW is a
+    # bf16 (or fp32) product on both sides, within one step of its type.
+    for what, dtype_name, m, k, n in QUANT_LINEAR_CASES:
+        dtype = getattr(torch, dtype_name)
+        x = torch.randn(m, k, device="cuda", generator=gen)
+        w = torch.randn(n, k, device="cuda", generator=gen) * k ** -0.5
+        b = torch.randn(n, device="cuda", generator=gen)
+        g = torch.randn(m, n, device="cuda", generator=gen).to(dtype)
+        for mode in ("switchback", "int8"):
+            sides = []
+            for ctx in (contextlib.nullcontext(), plain_quant()):
+                with ctx:
+                    xl, wl, bl = (t.clone().requires_grad_()
+                                  for t in (x, w, b))
+                    y = tq.quant_linear(xl, wl, bl, dtype, mode)
+                    y.backward(g)
+                    torch.cuda.synchronize()
+                    sides.append((y.detach(), xl.grad, wl.grad, bl.grad))
+            (y1, dx1, dw1, db1), (y2, dx2, dw2, db2) = sides
+            step = torch.finfo(dtype).eps * dw2.abs()
+            row = {"case": what, "mode": mode,
+                   "dtype": str(dtype).split(".")[-1], "M": m, "K": k,
+                   "N": n, "y_equal": torch.equal(y1, y2),
+                   "dx_equal": torch.equal(dx1, dx2),
+                   "db_equal": torch.equal(db1, db2),
+                   "dw_equal": torch.equal(dw1, dw2),
+                   "dw_max_abs_diff": (dw1 - dw2).abs().max().item(),
+                   "dw_over_step": ((dw1 - dw2).abs() / step.clamp_min(
+                       1e-30)).max().item()}
+            out["quant_linear"].append(row)
+            log("int8 quant_linear", json.dumps(row))
+            check(row["y_equal"] and row["dx_equal"] and row["db_equal"]
+                  and (row["dw_equal"] or (mode == "switchback"
+                                           and row["dw_over_step"] <= 1.0)),
+                  f"quant_linear on the card differs from the plain "
+                  f"version: {row}")
+    torch.cuda.empty_cache()
+    out["microbench"] = int8_microbench.main([])
+    out["timed"] = timed
+    results["quant"] = out
+    return timed
 
 
 # ---------------------------------------------------------------------------
@@ -1689,6 +1943,187 @@ def gradcache_path(results: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# Phase 6c: int8 quantized training (ops/quant.py, TrainConfig.quant)
+# ---------------------------------------------------------------------------
+
+def expected_quant_launches(cfg, mode: str, microbatches: int) -> tuple:
+    """The int8 kernels' launches of ``microbatches`` forward+backward
+    passes of ``clip_forward`` with ``quant=mode``, and how they follow
+    from the model: L = 6 projections (q, k, v, out, fc1, fc2) in each of
+    the towers' layers + the patch embedding. The forward quantizes x and
+    W by rows and dequantizes once a linear; dgrad (all but the patch
+    embedding, whose pixels need no gradient) quantizes g by rows and W by
+    columns and dequantizes once; the int8 wgrad quantizes x and g by
+    columns and dequantizes once (switchback's wgrad is a float product)."""
+    L = 6 * (cfg.vision.num_layers + cfg.text.num_layers) + 1
+    if mode == "none":
+        return {"quant_rows": 0, "quant_cols_t": 0, "dequant": 0}, "none"
+    int8 = mode == "int8"
+    per = {"quant_rows": 2 * L + (L - 1),
+           "quant_cols_t": (L - 1) + 2 * L * int8,
+           "dequant": L + (L - 1) + L * int8}
+    how = (f"L = 6 x ({cfg.vision.num_layers} + {cfg.text.num_layers}) + 1 "
+           f"= {L} linears a forward; a microbatch: quant_rows 2L + (L - 1)"
+           f" = {per['quant_rows']}, quant_cols_t (L - 1)"
+           + (" + 2L" if int8 else "") + f" = {per['quant_cols_t']}, "
+           f"dequant L + (L - 1)" + (" + L" if int8 else "")
+           + f" = {per['dequant']}; x {microbatches} microbatches")
+    return {k: v * microbatches for k, v in per.items()}, how
+
+
+def quant_train_path(results: dict) -> dict:
+    """SPARC + AdamSPD steps of ViT-B/16 at 32 x 8 with ``quant`` none,
+    switchback and int8 (phase 6c): three models from the same weights
+    (phase 6's) on the same batch; the first step of each counted (exact
+    int8 launches, #1-#4 as none's) with its loss and gradient norm beside
+    none's; then QUANT_TIMED rounds of the three in turns (step ms, peak
+    memory), one profiled step each (device ms, busy share); last, one
+    microbatch of 4 pairs in int8 on the card (bf16, then fp32) against
+    the CPU in fp32 int8."""
+    import torch
+    from clip_finegrained_alignment_tpu_torch.config import (CLIPConfig,
+                                                             TrainConfig)
+    from clip_finegrained_alignment_tpu_torch.models import clip as tm
+    from clip_finegrained_alignment_tpu_torch.models import convert
+    from clip_finegrained_alignment_tpu_torch.ops import _build
+    from clip_finegrained_alignment_tpu_torch.optim.factory import \
+        make_optimizer
+    from clip_finegrained_alignment_tpu_torch.train.engine import \
+        make_train_step
+
+    cfg = CLIPConfig.vit_b16()
+    base = TrainConfig(loss_type="sparc", optimizer_type="adamspd",
+                       inverse_temperature=0.07, batch_size=TRAIN_B,
+                       gradient_accumulation_steps=TRAIN_ACCUM, use_amp=True)
+    sd = convert.state_dict_from_jax(convert.random_params(cfg, SEED), cfg)
+    host_batch = train_batch(cfg, TRAIN_ACCUM, TRAIN_B, SEED)
+    batch = {k: torch.from_numpy(x).cuda() for k, x in host_batch.items()}
+    out = {"gpu": gpu_line(), "config": {
+        "model": "ViT-B/16", "loss": "sparc", "optimizer": "adamspd",
+        "microbatch": TRAIN_B, "accum": TRAIN_ACCUM,
+        "compute_dtype": "bfloat16", "modes": list(QUANT_MODES)}}
+    t0 = time.time()
+    steps, first, launches = {}, {}, {}
+    for mode in QUANT_MODES:
+        tcfg = dataclasses.replace(base, quant=mode)
+        model = tm.build_train_model(cfg, sd, device="cuda")
+        steps[mode] = make_train_step(tcfg, cfg, model, make_optimizer(
+            tcfg, model.named_parameters()))
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        m = steps[mode](batch)
+        torch.cuda.synchronize()
+        launches[mode] = _build.launch_counts()
+        first[mode] = {k: x.item() for k, x in m.items()}
+        check(all(map(math.isfinite, first[mode].values())),
+              f"quant {mode}: non-finite first step {first[mode]}")
+    attn = {n: launches["none"][n] for n in
+            ("attention_fwd", "attention_bwd", "sparc_fwd", "sparc_bwd")}
+    for mode in QUANT_MODES:
+        want, how = expected_quant_launches(cfg, mode, TRAIN_ACCUM)
+        got = {n: launches[mode][n] for n in want}
+        log(f"quant train {mode}: launches {launches[mode]}; int8 kernels "
+            f"expected {want} ({how})")
+        check(got == want, f"quant {mode}: int8 launches {got} != {want}")
+        check({n: launches[mode][n] for n in attn} == attn,
+              f"quant {mode}: #1-#4 launches differ from none's {attn}")
+        e, q = first["none"]["total_loss"], first[mode]["total_loss"]
+        # The JAX package's trajectory bound (tests/test_train_engine.py::
+        # test_quant_trajectory_tracks_bf16) on the first step.
+        check(abs(q - e) < 0.25 * abs(e) + 0.05,
+              f"quant {mode}: first loss {q} against none's {e}")
+    out["launches"] = launches
+    out["first_step"] = {mode: {
+        "total_loss": first[mode]["total_loss"],
+        "grad_norm": first[mode]["grad_norm"],
+        "loss_rel_vs_none": abs(first[mode]["total_loss"]
+                                - first["none"]["total_loss"])
+        / abs(first["none"]["total_loss"]),
+        "grad_norm_rel_vs_none": abs(first[mode]["grad_norm"]
+                                     - first["none"]["grad_norm"])
+        / first["none"]["grad_norm"]} for mode in QUANT_MODES}
+    log("quant train first step:", json.dumps(out["first_step"]))
+    out["setup_s"] = time.time() - t0
+
+    # The modes in turns: CUDA events around each step.
+    times = {mode: [] for mode in QUANT_MODES}
+    peaks = {mode: 0 for mode in QUANT_MODES}
+    for _ in range(QUANT_TIMED):
+        for mode, step in steps.items():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t_a = torch.cuda.Event(enable_timing=True)
+            t_b = torch.cuda.Event(enable_timing=True)
+            t_a.record()
+            m = step(batch)
+            t_b.record()
+            torch.cuda.synchronize()
+            times[mode].append(t_a.elapsed_time(t_b))
+            peaks[mode] = max(peaks[mode], torch.cuda.max_memory_allocated())
+            check(all(math.isfinite(x.item()) for x in m.values()),
+                  f"quant {mode}: non-finite metrics")
+    out["timed_s"] = time.time() - t0 - out["setup_s"]
+    pairs = TRAIN_B * TRAIN_ACCUM
+    variants = {}
+    for mode, step in steps.items():
+        # none's device time: phase 6's trace of the same step.
+        prof = (results["train"]["profile"] if mode == "none"
+                and "train" in results else kernel_table(lambda: step(batch)))
+        ms = statistics.median(times[mode])
+        variants[mode] = {
+            "step_ms": ms, "step_ms_each": times[mode],
+            "pairs_per_s": pairs / ms * 1e3,
+            "peak_memory_gb": peaks[mode] / 1e9,
+            "device_ms": prof["device_ms"],
+            "busy_share": prof["device_ms"] / ms, "profile": prof}
+        log(f"quant train {mode}:", json.dumps(
+            {k: v for k, v in variants[mode].items() if k != "profile"}))
+        log(f"profile quant train {mode}:", json.dumps(prof))
+    for mode in QUANT_MODES[1:]:
+        variants[mode]["step_ratio_vs_none"] = (variants[mode]["step_ms"]
+                                                / variants["none"]["step_ms"])
+        variants[mode]["device_ratio_vs_none"] = (
+            variants[mode]["device_ms"] / variants["none"]["device_ms"])
+    out["variants"] = variants
+    del steps, batch
+    torch.cuda.empty_cache()
+    t_cpu = time.time()
+
+    # One microbatch of 4 pairs in int8: the card (bf16, then fp32) against
+    # the CPU in fp32, each with QUANT_CHECK_LIMITS of its card dtype.
+    q_cfg = dataclasses.replace(base, quant="int8")
+    cpu = microbatch_grads(tm.build_train_model(cfg, sd, device="cpu"),
+                           host_batch, q_cfg, cfg, torch.float32)
+    out["vs_cpu"] = []
+    for dtype_name in ("bfloat16", "float32"):
+        tcfg = dataclasses.replace(q_cfg, use_amp=dtype_name == "bfloat16")
+        model = tm.build_train_model(cfg, sd, device="cuda")
+        card = microbatch_grads(model, host_batch, tcfg, cfg,
+                                getattr(torch, dtype_name))
+        del model
+        row = {"card_dtype": dtype_name, "quant": "int8",
+               **compare_grads(card, cpu, what="int8 train vs CPU")}
+        max_loss, max_norm, min_cos = QUANT_CHECK_LIMITS[dtype_name]
+        row["limits"] = {"loss_rel": max_loss, "grad_norm_rel": max_norm,
+                         "min_grad_cosine": min_cos}
+        log(f"int8 train vs CPU fp32 int8 (card {dtype_name}):",
+            json.dumps(row))
+        check(row["loss_rel"] <= max_loss and row["grad_norm_rel"] <= max_norm
+              and row["min_grad_cosine"] >= min_cos,
+              f"int8 train step on the card ({dtype_name}) vs the CPU out "
+              f"of limits: {row}")
+        out["vs_cpu"].append(row)
+    torch.cuda.empty_cache()
+    out["vs_cpu_s"] = time.time() - t_cpu
+    out["seconds"] = time.time() - t0
+    log("quant train seconds:", json.dumps(
+        {k: out[k] for k in ("setup_s", "timed_s", "vs_cpu_s", "seconds")}))
+    results["quant_train"] = out
+    return {"launches": {n: sum(launches[m][n] for m in QUANT_MODES)
+                         for n in launches["none"]}}
+
+
+# ---------------------------------------------------------------------------
 # Phase 7: long-sequence attention
 # ---------------------------------------------------------------------------
 
@@ -1915,7 +2350,9 @@ def train_cli_path(results: dict, keep_dir: str) -> dict:
     width: A (packed, pixel bank on the card, SPARC + AdamSPD, 2 epochs),
     B (bare ``--resume`` of A to 3 epochs), C (live decode, the count loss
     with AdamW, 1 epoch, with ``--eval-every-epoch`` where matplotlib can
-    write its plots), D (C in fp32: ``--no-amp``). Each run's launches are
+    write its plots), D (C in fp32: ``--no-amp``), then E
+    (``--grad-cache``), F (``--import-optimizer-state``) and G (``--quant
+    int8``), as the module docstring says. Each run's launches are
     counted on their own and must be exactly what its steps (and
     evaluations) imply. A's ``best/`` is kept in ``keep_dir`` for phase 9,
     with C's held-out batch (the first of its epoch 0)."""
@@ -2143,6 +2580,26 @@ def train_cli_path(results: dict, keep_dir: str) -> dict:
         torch.cuda.empty_cache()
         os.unlink(pt)
 
+        # Run G: A's data and flags with --quant int8, one epoch: every
+        # encoder projection and the patch embedding through the int8
+        # kernels, #1-#4 as A's.
+        res, g = counted("G", sparc + ["--epochs", "1", "--quant", "int8",
+                                       "--experiment-name", "quant"])
+        check(res["trainer"].cfg.quant == "int8" and g["steps"] == spe,
+              f"train cli G: quant {res['trainer'].cfg.quant}, "
+              f"{g['steps']} steps")
+        want = expect(g["steps"], TRAIN_ACCUM, layers, 1)
+        q_want, how = expected_quant_launches(cfg, "int8",
+                                              g["steps"] * TRAIN_ACCUM)
+        want.update(q_want)
+        log(f"train cli run G: --quant int8, int8 launches expected "
+            f"{q_want} ({how})")
+        check(g["launches"] == want,
+              f"train cli G: launches {g['launches']} != {want}")
+        del res
+        gc.collect()
+        torch.cuda.empty_cache()
+
         # Run C: live decode, the count loss (one more text tower: the
         # counterfactual captions) with AdamW. --eval-every-epoch writes a
         # confusion PNG per evaluation, as in the JAX package, so it runs
@@ -2216,14 +2673,15 @@ def train_cli_path(results: dict, keep_dir: str) -> dict:
             os.environ["CFA_ALLOW_HASH_TOKENIZER"] = prev_env
         shutil.rmtree(work, ignore_errors=True)
 
-    out.update({"A": a, "B": b, "C": c, "D": d, "E": e, "F": f,
+    out.update({"A": a, "B": b, "C": c, "D": d, "E": e, "F": f, "G": g,
                 "kernels_build_s": results.get("build_s")})
     log("train cli:", json.dumps(out))
     results["train_cli"] = out
     total = {n: sum(r["launches"][n] for r in (a, b, c, d))
              for n in _build.SOURCES}
     return {"launches": total, "launches_gradcache": e["launches"],
-            "launches_interop": f["launches"], "best_dir": kept,
+            "launches_interop": f["launches"],
+            "launches_quant": g["launches"], "best_dir": kept,
             "held_out": held_out}
 
 
@@ -2607,6 +3065,7 @@ def main(argv=None) -> int:
     bwd = check_attention_backward(results)
     check_attention_masked_rows(results)
     sparc_fwd, sparc_bwd = check_sparc(results)
+    quant = check_quant(results)
     lap("3 kernels")
     serve = serve_main_path(results)
     lap("4-5 serving")
@@ -2614,6 +3073,8 @@ def main(argv=None) -> int:
     lap("6 train")
     gradcache = gradcache_path(results)
     lap("6b gradcache")
+    quant_train = quant_train_path(results)
+    lap("6c int8 train")
     flash_fwd, flash_dq, flash_dkdv = check_long_attention(results)
     long = long_main_path(results)
     lap("7 long")
@@ -2667,13 +3128,23 @@ def main(argv=None) -> int:
                "gradcache": gradcache["launches"],
                "train_cli_gradcache": train_cli["launches_gradcache"],
                "train_cli_interop": train_cli["launches_interop"],
-               "eval_openai": evaluation["launches_openai"]}
+               "eval_openai": evaluation["launches_openai"],
+               "train_quant": quant_train["launches"],
+               "train_cli_quant": train_cli["launches_quant"]}
+    # The int8 passes replace no Pallas kernel: what XLA fuses in the JAX
+    # package's int8 path (_absmax_quant, int8_matmul's epilogue).
+    qref = ref + "quant.py:"
+    entries += [(name, qref + line, quant[name], 0.0,
+                 quant[name]["shape"] + " (ViT-B/16 vision, train microbatch)")
+                for name, line in (("quant_rows", "46"),
+                                   ("quant_cols_t", "46"), ("dequant", "60"))]
     pool = TRAIN_B * TRAIN_ACCUM
     kernels = []
     for name, replaces, row, err, shape in entries:
         counts = {path: c.get(name, 0) for path, c in by_path.items()}
         kernels.append({
-            "name": name, "route": "cuda", "source": csrc + name + ".cu",
+            "name": name, "route": "cuda",
+            "source": csrc + _build.SOURCES[name],
             "replaces": replaces, "launches": sum(counts.values()),
             "launches_by_path": counts, "max_abs_err": err,
             "ms": row["ms"], "plain_ms": row["plain_ms"],

@@ -19,13 +19,14 @@ trains one loss over the whole batch-size x grad-accum pool
 goes on from a reference training checkpoint mid-run: its
 ``optimizer_state_dict`` (AdamSPD or AdamW, ``optim/interop.py``) is
 restored with the weights, and the step and best loss come from its
-metadata.
+metadata. ``--quant switchback|int8`` runs the encoder projections and
+the patch embedding as dynamic int8 GEMMs (``ops/quant.py``: the
+hand-written quantize and dequantize kernels around ``torch._int_mm``).
 
 Left out, against the JAX CLI: the TPU knobs (``--pallas``,
-``--fused-sparc``, ``--remat``, ``--unroll-*``, ``--unstack-layers``),
-``--quant`` (the int8 slice, ROADMAP A7) and the mesh flags
-(``--global-negatives``, ``--zero1``, ``--fsdp`` and the mesh shape; the
-multi-GPU slice, ROADMAP A6).
+``--fused-sparc``, ``--remat``, ``--unroll-*``, ``--unstack-layers``) and
+the mesh flags (``--global-negatives``, ``--zero1``, ``--fsdp`` and the
+mesh shape; the multi-GPU slice, ROADMAP A6).
 ``--eval-every-epoch`` (count loss only) holds out the first batch of
 epoch 0 and runs ``eval/batch_eval.py::evaluate_batch`` on it in fp32 on
 the trainer's master weights, before training (when the run starts at
@@ -106,6 +107,14 @@ def build_parser() -> argparse.ArgumentParser:
                         "activation memory (embed, loss on the cache, "
                         "re-forward and backward each chunk; "
                         "train/gradcache.py). clip and sparc only")
+    p.add_argument("--quant", default="none",
+                   choices=["none", "switchback", "int8"],
+                   help="dynamic-int8 tensor-core path for the encoder "
+                        "projection GEMMs and the patch embedding "
+                        "(ops/quant.py). switchback = int8 fwd+dgrad, "
+                        "exact wgrad (arXiv:2304.13013); int8 = all three "
+                        "matmuls. Bounded numerics change — not a parity "
+                        "mode")
     p.add_argument("--bpe-path", default=None,
                    help="CLIP BPE vocab (bpe_simple_vocab_16e6.txt.gz or "
                         "an HF tokenizer dir). Required unless "
@@ -209,7 +218,8 @@ def main(argv=None) -> Dict[str, Any]:
         optimizer_type=args.optimizer, amsgrad=args.amsgrad,
         count_alpha=args.count_alpha, seed=args.seed,
         checkpoint_dir=args.checkpoint_dir, save_every=args.save_every,
-        log_every=args.log_every, grad_cache=args.grad_cache)
+        log_every=args.log_every, grad_cache=args.grad_cache,
+        quant=args.quant)
     if cfg.grad_cache:
         from ..train.gradcache import validate_gradcache
         try:

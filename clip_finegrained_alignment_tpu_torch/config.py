@@ -4,11 +4,11 @@ The port's own copy of ``clip_finegrained_alignment_tpu/config.py``'s
 ``VisionConfig``, ``TextConfig`` and ``CLIPConfig`` (same fields, same
 defaults, same named models), and of the ``PrecisionConfig`` and
 ``TrainConfig`` fields the train step, the trainer and the training CLI
-read (same names and defaults), ``grad_cache`` among them. Not carried:
-the TPU-only knobs (``remat``, ``unroll*``, ``unstack_layers``,
-``use_pallas_attention``, ``use_fused_sparc``), since the port always runs
-its kernels; ``quant``, which comes with the int8 slice; and the mesh and
-parallel fields (``mesh``, ``global_negatives``, ``zero1``, ``fsdp``,
+read (same names and defaults), ``grad_cache`` and ``quant`` among them.
+Not carried: the TPU-only knobs (``remat``, ``unroll*``,
+``unstack_layers``, ``use_pallas_attention``, ``use_fused_sparc``), since
+the port always runs its kernels; and the mesh and parallel fields
+(``mesh``, ``global_negatives``, ``zero1``, ``fsdp``,
 ``pipeline_microbatches``, ``sequence_parallel``, ``sp_ring``), which come
 with the multi-GPU slice.
 """
@@ -169,6 +169,11 @@ class TrainConfig:
     # One contrastive loss over the whole batch_size x accum pool at one
     # chunk's activation memory (train/gradcache.py); clip and sparc only.
     grad_cache: bool = False
+    # Dynamic int8 for the encoder projection GEMMs (ops/quant.py):
+    # "switchback" = int8 forward and dgrad, exact wgrad
+    # (arXiv:2304.13013); "int8" = all three products int8. Changes the
+    # numerics (bounded: tests/test_torch_quant.py); not a parity mode.
+    quant: str = "none"
 
     def __post_init__(self):
         if self.loss_type not in ("clip", "sparc", "count", "clip_count"):
@@ -177,6 +182,9 @@ class TrainConfig:
             raise ValueError(f"invalid optimizer_type {self.optimizer_type!r}")
         if self.gradient_accumulation_steps < 1:
             raise ValueError("gradient_accumulation_steps must be >= 1")
+        if self.quant not in ("none", "switchback", "int8"):
+            raise ValueError(f"invalid quant {self.quant!r} "
+                             "(none | switchback | int8)")
 
     @property
     def effective_batch_size(self) -> int:
@@ -249,6 +257,7 @@ class TrainConfig:
                 if self.use_amp else "float32",
                 "Parameter dtype": self.precision.param_dtype,
                 "GradCache (full-pool negatives)": self.grad_cache,
+                "Int8 quantized GEMMs": self.quant,
             },
         }
         for group, params in groups.items():

@@ -17,7 +17,13 @@ package's numerics step by step, with explicit casts (no autocast):
 * the patch embedding is patchify + matmul (``clip.py:492-503``), so no
   cuDNN convolution (and no TF32) is involved;
 * attention is ``ops/attention.py::flash_attention`` on bshd views of the
-  projections, with the text tower's causal bias at the finite -1e9.
+  projections, with the text tower's causal bias at the finite -1e9;
+* with ``quant`` ``"switchback"`` or ``"int8"`` (``TrainConfig.quant``),
+  every encoder-layer projection (q, k, v, out, fc1, fc2) and the vision
+  patch embedding go through ``ops/quant.py::quant_linear`` (dynamic
+  int8, ``_linear_fn``); the loss-facing ``visual_projection`` and
+  ``text_projection`` and the [S, S] attention stay exact, as in JAX
+  (``clip.py:209-218``).
 
 :meth:`CLIPModel.cast_matmul_weights` casts every weight except the
 LayerNorms and ``logit_scale`` to the compute dtype once, at load; the
@@ -37,6 +43,7 @@ from torch import nn
 
 from ..config import CLIPConfig, TextConfig, VisionConfig
 from ..ops.attention import flash_attention
+from ..ops.quant import quant_linear
 
 # Large negative additive bias (never -inf: no NaN in fully-masked rows).
 _NEG_INF = -1e9
@@ -78,8 +85,19 @@ def linear(x: torch.Tensor, weight: torch.Tensor,
     return y
 
 
-def _apply(lin: nn.Linear, x: torch.Tensor, dtype) -> torch.Tensor:
-    return linear(x, lin.weight, lin.bias, dtype)
+def _linear_fn(quant: str):
+    """The projection GEMM for a ``TrainConfig.quant`` mode, with
+    :func:`linear`'s signature: :func:`linear` itself for ``"none"``, the
+    dynamic int8 product (``ops/quant.py``) otherwise."""
+    if quant == "none":
+        return linear
+    return lambda x, weight, bias, dtype: quant_linear(x, weight, bias,
+                                                       dtype, quant)
+
+
+def _apply(lin: nn.Linear, x: torch.Tensor, dtype,
+           quant: str = "none") -> torch.Tensor:
+    return _linear_fn(quant)(x, lin.weight, lin.bias, dtype)
 
 
 def patchify(pixel_values: torch.Tensor, patch_size: int) -> torch.Tensor:
@@ -112,15 +130,15 @@ class Attention(nn.Module):
         self.v_proj = nn.Linear(d, d)
         self.out_proj = nn.Linear(d, d)
 
-    def forward(self, x, bias, dtype):
+    def forward(self, x, bias, dtype, quant="none"):
         B, S, D = x.shape
         H = self.num_heads
         heads = (lambda y: y.view(B, S, H, D // H))
-        q = heads(_apply(self.q_proj, x, dtype))
-        k = heads(_apply(self.k_proj, x, dtype))
-        v = heads(_apply(self.v_proj, x, dtype))
+        q = heads(_apply(self.q_proj, x, dtype, quant))
+        k = heads(_apply(self.k_proj, x, dtype, quant))
+        v = heads(_apply(self.v_proj, x, dtype, quant))
         out = flash_attention(q, k, v, bias, (D // H) ** -0.5)
-        return _apply(self.out_proj, out.reshape(B, S, D), dtype)
+        return _apply(self.out_proj, out.reshape(B, S, D), dtype, quant)
 
 
 class MLP(nn.Module):
@@ -129,8 +147,9 @@ class MLP(nn.Module):
         self.fc1 = nn.Linear(d, d_ff)
         self.fc2 = nn.Linear(d_ff, d)
 
-    def forward(self, x, dtype):
-        return _apply(self.fc2, quick_gelu(_apply(self.fc1, x, dtype)), dtype)
+    def forward(self, x, dtype, quant="none"):
+        h = quick_gelu(_apply(self.fc1, x, dtype, quant))
+        return _apply(self.fc2, h, dtype, quant)
 
 
 class EncoderLayer(nn.Module):
@@ -143,9 +162,10 @@ class EncoderLayer(nn.Module):
         self.mlp = MLP(d, d_ff)
         self.layer_norm2 = nn.LayerNorm(d, eps=eps)
 
-    def forward(self, x, bias, dtype):
-        x = x + self.self_attn(layer_norm(self.layer_norm1, x), bias, dtype)
-        return x + self.mlp(layer_norm(self.layer_norm2, x), dtype)
+    def forward(self, x, bias, dtype, quant="none"):
+        x = x + self.self_attn(layer_norm(self.layer_norm1, x), bias, dtype,
+                               quant)
+        return x + self.mlp(layer_norm(self.layer_norm2, x), dtype, quant)
 
 
 class Encoder(nn.Module):
@@ -154,9 +174,9 @@ class Encoder(nn.Module):
         self.layers = nn.ModuleList(
             EncoderLayer(d, d_ff, num_heads, eps) for _ in range(num_layers))
 
-    def forward(self, x, bias, dtype):
+    def forward(self, x, bias, dtype, quant="none"):
         for layer in self.layers:
-            x = layer(x, bias, dtype)
+            x = layer(x, bias, dtype, quant)
         return x
 
 
@@ -186,16 +206,17 @@ class VisionTransformer(nn.Module):
                                cfg.num_layers)
         self.post_layernorm = nn.LayerNorm(d, eps=eps)
 
-    def forward(self, pixel_values, dtype) -> TowerOutput:
+    def forward(self, pixel_values, dtype, quant="none") -> TowerOutput:
         """``pixel_values``: [B, H, W, 3] NHWC, normalized."""
         e = self.embeddings
         x = patchify(pixel_values.to(dtype), self.cfg.patch_size)
-        x = linear(x, patch_kernel(e.patch_embedding.weight), None, dtype)
+        x = _linear_fn(quant)(x, patch_kernel(e.patch_embedding.weight),
+                              None, dtype)
         cls = e.class_embedding.to(dtype).expand(x.shape[0], 1, -1)
         x = torch.cat([cls, x], dim=1)
         x = x + e.position_embedding.weight.to(dtype)[None]
         x = layer_norm(self.pre_layrnorm, x)
-        x = self.encoder(x, None, dtype)
+        x = self.encoder(x, None, dtype, quant)
         pooled = layer_norm(self.post_layernorm, x[:, 0])
         return TowerOutput(last_hidden_state=x, pooled=pooled)
 
@@ -230,7 +251,8 @@ class TextTransformer(nn.Module):
                                cfg.num_layers)
         self.final_layer_norm = nn.LayerNorm(d, eps=eps)
 
-    def forward(self, input_ids, dtype, attention_mask=None) -> TowerOutput:
+    def forward(self, input_ids, dtype, attention_mask=None,
+                quant="none") -> TowerOutput:
         """``input_ids``: [B, T] int. Pools the hidden state at the FIRST
         EOS token, as HF does."""
         e = self.embeddings
@@ -239,7 +261,7 @@ class TextTransformer(nn.Module):
         x = F.embedding(ids, e.token_embedding.weight.to(dtype))
         x = x + e.position_embedding.weight.to(dtype)[None, :T]
         bias = text_attention_bias(T, attention_mask, x.device)
-        x = self.encoder(x, bias, dtype)
+        x = self.encoder(x, bias, dtype, quant)
         x = layer_norm(self.final_layer_norm, x)
         eos_pos = (ids == self.cfg.eos_token_id).int().argmax(dim=-1)
         pooled = x[torch.arange(B, device=x.device), eos_pos]
@@ -283,25 +305,27 @@ class CLIPModel(nn.Module):
 
 
 def encode_image(model: CLIPModel, pixel_values: torch.Tensor, *,
-                 dtype=torch.float32) -> torch.Tensor:
+                 dtype=torch.float32, quant="none") -> torch.Tensor:
     """Projected image embedding (not normalized), in ``dtype``."""
-    out = model.vision_model(pixel_values, dtype)
+    out = model.vision_model(pixel_values, dtype, quant)
     return _apply(model.visual_projection, out.pooled, dtype)
 
 
 def encode_text(model: CLIPModel, input_ids: torch.Tensor, *,
-                attention_mask=None, dtype=torch.float32) -> torch.Tensor:
+                attention_mask=None, dtype=torch.float32,
+                quant="none") -> torch.Tensor:
     """Projected text embedding (not normalized), in ``dtype``."""
-    out = model.text_model(input_ids, dtype, attention_mask)
+    out = model.text_model(input_ids, dtype, attention_mask, quant)
     return _apply(model.text_projection, out.pooled, dtype)
 
 
 def clip_forward(model: CLIPModel, pixel_values: torch.Tensor,
                  input_ids: torch.Tensor, *, attention_mask=None,
-                 dtype=torch.float32) -> CLIPOutput:
-    """Both towers; normalization and logits in fp32 (unguarded norm)."""
-    v = model.vision_model(pixel_values, dtype)
-    t = model.text_model(input_ids, dtype, attention_mask)
+                 dtype=torch.float32, quant="none") -> CLIPOutput:
+    """Both towers; normalization and logits in fp32 (unguarded norm).
+    ``quant`` picks the encoder projections' GEMM (:func:`_linear_fn`)."""
+    v = model.vision_model(pixel_values, dtype, quant)
+    t = model.text_model(input_ids, dtype, attention_mask, quant)
     ie = _apply(model.visual_projection, v.pooled, dtype).float()
     te = _apply(model.text_projection, t.pooled, dtype).float()
     ie = ie / ie.norm(dim=-1, keepdim=True)

@@ -37,6 +37,12 @@ SOURCES = {
     "flash_fwd": "flash_fwd.cu",
     "flash_bwd_dq": "flash_bwd_dq.cu",
     "flash_bwd_dkdv": "flash_bwd_dkdv.cu",
+    # ops/quant.py's three entries: one library each, built from one
+    # source (a few seconds apiece, in parallel), so each kernel name keeps
+    # its own library and launch count.
+    "quant_rows": "quant.cu",
+    "quant_cols_t": "quant.cu",
+    "dequant": "quant.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -29,7 +29,10 @@
 Every encoder layer goes through ``ops/attention.py`` (forward and
 backward kernels) and, under SPARC, the local term through
 ``ops/sparc_kernel.py``: on the card their CUDA kernels, on the CPU their
-plain versions.
+plain versions. With ``cfg.quant`` ``switchback`` or ``int8`` both
+towers' encoder projections and the patch embedding, in every forward
+the step runs (the count losses' extra text forwards too), take the
+dynamic int8 GEMMs of ``ops/quant.py``.
 
 Deliberate differences from the JAX package: with no state dict the
 ``Trainer`` starts from ``models/convert.py::random_params(cfg, seed)``
@@ -84,7 +87,7 @@ def compute_loss(model: m.CLIPModel, batch: Batch, cfg: TrainConfig,
     group_input_ids [B, G, T] for ``clip_count``."""
     input_ids = batch["input_ids"]
     out = m.clip_forward(model, device_pixels(batch, pixel_bank), input_ids,
-                         dtype=dtype)
+                         dtype=dtype, quant=cfg.quant)
 
     if cfg.loss_type == "sparc":
         v_patch, l_token = m.sparc_embeddings(model, out, dtype=dtype)
@@ -98,8 +101,8 @@ def compute_loss(model: m.CLIPModel, batch: Batch, cfg: TrainConfig,
     elif cfg.loss_type == "count":
         cf = batch["cf_input_ids"]
         B, N, T = cf.shape
-        ek_cf = m.encode_text(model, cf.reshape(B * N, T),
-                              dtype=dtype).reshape(B, N, -1)
+        ek_cf = m.encode_text(model, cf.reshape(B * N, T), dtype=dtype,
+                              quant=cfg.quant).reshape(B, N, -1)
         losses = L.count_loss(out.logits_per_image, out.logits_per_text,
                               out.image_embeds, out.text_embeds, ek_cf,
                               alpha=cfg.count_alpha)
@@ -108,8 +111,8 @@ def compute_loss(model: m.CLIPModel, batch: Batch, cfg: TrainConfig,
         ek = None
         if group is not None:
             B, G, T = group.shape
-            ek = m.encode_text(model, group.reshape(B * G, T),
-                               dtype=dtype).reshape(B, G, -1)
+            ek = m.encode_text(model, group.reshape(B * G, T), dtype=dtype,
+                               quant=cfg.quant).reshape(B, G, -1)
         losses = L.clip_count_loss(out.image_embeds, out.text_embeds, ek,
                                    count_alpha=cfg.count_alpha)
     else:  # "clip"

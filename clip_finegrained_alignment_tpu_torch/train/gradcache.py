@@ -20,7 +20,8 @@ loss over the whole pool without holding every sample's tower activations:
    ``.grad`` sums across the chunks in fp32 on the fp32 master weights;
    no 1/accum scaling: the chunks are parts of one loss.
 
-The result is the gradient of the full-pool loss (``tests/
+Both forwards take ``cfg.quant``'s projection GEMMs, as the JAX chunk
+forward does. The result is the gradient of the full-pool loss (``tests/
 test_torch_gradcache.py`` holds it to one direct ``[1, accum·B]`` step),
 at one extra forward a chunk. Phase 1 runs the attention forward without
 its log-sum-exp (no grad), phase 3 with it (under grad): the same kernel
@@ -63,7 +64,7 @@ def _chunk_embeddings(model: m.CLIPModel, mb: Batch, cfg: TrainConfig,
     l_token [b, T, P]) in ``dtype`` for ``sparc``, (image_embeds [b, P],
     text_embeds [b, P]) in fp32 for ``clip``."""
     out = m.clip_forward(model, device_pixels(mb, pixel_bank),
-                         mb["input_ids"], dtype=dtype)
+                         mb["input_ids"], dtype=dtype, quant=cfg.quant)
     if cfg.loss_type == "sparc":
         return m.sparc_embeddings(model, out, dtype=dtype)
     return out.image_embeds, out.text_embeds

@@ -200,3 +200,36 @@ def test_default_device_is_the_card(fixture, tmp_path):
     del args[i:i + 2]
     with pytest.raises(RuntimeError, match="cuda"):
         cli.main(args)
+
+
+@pytest.mark.parametrize("quant", ["switchback", "int8"])
+def test_quant_flag_trains_on_the_cpu(fixture, tmp_path, quant, capsys,
+                                      monkeypatch):
+    """--quant reaches the trainer's config (and the printed report) and
+    its step: one epoch of the packed data trains with finite losses, and
+    the step runs the int8 GEMMs (the quantize passes are called)."""
+    from clip_finegrained_alignment_tpu_torch.ops import quant as tq
+    calls = []
+    rows = tq.quant_rows
+
+    def spy(x):
+        calls.append(tuple(x.shape))
+        return rows(x)
+
+    monkeypatch.setattr(tq, "quant_rows", spy)
+    res = cli.main(_args(tmp_path, "--packed", fixture["packed"],
+                         "--quant", quant, epochs=1))
+    assert res["trainer"].cfg.quant == quant
+    assert f"Int8 quantized GEMMs: {quant}" in capsys.readouterr().out
+    losses = [h["avg_loss"] for h in res["history"]]
+    assert res["trainer"].global_step == STEPS and np.isfinite(losses).all()
+    assert calls
+
+
+def test_quant_flag_refuses_other_modes(fixture, tmp_path, capsys):
+    with pytest.raises(SystemExit) as e:
+        cli.main(_args(tmp_path, "--packed", fixture["packed"],
+                       "--quant", "fp8"))
+    assert e.value.code == 2
+    assert "invalid choice: 'fp8'" in capsys.readouterr().err
+    assert cli.build_parser().parse_args([]).quant == "none"

@@ -32,6 +32,7 @@ from clip_finegrained_alignment_tpu_torch.config import CLIPConfig, TrainConfig
 from clip_finegrained_alignment_tpu_torch.models import clip as tm
 from clip_finegrained_alignment_tpu_torch.models.convert import (
     random_params, state_dict_from_jax)
+from clip_finegrained_alignment_tpu_torch.ops import _build
 from clip_finegrained_alignment_tpu_torch.optim.factory import make_optimizer
 from clip_finegrained_alignment_tpu_torch.train import gradcache as gc
 from clip_finegrained_alignment_tpu_torch.train.engine import (
@@ -344,3 +345,44 @@ def test_fp32_gradcache_vs_direct_at_vit_b16_width():
         g1[n].flatten(), g2[n].flatten(), dim=0).item()
         for n in g2 if not n.endswith("k_proj.bias")]
     assert max(gaps) <= 1e-10
+
+
+@pytest.mark.parametrize("quant", ["switchback", "int8"])
+def test_quant_reaches_both_gradcache_phases(quant, monkeypatch):
+    """With ``quant`` set, phase 1's no-grad forward and phase 3's forward
+    and backward of every chunk take the int8 GEMMs: on the CUDA branch
+    (launchers routed to the plain versions) each chunk launches phase 1's
+    forward passes, then phase 3's forward and backward passes (dgrad but
+    for the patch embedding; int8 wgrad in ``int8``), and the full-pool
+    losses match JAX's ``gradcache_grads`` with the same ``quant`` (first
+    step, same weights: within the exact path's 2e-5)."""
+    from test_torch_quant import _counts, _cuda_branch
+
+    seed = 31 + ["switchback", "int8"].index(quant)
+    params = random_params(CFG, seed)
+    batch = _batch(seed)
+    jcfg = JaxTrainConfig(
+        clip_model="tiny", batch_size=B, gradient_accumulation_steps=ACCUM,
+        use_amp=False, loss_type="sparc", grad_cache=True, remat=False,
+        use_pallas_attention=True, use_fused_sparc=True,
+        inverse_temperature=0.07, quant=quant)
+    _, jlosses = jax.jit(
+        lambda p, b: jax_gradcache_grads(p, b, jcfg, JCFG, jnp.float32))(
+        jax.tree.map(jnp.asarray, params),
+        {k: jnp.asarray(x) for k, x in batch.items()})
+
+    _cuda_branch(monkeypatch)
+    model = tm.build_train_model(CFG, state_dict_from_jax(params, CFG),
+                                 device="cpu")
+    _build.reset_launch_counts()
+    losses = gc.gradcache_grads(model, _torch(batch),
+                                _cfg("sparc", quant=quant), CFG,
+                                dtype=torch.float32)
+    L = 6 * (CFG.vision.num_layers + CFG.text.num_layers) + 1
+    int8 = quant == "int8"
+    per_chunk = (2 * L + 2 * L + (L - 1), (L - 1) + 2 * L * int8,
+                 L + L + (L - 1) + L * int8)
+    assert _counts() == tuple(ACCUM * n for n in per_chunk)
+    for k in jlosses:
+        np.testing.assert_allclose(losses[k].item(), float(jlosses[k]),
+                                   rtol=2e-5, err_msg=k)

@@ -19,6 +19,22 @@ divides the moment by its square root, so an element whose gradient is
 near zero moves by a rounding-sensitive amount: the key projections'
 biases have a zero gradient up to rounding (softmax ignores a constant
 added to a row's scores) and move by ~1e-7 of noise on either side.
+
+The quantized steps (``quant`` ``switchback`` and ``int8``, sparc and
+count, fp32, two seeds read) hold the first step's losses and
+``grad_norm`` to the same tolerances: its int8 GEMMs see the same
+operands on both sides and read within 7.2e-6 of JAX's (the quantized
+path moves the first loss 1.3e-4 to 3e-2 away from the exact path's, so
+a GEMM left exact fails). Its update is held looser: Adam's first step is
+~lr·sign(g), and torch's threaded CPU sums vary between runs, so a
+gradient element near zero that one grid step of an int8 dgrad or wgrad
+moves takes a whole lr: 0-169 of 51,329 elements (0.33 %) fell outside
+the exact path's element tolerance, and at most 1 % may. After it,
+quantization turns those differences into whole grid steps (and JAX's
+jitted step divides each scale by 127 as a multiply by the reciprocal,
+one ulp off IEEE division on ~4 % of rows): the second and third steps'
+total loss and ``grad_norm`` read up to 1.1e-2 and 1.4e-2 relative (the
+count loss's own term up to 5.3e-2), so those two are held within 5e-2.
 """
 
 import jax
@@ -39,7 +55,8 @@ from clip_finegrained_alignment_tpu_torch.models.convert import (
     random_params, state_dict_from_jax)
 from clip_finegrained_alignment_tpu_torch.ops import _build
 from clip_finegrained_alignment_tpu_torch.optim.factory import make_optimizer
-from clip_finegrained_alignment_tpu_torch.train.engine import make_train_step
+from clip_finegrained_alignment_tpu_torch.train.engine import (Trainer,
+                                                              make_train_step)
 
 CFG = CLIPConfig.tiny_test()
 JCFG = JaxCLIPConfig.tiny_test()
@@ -139,6 +156,106 @@ def test_train_steps_match_jax(loss_type, optimizer_type):
     assert optimizer_type == "adamspd" or not still
     # CPU tensors take the plain versions: no kernel launch is counted.
     assert not any(_build.launch_counts().values())
+
+
+def _steps_vs_jax(loss_type, quant, seed):
+    """STEPS steps of both packages from the same weights, anchors and
+    batches: per step (port metrics, JAX metrics, port update, JAX
+    update)."""
+    kw = dict(batch_size=B, gradient_accumulation_steps=ACCUM, lr=1e-3,
+              use_amp=False, loss_type=loss_type, optimizer_type="adamspd",
+              inverse_temperature=0.07 if loss_type == "sparc" else 1.0,
+              quant=quant)
+    jcfg = JaxTrainConfig(**kw, clip_model="tiny", warmup_steps=0,
+                          remat=False, use_pallas_attention=True,
+                          use_fused_sparc=True)
+    params = random_params(CFG, seed)
+    rng = np.random.default_rng(seed)
+    anchors = jax.tree.map(
+        lambda p: p + rng.normal(scale=0.02, size=p.shape).astype(np.float32),
+        params)
+    jp = jax.tree.map(jnp.array, params)
+    jopt = jax_make_optimizer(jcfg, jp, anchor_params=jax.tree.map(
+        jnp.array, anchors))
+    jstate = jopt.init(jp)
+    jstep = jax_make_train_step(jcfg, JCFG, jopt, mesh=None)
+    cfg = TrainConfig(**kw)
+    model = tm.build_train_model(CFG, state_dict_from_jax(params, CFG),
+                                 device="cpu")
+    step = make_train_step(cfg, CFG, model, make_optimizer(
+        cfg, model.named_parameters(),
+        anchors=state_dict_from_jax(anchors, CFG)))
+    before = {k: x.clone() for k, x in model.state_dict().items()}
+    jbefore = state_dict_from_jax(params, CFG)
+    out = []
+    for _ in range(STEPS):
+        batch = _batch(loss_type, rng, uint8=True)
+        jp, jstate, jm = jstep(jp, jstate,
+                               {k: jnp.asarray(x) for k, x in batch.items()})
+        m = {k: x.item() for k, x in step(batch).items()}
+        after = {k: x.clone() for k, x in model.state_dict().items()}
+        jafter = state_dict_from_jax(jp, CFG)
+        out.append((m, {k: float(x) for k, x in jm.items()},
+                    {k: (after[k] - before[k]).numpy() for k in after},
+                    {k: (jafter[k] - jbefore[k]).numpy() for k in after}))
+        before, jbefore = after, jafter
+    return out
+
+
+@pytest.mark.parametrize("quant", ["switchback", "int8"])
+@pytest.mark.parametrize("loss_type", ["sparc", "count"])
+def test_quantized_train_steps_match_jax(loss_type, quant):
+    """fp32 steps with int8 GEMMs, port against JAX (module docstring's
+    tolerances: the first step as the exact path's, the later within
+    2e-2)."""
+    steps = _steps_vs_jax(loss_type, quant, seed=5)
+    for i, (m, jm, upd, jupd) in enumerate(steps):
+        assert sorted(m) == sorted(jm)
+        assert all(np.isfinite(list(m.values())))
+        if i > 0:
+            for k in ("total_loss", "grad_norm"):
+                np.testing.assert_allclose(m[k], jm[k], rtol=5e-2,
+                                           err_msg=f"step {i} {k}")
+            continue
+        for k in jm:
+            rtol = 1e-4 if k == "grad_norm" else 2e-5
+            np.testing.assert_allclose(m[k], jm[k], rtol=rtol, atol=1e-6,
+                                       err_msg=f"step 0 {k}")
+        bad = sum(int((np.abs(upd[k] - w) > 2e-3 * np.abs(w).max() + 1e-6)
+                      .sum()) for k, w in jupd.items())
+        assert bad <= 1e-2 * sum(w.size for w in jupd.values())
+
+
+@pytest.mark.parametrize("quant", ["switchback", "int8"])
+def test_quant_trajectory_tracks_exact(quant):
+    """The port's mirror of JAX's ``test_quant_trajectory_tracks_bf16``:
+    six SPARC + AdamSPD steps of the port's ``Trainer`` on one fixed batch
+    (tiny model, fp32, 8 x 2) with int8 GEMMs: finite, decreasing, and
+    within JAX's bound of the exact path's losses at every step."""
+    def run(q):
+        cfg = TrainConfig(clip_model="tiny", batch_size=8,
+                          gradient_accumulation_steps=2, lr=1e-3,
+                          use_amp=False, max_epochs=1, log_every=1000,
+                          warmup_steps=0, loss_type="sparc",
+                          inverse_temperature=0.07, optimizer_type="adamspd",
+                          quant=q)
+        trainer = Trainer(cfg, device="cpu")
+        rng = np.random.default_rng(7)
+        v, t = CFG.vision, CFG.text
+        ids = rng.integers(1, t.vocab_size - 2,
+                           size=(16, t.max_position_embeddings)
+                           ).astype(np.int32)
+        ids[:, -1] = t.eos_token_id
+        batch = {"pixel_values": rng.normal(
+            size=(16, v.image_size, v.image_size, 3)).astype(np.float32),
+            "input_ids": ids}
+        return [trainer.step(batch)["total_loss"].item() for _ in range(6)]
+
+    exact, quantized = run("none"), run(quant)
+    assert all(np.isfinite(quantized))
+    assert quantized[-1] < quantized[0]
+    for e, q in zip(exact, quantized):
+        assert abs(q - e) < 0.25 * abs(e) + 0.05
 
 
 def test_bf16_step_runs_on_cpu_near_the_fp32_step():
