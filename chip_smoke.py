@@ -154,13 +154,40 @@ Phases, each of which fails the script (non-zero exit, no "ok" line):
    cores), and peak memory. Last, ``best/`` exported with OpenAI
    ``clip``-package names (``cli/export_checkpoint.py --format openai``)
    and ``countbench`` run on that ``.pt``: every probability equal to the
-   ``best/`` run's, bit for bit.
+   ``best/`` run's, bit for bit;
+10. data parallelism (``parallel/``, ``perf/data_parallel_check.py``) on
+   the one card, every rank a process (``parallel/launch.py::spawn``),
+   ViT-B/16 at full width, SPARC + AdamSPD in bf16, random weights from
+   phase 6's seed: a one-rank NCCL group steps once with global negatives
+   and ZeRO-1 through ``make_train_step(mesh=...)``, bit-equal to the same
+   step with no mesh (every collective is an identity); then two gloo
+   ranks on ``cuda:0`` (NCCL refuses two ranks on one GPU): a probe of
+   gloo's collectives on CUDA tensors (values checked; the port's route
+   must run), each mode (local negatives, global negatives, ZeRO-1, FSDP;
+   16 x accum 2 a rank, 3 steps) against its one-process oracle on the
+   same global batch (the mean of the per-shard steps for local
+   negatives, one process at B = 32 for the others) within
+   ``DP_LIMITS``, AdamSPD's anchors one step off the weights; ZeRO-1 and
+   FSDP also against global negatives replicated on the same ranks (their
+   first update within ``DP_SHARD_MAX_FIRST_UPDATE_REL``, which a shard
+   reading its own AdamSPD sums fails); each rank's exact launches in its
+   first step, step ms and peak memory (two ranks sharing one card over
+   gloo: not a scaling figure); run H, ``cli/train.py`` on both ranks with ``--packed
+   --device-data --global-negatives --zero1`` for one epoch of phase 8's
+   data (every epoch loss finite and equal on both ranks, exact
+   launches); ``cli/evaluate.py countbench --data-parallel 2`` on H's
+   ``best/`` against one process (every probability within
+   ``EVAL_MAX_ABS``, exact launches); and a ``--resume`` of H by one
+   process to a second epoch, its restored weights and optimizer state
+   equal to ``best/``'s bit for bit.
 
 The last lines are the kernels' JSON line (``launches_by_path`` has
 ``serve``, ``train``, ``long``, ``train_cli`` (runs A-D), ``eval``,
 ``gradcache`` (phase 6b's counted steps), ``train_cli_gradcache`` (run E),
 ``train_cli_interop`` (run F), ``eval_openai``, ``train_quant`` (phase
-6c's counted steps) and ``train_cli_quant`` (run G); the forward kernel's
+6c's counted steps), ``train_cli_quant`` (run G) and ``data_parallel``
+(phase 10: both ranks' counted steps, run H, its resume and both
+evaluations); the forward kernel's
 entry also carries its ``fp32_eval`` rows, the backward's its
 ``fp32_train`` rows, the SPARC kernels' their ``gradcache_pool`` row at
 B=256), the ``nvidia-smi`` line
@@ -385,6 +412,49 @@ QUANT_TIMED = 3
 # the CPU's tiny model); phase 3 holds the kernels bit-equal.
 QUANT_CHECK_LIMITS = {"bfloat16": (1e-4, 2e-2, 0.96),
                       "float32": (1e-4, 2e-2, 0.96)}
+# Phase 10: two ranks on the one card (gloo), each DP_B rows a microbatch
+# x DP_ACCUM (a global batch of 2 x 16 x accum 2), DP_STEPS steps a mode.
+DP_RANKS = 2
+DP_B = 16
+DP_ACCUM = 2
+DP_STEPS = 3
+# Each mode against its one-process oracle on the card, both in bf16 (the
+# default training), AdamSPD's anchors one step (1e-5) off the weights
+# (data_parallel_check.anchors_off): the largest per-step loss and
+# gradient-norm relative differences, the smallest per-tensor cosine of
+# the first step's gradients and of the three steps' whole update. Set
+# before any card reading from perf/data_parallel_check.py on the CPU
+# (bf16, two gloo ranks of 16 x accum 2, seed 0, ViT-B/16 widths with 1
+# and 2 layers a tower; first read with the anchors on the weights, which
+# gave the same picture): local negatives equal their oracle to the last
+# bit (the mean of two sums is the same fp32 sum in either order); global
+# negatives, ZeRO-1 and FSDP read alike: loss 6.1e-8 and 6.1e-8, gradient
+# norm 5.5e-6 and 9.1e-6, gradient cosine gap 2.6e-6 and 3.4e-6, update
+# cosine gap 3.5e-5 and 2.2e-5 (anchors on the weights: loss 0 and
+# 1.8e-7, norm 4.0e-5 and 1.6e-4, cosine gaps up to 7.0e-5; a rank's
+# GEMMs see 16 rows, the oracle's 32, so bf16 rounds elsewhere; the gaps
+# grow with depth). The limits hold 12 layers even at a square law
+# (gradient norm ~6e-3, cosine gap ~2.5e-3): loss 1e-5, gradient norm
+# 2e-2, cosines 0.99. A gather that keeps only its rows in the backward
+# (the global term at 1/W) fails them: on the CPU at 1 layer it reads
+# gradient norm 7.0e-2, cosines 0.941 and 0.934, with the anchors on the
+# weights or off them (its loss moves 4.4e-6 only, inside the loss
+# limit).
+DP_LIMITS = {"loss_rel": 1e-5, "grad_norm_rel": 2e-2,
+             "min_grad_cosine": 0.99, "min_update_cosine": 0.99}
+# ZeRO-1 and FSDP against global negatives replicated on the same two
+# ranks ("vs_replicated"): the first step starts from the same gradients,
+# so its update parts only where the optimizer reads a shard alone. The
+# gate is the largest per-tensor |first update - replicated's| /
+# |replicated's|. The oracle limits above cannot see AdamSPD reading a
+# shard's sums alone (trouble spot b): on the CPU at 1 and 2 layers that
+# fault reads, against the oracle, gradient norm 4.3e-4 and 3.7e-4 and
+# update cosine 0.99989 and 0.99988, well inside DP_LIMITS; against the
+# replicated run, first-update error 5.3e-2 and 5.3e-2. Correct code
+# reads 4.9e-6 and 1.4e-5 (the sums' order), and its three steps 1.6e-6
+# and 4.6e-6. Set before any card reading: 1e-3, 20x above 12 layers at
+# a linear growth and 50x below the fault.
+DP_SHARD_MAX_FIRST_UPDATE_REL = 1e-3
 # The training CLI (phase 8): a procedural dataset of this many 224 px
 # samples (two SPARC steps an epoch at TRAIN_B x TRAIN_ACCUM; eight count
 # steps at TRAIN_B x CLI_COUNT_ACCUM).
@@ -2664,6 +2734,8 @@ def train_cli_path(results: dict, keep_dir: str) -> dict:
         del res
         gc.collect()
         torch.cuda.empty_cache()
+        # The packed dataset goes on to phase 10's run H.
+        shutil.move(packed, os.path.join(keep_dir, "packed"))
     finally:
         engine.Trainer.step = step
         engine.Trainer.load_state_dict = load_state_dict
@@ -2682,6 +2754,7 @@ def train_cli_path(results: dict, keep_dir: str) -> dict:
     return {"launches": total, "launches_gradcache": e["launches"],
             "launches_interop": f["launches"],
             "launches_quant": g["launches"], "best_dir": kept,
+            "packed_dir": os.path.join(keep_dir, "packed"),
             "held_out": held_out}
 
 
@@ -2970,6 +3043,321 @@ def eval_path(results: dict, best_dir: str, held_out: dict) -> dict:
 
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# Phase 10: data parallelism (two gloo ranks on one card, one NCCL rank)
+# ---------------------------------------------------------------------------
+
+def dp_env() -> dict:
+    """Every rank on the one card: NCCL refuses two ranks on one GPU, so
+    the two-rank runs take gloo (chosen here, explicitly)."""
+    return {"CUDA_VISIBLE_DEVICES": "0", "LOCAL_RANK": "0",
+            "CFA_ALLOW_HASH_TOKENIZER": "1"}
+
+
+def expected_dp_launches(steps: int, layers: int) -> dict:
+    """#1 and #2 on every encoder layer of every microbatch, #3 and #4 on
+    every microbatch, at B/W rows; nothing else."""
+    from clip_finegrained_alignment_tpu_torch.ops import _build
+    want = {n: 0 for n in _build.SOURCES}
+    want.update({"attention_fwd": steps * DP_ACCUM * layers,
+                 "attention_bwd": steps * DP_ACCUM * layers,
+                 "sparc_fwd": steps * DP_ACCUM,
+                 "sparc_bwd": steps * DP_ACCUM})
+    return want
+
+
+def dp_probs_spy(store: list):
+    """Wrap ``TemplateScorer.__call__`` to keep every call's
+    probabilities (numpy) in ``store``; returns the original."""
+    from clip_finegrained_alignment_tpu_torch.eval import scoring
+    call = scoring.TemplateScorer.__call__
+
+    def spy(self, *a):
+        probs = call(self, *a)
+        store.append(probs)
+        return probs
+    scoring.TemplateScorer.__call__ = spy
+    return call
+
+
+def dp_rank(packed_dir: str, work: str) -> dict:
+    """One of the two gloo ranks on the card (spawned; the group is up):
+    the collectives probe, the four modes against their oracles
+    (``perf/data_parallel_check.py``), run H of ``cli/train.py`` and
+    ``cli/evaluate.py countbench --data-parallel 2`` on its ``best/``."""
+    import torch
+    import torch.distributed as dist
+    from clip_finegrained_alignment_tpu_torch.cli import evaluate as cli_eval
+    from clip_finegrained_alignment_tpu_torch.cli import train as cli_train
+    from clip_finegrained_alignment_tpu_torch.eval import scoring
+    from clip_finegrained_alignment_tpu_torch.ops import _build
+    from clip_finegrained_alignment_tpu_torch.perf import \
+        data_parallel_check as dpc
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    out = {"rank": dist.get_rank(),
+           "probe": dpc.probe_collectives(dev)}
+    t0 = time.time()
+    out["modes"] = dpc.rank_modes("ViT-B/16", None, "bfloat16", DP_B,
+                                  DP_ACCUM, SEED, DP_STEPS, list(dpc.MODES))
+    out["modes_s"] = time.time() - t0
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    _build.reset_launch_counts()
+    t0 = time.time()
+    res = cli_train.main(dp_run_h_args(packed_dir, work, epochs=1)
+                         + ["--global-negatives", "--zero1"])
+    torch.cuda.synchronize(dev)
+    out["H"] = {"launches": _build.launch_counts(),
+                "steps": res["trainer"].global_step,
+                "epoch_losses": [h["avg_loss"] for h in res["history"]],
+                "epoch_s": [h["seconds"] for h in res["history"]],
+                "peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+                "run_s": time.time() - t0}
+    del res
+    torch.cuda.empty_cache()
+
+    probs = []
+    call = dp_probs_spy(probs)
+    try:
+        _build.reset_launch_counts()
+        metrics = cli_eval.main(dp_eval_args(work, "eval_dp2")
+                                + ["--data-parallel", str(DP_RANKS)])
+        torch.cuda.synchronize(dev)
+    finally:
+        scoring.TemplateScorer.__call__ = call
+    out["eval"] = {"metrics": metrics, "launches": _build.launch_counts(),
+                   "probs": probs}
+    return out
+
+
+def dp_run_h_args(packed_dir: str, work: str, epochs: int) -> list:
+    return ["--model", "ViT-B/16", "--loss-type", "sparc", "--optimizer",
+            "adamspd", "--batch-size", str(DP_RANKS * DP_B), "--grad-accum",
+            str(DP_ACCUM), "--inverse-temperature", "0.07", "--save-every",
+            "1", "--packed", packed_dir, "--device-data", "--checkpoint-dir",
+            os.path.join(work, "ckpt"), "--experiment-name", "dp",
+            "--seed", str(SEED), "--log-every", "1", "--epochs", str(epochs)]
+
+
+def dp_eval_args(work: str, name: str) -> list:
+    return ["countbench", "--model", "ViT-B/16", "--checkpoint",
+            os.path.join(work, "ckpt", "dp", "best"), "--dataset",
+            "procedural", "--batch-size", str(EVAL_BATCH), "--output-dir",
+            os.path.join(work, name), "--device", "cuda"]
+
+
+def dp_nccl_rank() -> dict:
+    """The one-rank NCCL group (spawned): a global-negatives ZeRO-1 step
+    with the mesh against the same step with none, bit for bit."""
+    from clip_finegrained_alignment_tpu_torch.perf import \
+        data_parallel_check as dpc
+    return dpc.one_rank_identity("ViT-B/16", None, "bfloat16",
+                                 DP_RANKS * DP_B, DP_ACCUM, SEED)
+
+
+def data_parallel_path(results: dict, packed_dir: str) -> dict:
+    """Phase 10 (module docstring): every rank a process on the one card."""
+    import numpy as np
+    import torch
+    from clip_finegrained_alignment_tpu_torch.cli import evaluate as cli_eval
+    from clip_finegrained_alignment_tpu_torch.cli import train as cli_train
+    from clip_finegrained_alignment_tpu_torch.config import CLIPConfig
+    from clip_finegrained_alignment_tpu_torch.eval import scoring
+    from clip_finegrained_alignment_tpu_torch.ops import _build
+    from clip_finegrained_alignment_tpu_torch.parallel.launch import spawn
+    from clip_finegrained_alignment_tpu_torch.train import engine
+    from clip_finegrained_alignment_tpu_torch.train.checkpoint import \
+        CheckpointManager
+
+    cfg = CLIPConfig.vit_b16()
+    layers = cfg.vision.num_layers + cfg.text.num_layers
+    out = {"gpu": gpu_line(), "ranks": DP_RANKS, "rows_a_rank": DP_B,
+           "accum": DP_ACCUM, "limits": DP_LIMITS,
+           "note": "two ranks sharing one card over gloo (collectives staged "
+                   "through the host), not a scaling figure"}
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    one = spawn(dp_nccl_rank, 1, timeout_s=300, device="cuda",
+                backend="nccl", env=dp_env())[0]
+    one["s"] = time.time() - t0
+    out["nccl_one_rank"] = one
+    log("data parallel, one NCCL rank vs no mesh:", json.dumps(one))
+    check(one["backend"] == "nccl" and one["metrics_equal"]
+          and one["grads_equal"] and one["params_equal"],
+          f"one-rank NCCL step differs from mesh=None: {one}")
+
+    work = tempfile.mkdtemp(prefix="cfa_dp_")
+    prev_env = os.environ.get("CFA_ALLOW_HASH_TOKENIZER")
+    os.environ["CFA_ALLOW_HASH_TOKENIZER"] = "1"
+    load_state_dict = engine.Trainer.load_state_dict
+    try:
+        t0 = time.time()
+        ranks = spawn(dp_rank, DP_RANKS, (packed_dir, work), timeout_s=900,
+                      device="cuda", backend="gloo", env=dp_env())
+        out["gloo_spawn_s"] = time.time() - t0
+        r0, r1 = ranks
+        out["probe"] = r0["probe"]
+        log("data parallel, gloo on CUDA tensors:", json.dumps(r0["probe"]))
+        for r in ranks:
+            bad = {k: v for k, v in r["probe"]["used"].items() if v != "ok"}
+            check(not bad, f"gloo on the card: rank {r['rank']} {bad}")
+
+        max_loss, max_norm, min_cos, min_upd = (
+            DP_LIMITS[k] for k in ("loss_rel", "grad_norm_rel",
+                                   "min_grad_cosine", "min_update_cosine"))
+        want = expected_dp_launches(1, layers)
+        out["modes"] = {}
+        for mode, res in r0["modes"].items():
+            vs = res["vs_oracle"]
+            row = {"vs_oracle": vs,
+                   "vs_replicated": res.get("vs_replicated"),
+                   "launches_per_rank": [r["modes"][mode]["launches"]
+                                         for r in ranks],
+                   "step_ms_per_rank": [r["modes"][mode]["step_ms"]
+                                        for r in ranks],
+                   "peak_memory_gb_per_rank": [
+                       r["modes"][mode]["peak_memory_gb"] for r in ranks]}
+            out["modes"][mode] = row
+            log(f"data parallel {mode}:", json.dumps(row))
+            check(r1["modes"][mode]["metrics"] == res["metrics"],
+                  f"data parallel {mode}: the ranks' metrics differ")
+            check(vs["loss_rel"] <= max_loss
+                  and vs["grad_norm_rel"] <= max_norm
+                  and vs["min_grad_cosine"] >= min_cos
+                  and vs["min_update_cosine"] >= min_upd
+                  and vs["k_proj_bias_grad_share_of_norm"]
+                  <= TRAIN_MAX_ZERO_GRAD_SHARE,
+                  f"data parallel {mode} vs its oracle out of limits: {vs}")
+            if mode in ("zero1", "fsdp"):
+                rep = res["vs_replicated"]
+                check(rep["max_first_update_rel"]
+                      <= DP_SHARD_MAX_FIRST_UPDATE_REL,
+                      f"data parallel {mode} vs replicated: the first "
+                      f"update parts by {rep['max_first_update_rel']} "
+                      f"({rep['max_first_update_rel_tensor']})")
+            for r in ranks:
+                check(r["modes"][mode]["launches"] == want,
+                      f"data parallel {mode}: rank {r['rank']} launches "
+                      f"{r['modes'][mode]['launches']} != {want}")
+        out["launch_derivation"] = (
+            f"a rank's step: {layers} encoder layers (12 vision + 12 text) x "
+            f"accum {DP_ACCUM} of #1 and of #2, accum {DP_ACCUM} of #3 and "
+            f"of #4, each at B/W = {DP_B} rows: {want}")
+        log("data parallel launches:", out["launch_derivation"])
+
+        # countbench --data-parallel 2 against one process, on run H's
+        # best/ (before the resume below writes another).
+        probs = []
+        call = dp_probs_spy(probs)
+        try:
+            _build.reset_launch_counts()
+            one_metrics = cli_eval.main(dp_eval_args(work, "eval_dp1"))
+            torch.cuda.synchronize()
+        finally:
+            scoring.TemplateScorer.__call__ = call
+        one_launches = _build.launch_counts()
+        calls = len(probs)
+        ev = {"calls": calls, "metrics_dp1": one_metrics,
+              "launches_dp1": one_launches,
+              "launches_dp2_per_rank": [r["eval"]["launches"] for r in ranks]}
+        err = 0.0
+        for r in ranks:
+            check(len(r["eval"]["probs"]) == calls and all(
+                a.shape == b.shape for a, b in zip(r["eval"]["probs"],
+                                                   probs)),
+                  f"eval --data-parallel 2: rank {r['rank']} calls differ")
+            err = max([err] + [float(np.abs(a - b).max())
+                               for a, b in zip(r["eval"]["probs"], probs)])
+            want_eval = {n: 0 for n in _build.SOURCES}
+            want_eval["attention_fwd"] = calls * layers
+            check(r["eval"]["launches"] == want_eval,
+                  f"eval --data-parallel 2: rank {r['rank']} launches "
+                  f"{r['eval']['launches']} != {want_eval}")
+        ev["max_abs_err"] = err
+        ev["limit"] = EVAL_MAX_ABS
+        out["eval"] = ev
+        log("eval countbench --data-parallel 2 vs 1:", json.dumps(ev))
+        check(err <= EVAL_MAX_ABS, f"eval --data-parallel 2 vs 1: {err}")
+        # Run H: two ranks, global negatives, ZeRO-1, one epoch.
+        spe = CLI_SAMPLES // (DP_RANKS * DP_B * DP_ACCUM)
+        h = {"ranks": [r["H"] for r in ranks]}
+        for r in ranks:
+            check(r["H"]["steps"] == spe
+                  and all(map(math.isfinite, r["H"]["epoch_losses"])),
+                  f"train cli H: rank {r['rank']} {r['H']}")
+            check(r["H"]["launches"] == expected_dp_launches(spe, layers),
+                  f"train cli H: rank {r['rank']} launches "
+                  f"{r['H']['launches']}")
+        check(r0["H"]["epoch_losses"] == r1["H"]["epoch_losses"],
+              "train cli H: the ranks' epoch losses differ")
+        # ... resumed by one process to a second epoch: the restored
+        # weights and optimizer state are best/'s bit for bit.
+        best = os.path.join(work, "ckpt", "dp", "best")
+        want_state = torch.load(os.path.join(best, "state.pt"),
+                                map_location="cpu", weights_only=True)
+        restored = {}
+
+        def spy_load(self, state):
+            load_state_dict(self, state)
+            restored["state"] = cpu_copy(self.state_dict())
+        engine.Trainer.load_state_dict = spy_load
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launch_counts()
+        t0 = time.time()
+        res = cli_train.main(dp_run_h_args(packed_dir, work, epochs=2)
+                             + ["--global-negatives", "--zero1", "--resume"])
+        torch.cuda.synchronize()
+        engine.Trainer.load_state_dict = load_state_dict
+        h["resume_w1"] = {
+            "launches": _build.launch_counts(),
+            "steps": res["trainer"].global_step,
+            "epoch_losses": [x["avg_loss"] for x in res["history"]],
+            "run_s": time.time() - t0,
+            "peak_memory_gb": res["peak_memory_bytes"] / 1e9,
+            "state_equal_to_best": same_state(restored.get("state"),
+                                              want_state)}
+        del res, want_state, restored
+        torch.cuda.empty_cache()
+        out["H"] = h
+        log("train cli H (2 gloo ranks, --global-negatives --zero1), then "
+            "--resume at W = 1:", json.dumps(h))
+        check(h["resume_w1"]["state_equal_to_best"],
+              "train cli H: the W = 1 resume did not restore best/ exactly")
+        check(h["resume_w1"]["steps"] == 2 * spe
+              and all(map(math.isfinite, h["resume_w1"]["epoch_losses"])),
+              f"train cli H resume: {h['resume_w1']}")
+        check(h["resume_w1"]["launches"] == expected_dp_launches(
+            spe, layers), f"train cli H resume: launches "
+            f"{h['resume_w1']['launches']}")
+
+    finally:
+        engine.Trainer.load_state_dict = load_state_dict
+        if prev_env is None:
+            os.environ.pop("CFA_ALLOW_HASH_TOKENIZER", None)
+        else:
+            os.environ["CFA_ALLOW_HASH_TOKENIZER"] = prev_env
+        shutil.rmtree(work, ignore_errors=True)
+    log("data parallel:", json.dumps(
+        {"gpu": out["gpu"], "note": out["note"],
+         "step_ms_per_rank": {m: r["step_ms_per_rank"]
+                              for m, r in out["modes"].items()},
+         "peak_memory_gb_per_rank": {m: r["peak_memory_gb_per_rank"]
+                                     for m, r in out["modes"].items()}}))
+    results["data_parallel"] = out
+    launches = {n: sum(r["modes"][m]["launches"][n] for r in ranks
+                       for m in r["modes"])
+                + sum(r["H"]["launches"][n] + r["eval"]["launches"][n]
+                      for r in ranks)
+                + h["resume_w1"]["launches"][n] + one_launches[n]
+                for n in _build.SOURCES}
+    return {"launches": launches}
+
+
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None,
@@ -3086,6 +3474,8 @@ def main(argv=None) -> int:
         evaluation = eval_path(results, train_cli["best_dir"],
                                train_cli["held_out"])
         lap("9 eval")
+        data_parallel = data_parallel_path(results, train_cli["packed_dir"])
+        lap("10 data parallel")
     finally:
         shutil.rmtree(keep_dir, ignore_errors=True)
     log("phase seconds:", json.dumps(phase_s))
@@ -3130,7 +3520,8 @@ def main(argv=None) -> int:
                "train_cli_interop": train_cli["launches_interop"],
                "eval_openai": evaluation["launches_openai"],
                "train_quant": quant_train["launches"],
-               "train_cli_quant": train_cli["launches_quant"]}
+               "train_cli_quant": train_cli["launches_quant"],
+               "data_parallel": data_parallel["launches"]}
     # The int8 passes replace no Pallas kernel: what XLA fuses in the JAX
     # package's int8 path (_absmax_quant, int8_matmul's epilogue).
     qref = ref + "quant.py:"

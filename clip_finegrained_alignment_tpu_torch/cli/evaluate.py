@@ -22,8 +22,19 @@ raise ``SystemExit``. ``--dataset procedural`` generates a local fixture
 (``data/fixtures.py``) and ``crop`` without ``--coco-dir`` samples
 ``ProceduralObjectSource``, so every subcommand runs with no download.
 
+``--data-parallel N`` (N > 1) runs under torchrun, one process a GPU::
+
+    torchrun --nproc_per_node 2 -m \
+        clip_finegrained_alignment_tpu_torch.cli.evaluate countbench \
+        --model ViT-B/16 --data-parallel 2 --dataset procedural
+
+N must equal the world size and divide ``--batch-size``; each rank scores
+its contiguous slice of every batch and the probabilities are gathered
+in sample order (``eval/scoring.py``). Every rank computes the metrics;
+rank 0 alone writes the fixture, the results and the debug files.
+
 Left out, against the JAX CLI: ``--pallas`` (a TPU switch; the card always
-runs the port's kernels) and ``--data-parallel`` (the multi-GPU slice).
+runs the port's kernels).
 """
 
 from __future__ import annotations
@@ -52,6 +63,11 @@ def build_parser() -> argparse.ArgumentParser:
         sp.add_argument("--bpe-path", default=None)
         sp.add_argument("--device", default="cuda",
                         help="cuda (default) or cpu")
+        sp.add_argument("--data-parallel", type=int, default=0,
+                        metavar="N",
+                        help="shard each eval batch over N ranks (launch "
+                             "N processes with torchrun; batch-size must "
+                             "be divisible by N; 0 = one process)")
 
     cb = sub.add_parser("countbench")
     common(cb)
@@ -124,8 +140,27 @@ def main(argv=None) -> Dict[str, Any]:
     from ..config import CLIPConfig
     from ..data.tokenizer import HashTokenizer, load_tokenizer
     from ..models import clip as m
+    from ..parallel import mesh as pmesh
 
     device = m.resolve_device(args.device)
+    mesh = None
+    if args.data_parallel > 1:
+        device = pmesh.distributed_init(device)
+        if pmesh.world_size() != args.data_parallel:
+            raise SystemExit(f"--data-parallel {args.data_parallel} but "
+                             f"{pmesh.world_size()} process(es) run: launch "
+                             "them with torchrun --nproc_per_node N")
+        if args.batch_size % args.data_parallel:
+            raise SystemExit(f"--batch-size {args.batch_size} must be "
+                             "divisible by --data-parallel "
+                             f"{args.data_parallel}")
+        if args.command == "crop" and args.debug_dir:
+            raise SystemExit("crop --debug-dir scores one sample a call "
+                             "and writes overlays: run it with one process")
+        mesh = pmesh.make_mesh(device=device)
+        print(f"eval mesh: {args.data_parallel}-way data parallel "
+              f"(rank {mesh.rank})")
+    writer = pmesh.rank() == 0
     model_cfg = CLIPConfig.from_name(args.model)
     state_dict = load_params(args, model_cfg)
     tokenizer = load_tokenizer(args.bpe_path)
@@ -144,12 +179,16 @@ def main(argv=None) -> Dict[str, Any]:
     if getattr(args, "dataset", None) == "procedural":
         from ..data import fixtures
         fix_dir = os.path.join(args.output_dir, "fixture")
-        if args.command == "countbench":
-            fixtures.make_countbench_fixture(fix_dir)
-            args.dataset = os.path.join(fix_dir, "countbench_fixture.json")
-        else:
-            fixtures.make_vlmsblind_fixture(fix_dir)
-            args.dataset = os.path.join(fix_dir, "vlmsblind_fixture.json")
+        make, name = (fixtures.make_countbench_fixture,
+                      "countbench_fixture.json") \
+            if args.command == "countbench" else \
+            (fixtures.make_vlmsblind_fixture, "vlmsblind_fixture.json")
+        if writer:
+            make(fix_dir)
+        if mesh is not None:
+            import torch.distributed as dist
+            dist.barrier()
+        args.dataset = os.path.join(fix_dir, name)
         print(f"generated procedural fixture: {args.dataset}")
 
     if args.command == "countbench":
@@ -160,10 +199,12 @@ def main(argv=None) -> Dict[str, Any]:
             margin=args.margin, number_format=args.format,
             template_position=args.position, tokenizer=tokenizer,
             batch_size=args.batch_size, device=device,
-            debug_dir=args.debug_dir, samples_of_interest=args.samples)
+            debug_dir=args.debug_dir if writer else None,
+            samples_of_interest=args.samples, mesh=mesh)
         results = ev.evaluate_dataset(samples)
         metrics = ev.compute_metrics(results)
-        ev.save_results(results, metrics, args.output_dir)
+        if writer:
+            ev.save_results(results, metrics, args.output_dir)
         print(json.dumps(metrics, indent=2))
         return metrics
 
@@ -173,8 +214,9 @@ def main(argv=None) -> Dict[str, Any]:
         ev = VLMsBlindEvaluator(
             state_dict, model_cfg, confidence=args.confidence,
             margin=args.margin, tokenizer=tokenizer,
-            batch_size=args.batch_size, device=device)
-        metrics = ev.run_all_tasks(samples, output_dir=args.output_dir)
+            batch_size=args.batch_size, device=device, mesh=mesh)
+        metrics = ev.run_all_tasks(
+            samples, output_dir=args.output_dir if writer else None)
         print(json.dumps(metrics, indent=2))
         return metrics
 
@@ -186,10 +228,11 @@ def main(argv=None) -> Dict[str, Any]:
     ev = CropDetectionEvaluator(
         state_dict, model_cfg, tokenizer=tokenizer,
         batch_size=args.batch_size, device=device,
-        use_white_square=args.white_square)
+        use_white_square=args.white_square, mesh=mesh)
     results = ev.run_evaluation(source, num_samples=args.samples,
                                 debug_dir=args.debug_dir)
-    ev.save(results, args.output)
+    if writer:
+        ev.save(results, args.output)
     print("\nEvaluation Summary:")
     for cond, stats in results["aggregate_stats"].items():
         print(f"{cond}: accuracy {stats['accuracy']:.2%} "

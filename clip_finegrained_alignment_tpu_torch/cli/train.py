@@ -1,7 +1,8 @@
 """Training CLI, the port of ``clip_finegrained_alignment_tpu/cli/train.py``
-on one card: the loss and optimizer flags pick the behaviour, the data
-flags the ingest (live decode of an annotations file, or a packed dataset
-with its pixels kept on the device).
+on one card or data-parallel over several: the loss and optimizer flags
+pick the behaviour, the data flags the ingest (live decode of an
+annotations file, or a packed dataset with its pixels kept on the
+device).
 
 Example::
 
@@ -23,10 +24,28 @@ metadata. ``--quant switchback|int8`` runs the encoder projections and
 the patch embedding as dynamic int8 GEMMs (``ops/quant.py``: the
 hand-written quantize and dequantize kernels around ``torch._int_mm``).
 
+Several GPUs, one process each (``parallel/``)::
+
+    torchrun --nproc_per_node 8 -m \
+        clip_finegrained_alignment_tpu_torch.cli.train --packed DIR \
+        --device-data --model ViT-B/16 --batch-size 256 \
+        --global-negatives --zero1
+
+``--batch-size`` is global and must divide by the world size; each rank
+reads its own contiguous shard of every epoch's permutation at
+``batch-size x grad-accum / W`` a step (so a W-rank run's batch b is not a
+one-process run's batch b). Without ``--global-negatives`` each rank's
+loss sees its own rows and the gradients are averaged (the reference's
+DDP); with it the contrastive terms see the global batch. ``--zero1``
+shards the optimizer state, ``--fsdp`` (with ``--global-negatives``) the
+parameters too. Rank 0 prints, logs and writes the checkpoints (whole
+tensors, which resume at any rank count). ``--model-parallel``,
+``--pipeline-parallel``, ``--pipeline-microbatches``,
+``--sequence-parallel`` and ``--sp-ring`` are accepted and refused: they
+are ROADMAP A6b.
+
 Left out, against the JAX CLI: the TPU knobs (``--pallas``,
-``--fused-sparc``, ``--remat``, ``--unroll-*``, ``--unstack-layers``) and
-the mesh flags (``--global-negatives``, ``--zero1``, ``--fsdp`` and the
-mesh shape; the multi-GPU slice, ROADMAP A6).
+``--fused-sparc``, ``--remat``, ``--unroll-*``, ``--unstack-layers``).
 ``--eval-every-epoch`` (count loss only) holds out the first batch of
 epoch 0 and runs ``eval/batch_eval.py::evaluate_batch`` on it in fp32 on
 the trainer's master weights, before training (when the run starts at
@@ -115,6 +134,25 @@ def build_parser() -> argparse.ArgumentParser:
                         "exact wgrad (arXiv:2304.13013); int8 = all three "
                         "matmuls. Bounded numerics change — not a parity "
                         "mode")
+    p.add_argument("--global-negatives", action="store_true",
+                   help="contrastive loss over the global batch (a "
+                        "gradient-carrying all-gather of the embeddings) "
+                        "instead of DDP-parity local negatives")
+    p.add_argument("--zero1", action="store_true",
+                   help="shard the optimizer state (AdamSPD moments and "
+                        "anchors) over the data ranks, ZeRO-1 style")
+    p.add_argument("--fsdp", action="store_true",
+                   help="shard the parameters too (FSDP): gathered for "
+                        "each step, gradients reduce-scattered. Subsumes "
+                        "--zero1; requires --global-negatives")
+    for flag in ("--model-parallel", "--pipeline-parallel",
+                 "--sequence-parallel"):
+        p.add_argument(flag, type=int, default=1,
+                       help="not ported yet (ROADMAP A6b): above 1 exits")
+    p.add_argument("--pipeline-microbatches", type=int, default=0,
+                   help="not ported yet (ROADMAP A6b): above 0 exits")
+    p.add_argument("--sp-ring", action="store_true",
+                   help="not ported yet (ROADMAP A6b): exits")
     p.add_argument("--bpe-path", default=None,
                    help="CLIP BPE vocab (bpe_simple_vocab_16e6.txt.gz or "
                         "an HF tokenizer dir). Required unless "
@@ -151,6 +189,9 @@ def _refuse(args) -> None:
         raise SystemExit("pass exactly one of --annotations / --packed")
     if args.device_data and not args.packed:
         raise SystemExit("--device-data requires --packed")
+    if args.fsdp and args.eval_every_epoch:
+        raise SystemExit("--eval-every-epoch reads the whole model, which "
+                         "--fsdp keeps in shards")
 
 
 def check_optimizer_import(ref_meta, cfg, path) -> dict:
@@ -195,18 +236,26 @@ def main(argv=None) -> Dict[str, Any]:
 
     import torch
 
-    from ..config import TrainConfig
+    from ..config import MeshConfig, TrainConfig
     from ..data.datasets import (CounterfactualCaptionDataset,
                                  CountingDataPipeline,
                                  SyntheticCaptionDataset)
     from ..data.tokenizer import HashTokenizer, load_tokenizer
     from ..eval.batch_eval import evaluate_batch
     from ..models import clip as m
+    from ..parallel import mesh as pmesh
     from ..train.checkpoint import CheckpointManager
-    from ..train.engine import Trainer, install_preemption_handler
+    from ..train.engine import (Trainer, check_parallel,
+                                install_preemption_handler)
     from ..utils.logging import MetricsLogger, ThroughputMeter, trace_capture
 
-    device = m.resolve_device(args.device)
+    device = pmesh.distributed_init(m.resolve_device(args.device))
+    world = pmesh.world_size()
+    writer = pmesh.rank() == 0
+    say = print if writer else (lambda *a, **k: None)
+    if args.batch_size % world:
+        raise SystemExit(f"--batch-size {args.batch_size} must be divisible "
+                         f"by the data-parallel degree ({world} processes)")
     cfg = TrainConfig(
         lr=args.lr, batch_size=args.batch_size,
         gradient_accumulation_steps=args.grad_accum,
@@ -219,15 +268,28 @@ def main(argv=None) -> Dict[str, Any]:
         count_alpha=args.count_alpha, seed=args.seed,
         checkpoint_dir=args.checkpoint_dir, save_every=args.save_every,
         log_every=args.log_every, grad_cache=args.grad_cache,
-        quant=args.quant)
+        quant=args.quant, global_negatives=args.global_negatives,
+        zero1=args.zero1, fsdp=args.fsdp,
+        mesh=MeshConfig(data=world, model=args.model_parallel,
+                        pipe=args.pipeline_parallel),
+        pipeline_microbatches=args.pipeline_microbatches,
+        sequence_parallel=args.sequence_parallel > 1, sp_ring=args.sp_ring)
+    try:   # the layouts the step refuses (A6b among them) exit here
+        check_parallel(cfg)
+    except ValueError as e:
+        raise SystemExit(str(e)) from None
+    mesh = pmesh.make_mesh(cfg.mesh, device) if world > 1 else None
     if cfg.grad_cache:
         from ..train.gradcache import validate_gradcache
         try:
-            validate_gradcache(cfg)
+            validate_gradcache(cfg, mesh)
         except ValueError as e:
             raise SystemExit(str(e)) from None
-    cfg.print_config()
+    if writer:
+        cfg.print_config()
     model_cfg = cfg.model_config()
+    # Each rank's pipeline reads its own shard at its share of the batch.
+    rank_batch = cfg.effective_batch_size // world
 
     # ---------------- data ----------------
     mode = "counterfactual" if args.loss_type == "count" else "standard"
@@ -235,15 +297,15 @@ def main(argv=None) -> Dict[str, Any]:
     if args.packed:
         from ..data.packed import PackedDataPipeline
         pipeline = PackedDataPipeline(
-            args.packed, cfg.effective_batch_size, seed=cfg.seed,
+            args.packed, rank_batch, seed=cfg.seed,
             expect_mode=mode,
             expect_image_size=model_cfg.vision.image_size,
             expect_context_length=model_cfg.text.max_position_embeddings,
             index_only=args.device_data)
-        print(f"packed dataset: {pipeline._num_samples()} samples, "
-              f"{pipeline.steps_per_epoch()} steps/epoch"
-              + (f", {pipeline.pixel_bank_bytes() / 1e9:.3f} GB pixel bank "
-                 f"on {device}" if args.device_data else ""))
+        say(f"packed dataset: {pipeline._num_samples()} samples, "
+            f"{pipeline.steps_per_epoch()} steps/epoch"
+            + (f", {pipeline.pixel_bank_bytes() / 1e9:.3f} GB pixel bank "
+               f"on {device}" if args.device_data else ""))
     else:
         ds_cls = CounterfactualCaptionDataset if mode == "counterfactual" \
             else SyntheticCaptionDataset
@@ -257,14 +319,14 @@ def main(argv=None) -> Dict[str, Any]:
                 eos_token_id=model_cfg.text.eos_token_id,
                 pad_token_id=model_cfg.text.pad_token_id)
         pipeline = CountingDataPipeline(
-            dataset, cfg.effective_batch_size, mode=mode,
+            dataset, rank_batch, mode=mode,
             image_size=model_cfg.vision.image_size,
             context_length=model_cfg.text.max_position_embeddings,
             tokenizer=tokenizer, seed=cfg.seed)
         image_path = "native" if pipeline._native else "PIL"
-        print(f"dataset: {len(dataset)} samples, "
-              f"{pipeline.steps_per_epoch()} steps/epoch, image decode: "
-              f"{image_path}")
+        say(f"dataset: {len(dataset)} samples, "
+            f"{pipeline.steps_per_epoch()} steps/epoch, image decode: "
+            f"{image_path}")
 
     # ---------------- weights ----------------
     state_dict = None
@@ -272,8 +334,8 @@ def main(argv=None) -> Dict[str, Any]:
         from ..models.convert import load_reference_checkpoint
         state_dict, ref_meta = load_reference_checkpoint(args.pretrained,
                                                          model_cfg)
-        print(f"loaded reference checkpoint (step "
-              f"{ref_meta.get('global_step')})")
+        say(f"loaded reference checkpoint (step "
+            f"{ref_meta.get('global_step')})")
         if args.import_optimizer_state:
             opt_sd = check_optimizer_import(ref_meta, cfg, args.pretrained)
 
@@ -283,7 +345,7 @@ def main(argv=None) -> Dict[str, Any]:
     trainer = Trainer(cfg, state_dict, device=device,
                       checkpoint_manager=manager,
                       pixel_bank=pipeline.pixel_bank()
-                      if args.device_data else None)
+                      if args.device_data else None, mesh=mesh)
 
     # Bare --resume = <ckpt-dir>/<exp>/best; --resume <path> = that
     # checkpoint directory (e.g. .../preempt).
@@ -306,10 +368,10 @@ def main(argv=None) -> Dict[str, Any]:
         trainer.best_loss = float(ref_meta.get("best_loss", float("inf")))
         start_epoch = trainer.global_step // max(
             1, pipeline.steps_per_epoch())
-        print(f"imported reference optimizer state (step {step}"
-              + (", SPD anchors restored" if cfg.optimizer_type == "adamspd"
-                 else "") + f"); global step {trainer.global_step}, "
-              f"resuming at epoch {start_epoch}")
+        say(f"imported reference optimizer state (step {step}"
+            + (", SPD anchors restored" if cfg.optimizer_type == "adamspd"
+               else "") + f"); global step {trainer.global_step}, "
+            f"resuming at epoch {start_epoch}")
     if resume_which is not None:
         src = manager if resume_dir == manager.directory else \
             CheckpointManager(resume_dir, save_every=cfg.save_every)
@@ -324,12 +386,12 @@ def main(argv=None) -> Dict[str, Any]:
         # deterministic pipeline replays the interrupted epoch and its
         # completed steps are skipped.
         resume_skip = trainer.global_step % spe
-        print(f"resumed from {resume_dir}/{resume_which} at epoch "
-              f"{start_epoch}"
-              + (f" (skipping {resume_skip} completed steps)"
-                 if resume_skip else ""))
+        say(f"resumed from {resume_dir}/{resume_which} at epoch "
+            f"{start_epoch}"
+            + (f" (skipping {resume_skip} completed steps)"
+               if resume_skip else ""))
 
-    metrics_log = MetricsLogger(args.metrics_file)
+    metrics_log = MetricsLogger(args.metrics_file if writer else None)
     meter = ThroughputMeter()
 
     def count_eval(tag: str, step: int) -> float:
@@ -341,7 +403,7 @@ def main(argv=None) -> Dict[str, Any]:
 
     # The counting eval's held-out batch: the first of epoch 0.
     eval_batch = None
-    if args.eval_every_epoch and mode == "counterfactual":
+    if args.eval_every_epoch and mode == "counterfactual" and writer:
         eval_batch = next(iter(pipeline.epoch(0)))
         if args.device_data:   # the eval needs pixels, not bank indices
             eval_batch = pipeline.materialize(eval_batch)
@@ -355,7 +417,7 @@ def main(argv=None) -> Dict[str, Any]:
         for i, batch in enumerate(pipeline.epoch(epoch)):
             if i < skip:
                 continue
-            if args.profile_dir and trainer.global_step == 2 \
+            if args.profile_dir and writer and trainer.global_step == 2 \
                     and not profiling["active"]:
                 profile.enter_context(trace_capture(args.profile_dir))
                 profiling["active"] = True
@@ -387,21 +449,21 @@ def main(argv=None) -> Dict[str, Any]:
         # accuracy curve (not on resume; the anchor belongs to step 0).
         if eval_batch is not None and start_epoch == 0:
             acc = count_eval("pretrain", 0)
-            print(f"pre-training counting-eval accuracy: {acc:.3f}")
+            say(f"pre-training counting-eval accuracy: {acc:.3f}")
         for epoch in range(start_epoch, args.epochs):
             out = trainer.train(batches, num_epochs=epoch + 1,
                                 start_epoch=epoch,
-                                log_fn=lambda msg: print(msg, flush=True))
+                                log_fn=lambda msg: say(msg, flush=True))
             result["history"].extend(out["history"])
             if out["preempted"]:
-                print(f"preempted: emergency checkpoint at "
-                      f"{os.path.join(ckpt_dir, 'preempt')} "
-                      f"(resume with --resume <that path>)")
+                say(f"preempted: emergency checkpoint at "
+                    f"{os.path.join(ckpt_dir, 'preempt')} "
+                    f"(resume with --resume <that path>)")
                 result["preempted"] = True
                 return result
             if eval_batch is not None:
                 acc = count_eval(f"epoch_{epoch}", trainer.global_step)
-                print(f"epoch {epoch} counting-eval accuracy: {acc:.3f}")
+                say(f"epoch {epoch} counting-eval accuracy: {acc:.3f}")
     finally:
         if profiling["active"]:  # the run ended before the stop step
             profile.close()
@@ -419,15 +481,16 @@ def main(argv=None) -> Dict[str, Any]:
     secs = sum(h["seconds"] for h in steady)
     if device.type == "cuda":
         result["peak_memory_bytes"] = torch.cuda.max_memory_allocated(device)
-    print(f"done: best_loss={trainer.best_loss:.4f} "
-          f"steps={trainer.global_step} "
-          f"throughput={pairs / secs if secs else 0.0:.1f} pairs/s/card"
-          + (" (steady-state, first epoch excluded)" if len(hist) > 1
-             else ""))
+    say(f"done: best_loss={trainer.best_loss:.4f} "
+        f"steps={trainer.global_step} "
+        f"throughput={pairs / secs if secs else 0.0:.1f} pairs/s"
+        + (f" over {world} ranks" if world > 1 else "/card")
+        + (" (steady-state, first epoch excluded)" if len(hist) > 1
+           else ""))
     if device.type == "cuda":
-        print(f"device peak memory: "
-              f"{result['peak_memory_bytes'] / 2**30:.2f} GiB "
-              f"({torch.cuda.get_device_name(device)})")
+        say(f"device peak memory: "
+            f"{result['peak_memory_bytes'] / 2**30:.2f} GiB "
+            f"({torch.cuda.get_device_name(device)})")
     return result
 
 

@@ -4,13 +4,17 @@ The port's own copy of ``clip_finegrained_alignment_tpu/config.py``'s
 ``VisionConfig``, ``TextConfig`` and ``CLIPConfig`` (same fields, same
 defaults, same named models), and of the ``PrecisionConfig`` and
 ``TrainConfig`` fields the train step, the trainer and the training CLI
-read (same names and defaults), ``grad_cache`` and ``quant`` among them.
-Not carried: the TPU-only knobs (``remat``, ``unroll*``,
-``unstack_layers``, ``use_pallas_attention``, ``use_fused_sparc``), since
-the port always runs its kernels; and the mesh and parallel fields
-(``mesh``, ``global_negatives``, ``zero1``, ``fsdp``,
-``pipeline_microbatches``, ``sequence_parallel``, ``sp_ring``), which come
-with the multi-GPU slice.
+read (same names and defaults), ``grad_cache``, ``quant``, ``mesh`` and
+the parallel fields among them. Not carried: the TPU-only knobs
+(``remat``, ``unroll*``, ``unstack_layers``, ``use_pallas_attention``,
+``use_fused_sparc``), since the port always runs its kernels.
+
+``mesh.data`` is the number of data-parallel processes (one a GPU,
+``parallel/mesh.py``). ``mesh.model > 1``, ``mesh.pipe > 1``,
+``pipeline_microbatches``, ``sequence_parallel`` and ``sp_ring`` are
+accepted here, so that a JAX ``meta.json`` round-trips, and refused where
+a step is built (``train/engine.py``): tensor, pipeline and sequence
+parallelism are ROADMAP A6b.
 """
 
 from __future__ import annotations
@@ -130,6 +134,15 @@ class CLIPConfig:
 
 
 @dataclass(frozen=True)
+class MeshConfig:
+    """The process layout: ``data`` data-parallel ranks (batch-sharded),
+    ``model`` tensor-parallel and ``pipe`` pipeline ranks (both A6b)."""
+    data: int = 1
+    model: int = 1
+    pipe: int = 1
+
+
+@dataclass(frozen=True)
 class PrecisionConfig:
     """bf16 compute with fp32 master parameters; losses reduce in fp32."""
     compute_dtype: str = "bfloat16"   # activations & matmuls
@@ -139,7 +152,7 @@ class PrecisionConfig:
 @dataclass
 class TrainConfig:
     """Training hyperparameters (the JAX package's ``TrainConfig`` fields
-    of the same names and defaults, without the TPU and mesh knobs)."""
+    of the same names and defaults, without the TPU knobs)."""
     lr: float = 1e-5
     batch_size: int = 32
     max_grad_norm: float = 1.0
@@ -164,6 +177,7 @@ class TrainConfig:
     count_alpha: float = 1.0
     seed: int = 42
     precision: PrecisionConfig = field(default_factory=PrecisionConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
     checkpoint_dir: str = "checkpoints"
     log_every: int = 10
     # One contrastive loss over the whole batch_size x accum pool at one
@@ -174,6 +188,17 @@ class TrainConfig:
     # (arXiv:2304.13013); "int8" = all three products int8. Changes the
     # numerics (bounded: tests/test_torch_quant.py); not a parity mode.
     quant: str = "none"
+    # Data parallelism (train/engine.py). False: each rank's loss sees its
+    # own rows, gradients are averaged (DDP). True: the contrastive terms
+    # see the global batch through a gradient-carrying all-gather.
+    global_negatives: bool = False
+    zero1: bool = False                   # optimizer state sharded over data
+    fsdp: bool = False                    # parameters too; needs
+    #                                       global_negatives, excludes zero1
+    # Accepted for meta.json round trips; refused by the train step (A6b).
+    pipeline_microbatches: int = 0
+    sequence_parallel: bool = False
+    sp_ring: bool = False
 
     def __post_init__(self):
         if self.loss_type not in ("clip", "sparc", "count", "clip_count"):
@@ -201,10 +226,12 @@ class TrainConfig:
     @staticmethod
     def from_dict(d: dict) -> "TrainConfig":
         """Inverse of :meth:`to_dict`; keys this config does not have (the
-        JAX package's TPU and mesh fields) are dropped."""
+        JAX package's TPU fields) are dropped."""
         d = dict(d)
         if "betas" in d:
             d["betas"] = tuple(d["betas"])
+        if isinstance(d.get("mesh"), dict):
+            d["mesh"] = MeshConfig(**d["mesh"])
         if isinstance(d.get("precision"), dict):
             known = {f.name for f in dataclasses.fields(PrecisionConfig)}
             d["precision"] = PrecisionConfig(
@@ -258,6 +285,12 @@ class TrainConfig:
                 "Parameter dtype": self.precision.param_dtype,
                 "GradCache (full-pool negatives)": self.grad_cache,
                 "Int8 quantized GEMMs": self.quant,
+            },
+            "Data Parallelism": {
+                "Ranks (mesh.data)": self.mesh.data,
+                "Global negatives": self.global_negatives,
+                "ZeRO-1": self.zero1,
+                "FSDP": self.fsdp,
             },
         }
         for group, params in groups.items():

@@ -117,7 +117,8 @@ class CountBenchEvaluator:
                  tokenizer=None, batch_size: int = 32,
                  device="cuda", dtype: torch.dtype = torch.float32,
                  seed: int = 0, debug_dir: Optional[str] = None,
-                 samples_of_interest: Optional[Sequence[int]] = None):
+                 samples_of_interest: Optional[Sequence[int]] = None,
+                 mesh=None):
         if template_position not in ("first", "random"):
             raise ValueError(f"bad template_position {template_position!r}")
         # Debug mode: dump the input image and the template probability
@@ -132,8 +133,9 @@ class CountBenchEvaluator:
         self.tok = tokenizer if tokenizer is not None else load_tokenizer()
         self.batch_size = batch_size
         self.context_length = model_cfg.text.max_position_embeddings
-        self.scorer = TemplateScorer(model_or_state_dict, model_cfg,
-                                     device=device, dtype=dtype)
+        self.scorer = TemplateScorer(
+            model_or_state_dict, model_cfg, device=device, dtype=dtype,
+            pad_to_batch=batch_size if mesh is not None else None, mesh=mesh)
         self._rng = random.Random(seed)
 
     # ------------------------------------------------------------------

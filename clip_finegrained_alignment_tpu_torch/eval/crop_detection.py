@@ -164,14 +164,21 @@ class CropDetectionEvaluator:
                  model_cfg: CLIPConfig, *, tokenizer=None,
                  batch_size: int = 16, device="cuda",
                  dtype: torch.dtype = torch.float32,
-                 use_white_square: bool = False):
+                 use_white_square: bool = False, mesh=None):
         self.model_cfg = model_cfg
         self.tok = tokenizer if tokenizer is not None else load_tokenizer()
         self.batch_size = batch_size
         self.use_white_square = use_white_square
         self.context_length = model_cfg.text.max_position_embeddings
+        # On a mesh the scorer pads each call to the chunk's 6·chunk rows
+        # rounded up to a multiple of the ranks (a debug call's 6 too).
+        pad = None
+        if mesh is not None:
+            rows = 6 * max(1, batch_size // 6)
+            pad = -(-rows // mesh.data) * mesh.data
         self.scorer = TemplateScorer(model_or_state_dict, model_cfg,
-                                     device=device, dtype=dtype)
+                                     device=device, dtype=dtype,
+                                     pad_to_batch=pad, mesh=mesh)
 
     def _score_pairs(self, images: List[np.ndarray],
                      names: List[str]) -> np.ndarray:

@@ -9,24 +9,28 @@ batch of B samples is one image forward of B rows and one text forward of
 B·NT rows. Every encoder layer goes through ``ops/attention.py``: on the
 card its CUDA kernel, on the CPU its plain version.
 
-Deliberate differences from the JAX scorer: no ``pad_to_batch`` and no
-``mesh``. JAX pads a short last batch to keep one compiled TPU program and
-shards batches over a device mesh; eager PyTorch compiles no program, so a
-short batch runs at its own size, and the data-parallel mesh waits for the
-multi-GPU slice. Each row's probabilities are the same either way.
+Data parallelism (``mesh``, ``cli/evaluate.py --data-parallel N``): every
+rank is handed the same batch, pads it to ``pad_to_batch`` rows (which the
+rank count must divide, as in JAX), scores its contiguous slice of them
+and all-gathers the probabilities in sample order; padded rows are masked
+and sliced off. Deliberate difference from the JAX scorer: without a mesh
+there is no padding (JAX pads a short last batch to keep one compiled TPU
+program; eager PyTorch compiles none). Each row's probabilities are the
+same either way.
 
 ``thresholded_decision`` is the reference's correctness rule, vectorized.
 """
 
 from __future__ import annotations
 
-from typing import Mapping, Union
+from typing import Mapping, Optional, Union
 
 import numpy as np
 import torch
 
 from ..config import CLIPConfig
 from ..models import clip as m
+from ..parallel.collectives import all_gather_cat
 
 NEG = -1e9
 
@@ -48,13 +52,23 @@ def to_device(x: np.ndarray, device: torch.device) -> torch.Tensor:
 
 
 class TemplateScorer:
-    """Image × templates probability scorer on one device."""
+    """Image × templates probability scorer on one device, or sharded over
+    the ranks of a data ``mesh`` (``parallel/mesh.py``) in slices of
+    ``pad_to_batch`` rows."""
 
     def __init__(self, model_or_state_dict: ModelOrStateDict,
                  cfg: CLIPConfig, *, device="cuda",
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 pad_to_batch: Optional[int] = None, mesh=None):
+        if mesh is not None and (pad_to_batch is None
+                                 or pad_to_batch % mesh.data):
+            raise ValueError(
+                f"mesh eval needs pad_to_batch divisible by the data axis "
+                f"({mesh.data}); got {pad_to_batch}")
         self.cfg = cfg
         self.dtype = dtype
+        self.pad_to_batch = pad_to_batch
+        self.mesh = mesh
         self.model = frozen_model(model_or_state_dict, cfg, device=device,
                                   dtype=dtype)
         self.device = next(self.model.parameters()).device
@@ -81,10 +95,19 @@ class TemplateScorer:
                  template_mask: np.ndarray) -> np.ndarray:
         """``pixel_values`` normalized float [B, S, S, 3] → numpy probs
         [B, NT]."""
-        probs = self.score(to_device(pixel_values, self.device),
-                           to_device(template_ids, self.device),
-                           to_device(template_mask, self.device))
-        return probs.cpu().numpy()
+        arrays = (pixel_values, template_ids, template_mask)
+        if self.mesh is None:
+            return self.score(*(to_device(x, self.device)
+                                for x in arrays)).cpu().numpy()
+        B, P, W = len(pixel_values), self.pad_to_batch, self.mesh.data
+        if B > P:
+            raise ValueError(f"batch of {B} rows > pad_to_batch {P}")
+        rows = slice(self.mesh.rank * P // W, (self.mesh.rank + 1) * P // W)
+        local = [np.concatenate([x, np.zeros((P - B,) + x.shape[1:],
+                                             x.dtype)])[rows]
+                 for x in arrays]
+        probs = self.score(*(to_device(x, self.device) for x in local))
+        return all_gather_cat(probs)[:B].cpu().numpy()
 
 
 def pad_templates(template_ids_list, pos_indices_list, max_templates: int,

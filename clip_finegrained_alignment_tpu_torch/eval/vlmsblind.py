@@ -187,15 +187,16 @@ class VLMsBlindEvaluator:
                  model_cfg: CLIPConfig, *,
                  confidence: float = 0.25, margin: float = 0.01,
                  tokenizer=None, batch_size: int = 32, device="cuda",
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, mesh=None):
         self.model_cfg = model_cfg
         self.confidence = confidence
         self.margin = margin
         self.tok = tokenizer if tokenizer is not None else load_tokenizer()
         self.batch_size = batch_size
         self.context_length = model_cfg.text.max_position_embeddings
-        self.scorer = TemplateScorer(model_or_state_dict, model_cfg,
-                                     device=device, dtype=dtype)
+        self.scorer = TemplateScorer(
+            model_or_state_dict, model_cfg, device=device, dtype=dtype,
+            pad_to_batch=batch_size if mesh is not None else None, mesh=mesh)
 
     def evaluate_task(self, samples: Sequence[Dict],
                       task: str) -> Dict[str, list]:

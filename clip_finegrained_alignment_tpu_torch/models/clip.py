@@ -330,7 +330,7 @@ def clip_forward(model: CLIPModel, pixel_values: torch.Tensor,
     te = _apply(model.text_projection, t.pooled, dtype).float()
     ie = ie / ie.norm(dim=-1, keepdim=True)
     te = te / te.norm(dim=-1, keepdim=True)
-    logits_per_text = (te @ ie.t()) * model.logit_scale.float().exp()
+    logits_per_text = clip_logits(model, ie, te)
     return CLIPOutput(
         image_embeds=ie, text_embeds=te,
         logits_per_image=logits_per_text.t(),
@@ -338,6 +338,13 @@ def clip_forward(model: CLIPModel, pixel_values: torch.Tensor,
         vision_last_hidden_state=v.last_hidden_state,
         text_last_hidden_state=t.last_hidden_state,
         vision_pooled=v.pooled, text_pooled=t.pooled)
+
+
+def clip_logits(model: CLIPModel, image_embeds: torch.Tensor,
+                text_embeds: torch.Tensor) -> torch.Tensor:
+    """``logits_per_text`` [Bt, B] of normalized fp32 embeddings, scaled by
+    ``exp(logit_scale)``."""
+    return (text_embeds @ image_embeds.t()) * model.logit_scale.float().exp()
 
 
 def sparc_embeddings(model: CLIPModel, out: CLIPOutput, *,

@@ -18,6 +18,18 @@ The SPARC local term goes through ``ops/sparc_kernel.py::
 fused_sparc_pooling``: its CUDA kernels on the card, its plain version on
 the CPU. The JAX package's ``use_fused=False`` branch computes the same
 function (``tests/test_ops.py::test_sparc_loss_fused_flag_equivalence``).
+
+Global negatives (``sparc_loss(..., mesh=...)``; the other objectives
+gather their inputs in ``train/engine.py::compute_loss``): the pooled
+embeddings of SPARC's global term are gathered over the data ranks (a
+gather whose backward sums over them, ``parallel/collectives.py``), so
+every rank computes the global batch's term. The local token↔patch term
+is per sample and stays on the rank's rows (the SPARC kernels run at
+B/W), but its token-weighted mean divides by the global batch's token
+count, and each rank's term is scaled by W: the mean of the ranks' terms
+is then the global batch's term exactly, whatever the captions' lengths
+(a mean of the ranks' own means would weigh a rank's tokens by its
+count).
 """
 
 from __future__ import annotations
@@ -109,10 +121,12 @@ def pairwise_contrastive_loss(a: torch.Tensor, b: torch.Tensor,
 
 def masked_pairwise_contrastive_loss(a: torch.Tensor, b: torch.Tensor,
                                      mask: torch.Tensor,
-                                     inverse_temperature: float
+                                     inverse_temperature: float,
+                                     token_count: Optional[torch.Tensor] = None
                                      ) -> torch.Tensor:
     """Token-level contrastive term: a, b [B, T, D], mask [B, T]; masked
-    pairs are filled with the finite ``_NEG`` and masked tokens weigh 0."""
+    pairs are filled with the finite ``_NEG`` and masked tokens weigh 0.
+    ``token_count``: the mean's denominator (default ``mask.sum()``)."""
     a = l2_normalize(a.float())
     b = l2_normalize(b.float())
     B, T = a.shape[0], a.shape[1]
@@ -122,7 +136,8 @@ def masked_pairwise_contrastive_loss(a: torch.Tensor, b: torch.Tensor,
     logits = torch.where(mask2d > 0, logits, torch.full_like(logits, _NEG))
     labels = _arange(T, logits)[None, :].expand(B, T)
     per_token = softmax_cross_entropy(logits, labels)
-    return (per_token * mask).sum() / (mask.sum() + _EPS)
+    count = mask.sum() if token_count is None else token_count
+    return (per_token * mask).sum() / (count + _EPS)
 
 
 def sparc_loss(v_patch_embed: torch.Tensor, l_token_embed: torch.Tensor,
@@ -130,10 +145,12 @@ def sparc_loss(v_patch_embed: torch.Tensor, l_token_embed: torch.Tensor,
                similarity_threshold: float = 0.5,
                global_loss_weight: float = 1.0,
                local_loss_weight: float = 1.0,
-               inverse_temperature: float = 1.0) -> Dict[str, torch.Tensor]:
+               inverse_temperature: float = 1.0,
+               mesh=None) -> Dict[str, torch.Tensor]:
     """SPARC patch↔token alignment loss. v_patch_embed [B, P, D] projected
     vision hidden states (all tokens), l_token_embed [B, T, D] projected
-    text hidden states, language_mask [B, T]."""
+    text hidden states, language_mask [B, T]. ``mesh``: global negatives
+    over its data ranks (module docstring)."""
     v_patch_embed = v_patch_embed.float()
     l_token_embed = l_token_embed.float()
     mask = language_mask.float()
@@ -143,6 +160,8 @@ def sparc_loss(v_patch_embed: torch.Tensor, l_token_embed: torch.Tensor,
     masked_l = l_token_embed * mask[:, :, None]
     token_counts = torch.clamp_min(mask.sum(-1, keepdim=True), _EPS)
     l_embed = l2_normalize(masked_l.sum(dim=1) / token_counts)
+    if mesh is not None:
+        v_embed, l_embed = mesh.gather(v_embed), mesh.gather(l_embed)
     loss_vl = pairwise_contrastive_loss(v_embed, l_embed, inverse_temperature)
     loss_lv = pairwise_contrastive_loss(l_embed, v_embed, inverse_temperature)
     global_loss = 0.5 * (loss_vl + loss_lv)
@@ -150,10 +169,13 @@ def sparc_loss(v_patch_embed: torch.Tensor, l_token_embed: torch.Tensor,
     # ---------- local ----------
     l_grouped = fused_sparc_pooling(v_patch_embed, l_token_embed, mask,
                                     similarity_threshold)
-    loss_vl_local = masked_pairwise_contrastive_loss(
-        l_grouped, l_token_embed, mask, inverse_temperature)
-    loss_lv_local = masked_pairwise_contrastive_loss(
-        l_token_embed, l_grouped, mask, inverse_temperature)
+    tokens, scale = None, 1
+    if mesh is not None:
+        tokens, scale = mesh.total(mask.sum()), mesh.data
+    loss_vl_local = scale * masked_pairwise_contrastive_loss(
+        l_grouped, l_token_embed, mask, inverse_temperature, tokens)
+    loss_lv_local = scale * masked_pairwise_contrastive_loss(
+        l_token_embed, l_grouped, mask, inverse_temperature, tokens)
     local_loss = 0.5 * (loss_vl_local + loss_lv_local)
 
     total = global_loss_weight * global_loss + local_loss_weight * local_loss

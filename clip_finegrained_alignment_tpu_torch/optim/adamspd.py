@@ -13,12 +13,15 @@ leaves per layer to the same effect.
 
 The anchors live in the optimizer state. A parameter whose ``.grad`` is
 None is updated with a zero gradient, as optax updates every leaf. The
-branch is a ``torch.where`` on a device scalar: no host sync.
+branch is a ``torch.where`` on a device scalar: no host sync. The step
+takes two passes: the Adam update and each tensor's three sums, then the
+projection, so that under ZeRO-1 and FSDP the sums of a tensor's shards
+are added over the ranks in between (``reduce_sums``).
 """
 
 from __future__ import annotations
 
-from typing import Iterable, Optional
+from typing import Callable, Iterable, Optional
 
 import numpy as np
 import torch
@@ -28,13 +31,19 @@ class AdamSPD(torch.optim.Optimizer):
     def __init__(self, params, lr: float = 1e-3, betas=(0.9, 0.999),
                  eps: float = 1e-8, weight_decay: float = 0.0,
                  amsgrad: bool = False,
-                 anchors: Optional[Iterable[torch.Tensor]] = None):
+                 anchors: Optional[Iterable[torch.Tensor]] = None,
+                 reduce_sums: Optional[
+                     Callable[[torch.Tensor], torch.Tensor]] = None):
         """``anchors``: the pretrained values to decay toward, one per
         parameter in ``params`` order; None takes the parameters' values
-        now."""
+        now. ``reduce_sums``: under ZeRO-1 and FSDP the tensors are shards
+        and their sums partial; it maps the step's ``[n_tensors, 3]`` fp32
+        sums (rows in ``params`` order) to the whole tensors' sums, one
+        all-reduce a step (``parallel/zero.py``)."""
         super().__init__(params, dict(lr=lr, betas=betas, eps=eps,
                                       weight_decay=weight_decay,
                                       amsgrad=amsgrad))
+        self.reduce_sums = reduce_sums
         params = [p for g in self.param_groups for p in g["params"]]
         anchors = params if anchors is None else list(anchors)
         if len(anchors) != len(params):
@@ -51,9 +60,12 @@ class AdamSPD(torch.optim.Optimizer):
     def step(self, closure=None):
         if closure is not None:
             raise ValueError("AdamSPD takes no closure")
+        # Pass 1: the Adam update in place, and each tensor's sums
+        # [−Σ g·(p − pre), Σ(new − pre)², Σ(p − pre)²].
+        todo, rows = [], []
         for group in self.param_groups:
             b1, b2 = group["betas"]
-            eps, wd, lr = group["eps"], group["weight_decay"], group["lr"]
+            eps, lr = group["eps"], group["lr"]
             for p in group["params"]:
                 g = p.grad if p.grad is not None else torch.zeros_like(p)
                 st = self.state[p]
@@ -76,13 +88,25 @@ class AdamSPD(torch.optim.Optimizer):
                                   out=st["max_exp_avg_sq"])
                     v = st["max_exp_avg_sq"]
                 denom = v.sqrt() / float(np.sqrt(bc2)) + eps
-                new_p = p - float(np.float32(lr) / bc1) * m / denom
                 pre = st["anchor"]
                 condition = -(g * (p - pre)).sum()
-                curr = (new_p - pre).pow(2).sum().sqrt()
-                prev = (p - pre).pow(2).sum().sqrt()
-                safe = torch.where(curr == 0, torch.ones_like(curr), curr)
-                ratio = torch.where(curr == 0, torch.zeros_like(curr),
-                                    (curr - prev) / safe).clamp(0.0, 1.0)
-                projected = new_p - wd * ratio * (new_p - pre)
-                p.copy_(torch.where(condition < 0, projected, new_p))
+                prev_sq = (p - pre).pow(2).sum()
+                p.copy_(p - float(np.float32(lr) / bc1) * m / denom)
+                rows.append(torch.stack([condition, (p - pre).pow(2).sum(),
+                                         prev_sq]))
+                todo.append((p, pre, group["weight_decay"]))
+        if not todo:
+            return
+        sums = torch.stack(rows)
+        if self.reduce_sums is not None:
+            sums = self.reduce_sums(sums)
+        # Pass 2: the projection of the tensors whose gradient points away
+        # from their anchor.
+        for (p, pre, wd), (condition, curr_sq, prev_sq) in zip(
+                todo, sums.unbind(0)):
+            curr, prev = curr_sq.sqrt(), prev_sq.sqrt()
+            safe = torch.where(curr == 0, torch.ones_like(curr), curr)
+            ratio = torch.where(curr == 0, torch.zeros_like(curr),
+                                (curr - prev) / safe).clamp(0.0, 1.0)
+            projected = p - wd * ratio * (p - pre)
+            p.copy_(torch.where(condition < 0, projected, p))

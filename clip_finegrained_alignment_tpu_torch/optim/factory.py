@@ -19,6 +19,15 @@ when asked, optax's linear warmup from 0 over ``warmup_steps``).
   (AdamSPD's anchors, moments and step; AdamW's moments and steps) and the
   update count the schedule reads, so a checkpoint resumes the same
   trajectory.
+* ZeRO-1 and FSDP (``make_optimizer(..., mesh=...)`` with ``cfg.zero1``
+  or ``cfg.fsdp``): the inner optimizer steps this rank's shards
+  (``parallel/zero.py::ShardLayout``), AdamSPD's per-tensor sums are
+  added over the ranks in one all-reduce a step, and the state dict is
+  gathered whole (every rank takes part), in the replicated format, so a
+  checkpoint restores at any rank count. Under ZeRO-1 the norm and the
+  clip read the whole (mean) gradients; under FSDP, which holds only
+  shards of them, the norm is the square root of the shards' squares
+  summed over the ranks.
 """
 
 from __future__ import annotations
@@ -62,13 +71,16 @@ class ClippedOptimizer:
 
     def __init__(self, optimizer: torch.optim.Optimizer,
                  max_grad_norm: float,
-                 schedule: Optional[Callable[[int], float]] = None):
+                 schedule: Optional[Callable[[int], float]] = None,
+                 layout=None):
         """``schedule``: the learning rate of update ``count`` (0 for the
         first), set on every group before the update; None keeps the
-        groups' own."""
+        groups' own. ``layout``: the ``ShardLayout`` whose shards
+        ``optimizer`` steps (ZeRO-1, FSDP), or None."""
         self.optimizer = optimizer
         self.max_grad_norm = max_grad_norm
         self.schedule = schedule
+        self.layout = layout
         self.count = 0
 
     @property
@@ -81,52 +93,86 @@ class ClippedOptimizer:
     @torch.no_grad()
     def step(self) -> torch.Tensor:
         """Clip and update; returns the global norm before clipping."""
-        params = self.params
-        for p in params:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        grads = [p.grad for p in params]
-        norm = global_norm(grads)
+        layout = self.layout
+        if layout is not None and layout.fsdp:
+            grads = [s.grad for s in layout.shards]
+            norm = layout.grad_norm()
+        else:
+            params = self.params if layout is None else layout.params
+            for p in params:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            grads = [p.grad for p in params]
+            norm = global_norm(grads)
         if self.max_grad_norm and self.max_grad_norm > 0:
             keep = norm < self.max_grad_norm
             for g in grads:
                 g.copy_(torch.where(keep, g,
                                     g / norm.to(g.dtype) * self.max_grad_norm))
+        if layout is not None and not layout.fsdp:
+            layout.shard_grads()
         if self.schedule is not None:
             for group in self.optimizer.param_groups:
                 group["lr"] = self.schedule(self.count)
         self.optimizer.step()
         self.count += 1
+        if layout is not None and not layout.fsdp:
+            layout.publish()
         return norm
 
     def state_dict(self) -> dict:
-        return {"optimizer": self.optimizer.state_dict(),
-                "count": self.count}
+        """The inner optimizer's state (whole tensors under a layout) and
+        the update count."""
+        sd = self.optimizer.state_dict()
+        if self.layout is not None:
+            sd = self.layout.full_optimizer_state(sd, self._order())
+        return {"optimizer": sd, "count": self.count}
 
     def load_state_dict(self, state: dict) -> None:
         """Restore a :meth:`state_dict` taken from an optimizer of the same
-        kind over the same parameters (tensors go to the parameters'
-        device)."""
-        self.optimizer.load_state_dict(state["optimizer"])
+        kind over the same parameters, at any rank count (tensors go to
+        the parameters' device)."""
+        sd = state["optimizer"]
+        if self.layout is not None:
+            sd = self.layout.shard_optimizer_state(sd, self._order())
+        self.optimizer.load_state_dict(sd)
         self.count = int(state["count"])
+
+    def _order(self) -> List[int]:
+        from ..parallel.zero import layout_order
+        return layout_order(self.layout, self.optimizer)
 
 
 def make_optimizer(cfg: TrainConfig,
                    named_params: Iterable[Tuple[str, torch.Tensor]],
                    anchors: Optional[Dict[str, torch.Tensor]] = None,
-                   use_warmup: bool = False) -> ClippedOptimizer:
+                   use_warmup: bool = False, mesh=None) -> ClippedOptimizer:
     """Clip by ``cfg.max_grad_norm`` (0 = no clip), then AdamSPD (one
     group, anchors = ``anchors`` or the parameters now) or AdamW with
-    :func:`decay_mask`, at :func:`make_schedule`'s learning rate."""
+    :func:`decay_mask`, at :func:`make_schedule`'s learning rate. With a
+    ``mesh`` and ``cfg.zero1`` or ``cfg.fsdp`` it steps this rank's
+    shards (FSDP also releases the model's whole parameters)."""
     named = [(n, p) for n, p in named_params if p.requires_grad]
     schedule = make_schedule(cfg, use_warmup)
     lr = schedule(0) if callable(schedule) else schedule
+    layout = None
+    if mesh is not None and (cfg.zero1 or cfg.fsdp):
+        from ..parallel.zero import ShardLayout
+        layout = ShardLayout(named, mesh, fsdp=cfg.fsdp)
+        named = list(zip(layout.names, layout.shards))
+        if anchors is not None:   # whole tensors: this rank's parts
+            anchors = {n: anchors[n] if d is None
+                       else layout.part(anchors[n], d)
+                       for n, d in zip(layout.names, layout.dims)}
     if cfg.optimizer_type == "adamspd":
+        order = list(range(len(named)))
         opt = AdamSPD([p for _, p in named], lr=lr, betas=cfg.betas,
                       eps=cfg.eps, weight_decay=cfg.weight_decay,
                       amsgrad=cfg.amsgrad,
                       anchors=None if anchors is None
-                      else [anchors[n] for n, _ in named])
+                      else [anchors[n] for n, _ in named],
+                      reduce_sums=None if layout is None
+                      else lambda rows: layout.reduce_sums(rows, order))
     else:
         mask = decay_mask(n for n, _ in named)
         groups = [
@@ -137,4 +183,5 @@ def make_optimizer(cfg: TrainConfig,
         opt = torch.optim.AdamW([g for g in groups if g["params"]], lr=lr,
                                 betas=cfg.betas, eps=cfg.eps)
     return ClippedOptimizer(opt, cfg.max_grad_norm,
-                            schedule if callable(schedule) else None)
+                            schedule if callable(schedule) else None,
+                            layout=layout)

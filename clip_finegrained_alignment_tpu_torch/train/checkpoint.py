@@ -17,6 +17,13 @@ save goes to ``best/`` and ``epoch_<n>/`` both, the second ``state.pt`` is
 a hard link of the first (a copy where links fail). ``restore`` warns on
 config drift, as the JAX package does.
 
+Under data parallelism every rank calls ``save`` with the whole state
+(``Trainer.state_dict`` gathers it); rank 0 alone writes and prunes, then
+every rank waits at a barrier, so that none reads or resumes a checkpoint
+half written. ``restore`` reads on every rank; the state is whole, so it
+loads at any rank count and under any layout (``meta.json``'s config
+carries ``mesh``, ``global_negatives``, ``zero1`` and ``fsdp``).
+
 Deliberate difference: torch files, not orbax (and no orbax-layout
 migration). The bridge between the two packages is the reference ``.pt``
 format (``models/convert.py::save_reference_checkpoint``).
@@ -33,6 +40,7 @@ from typing import Any, Dict, List, Mapping, Optional, Tuple
 import torch
 
 from ..config import TrainConfig
+from ..parallel.mesh import rank, world_size
 
 STATE_NAME = "state.pt"
 META_NAME = "meta.json"
@@ -60,6 +68,14 @@ class CheckpointManager:
 
     def _save_to(self, names: List[str], state: Mapping[str, Any],
                  meta: Dict[str, Any]) -> None:
+        if rank() == 0:
+            self._write(names, state, meta)
+        if world_size() > 1:
+            import torch.distributed as dist
+            dist.barrier()
+
+    def _write(self, names: List[str], state: Mapping[str, Any],
+               meta: Dict[str, Any]) -> None:
         first = None
         for name in names:
             path = os.path.join(self.directory, name)
@@ -101,7 +117,7 @@ class CheckpointManager:
             return
         self._save_to(names, state, self._meta(epoch, global_step, best_loss,
                                                avg_loss, False, config))
-        if any(n.startswith("epoch_") for n in names):
+        if any(n.startswith("epoch_") for n in names) and rank() == 0:
             self._prune_periodic()
 
     def save_preempt(self, *, epoch: int, state: Mapping[str, Any],

@@ -1,7 +1,8 @@
 """The train step and the epoch trainer, the port of
-``clip_finegrained_alignment_tpu/train/engine.py``'s single-device path
-(``compute_loss``, the microbatch accumulation, ``make_train_step`` with
-``mesh=None``, ``Trainer`` and ``install_preemption_handler``).
+``clip_finegrained_alignment_tpu/train/engine.py`` (``compute_loss``, the
+microbatch accumulation, ``make_train_step``, ``Trainer`` and
+``install_preemption_handler``), on one GPU or data-parallel over several
+(one process a GPU, ``parallel/``).
 
 * ``compute_loss`` dispatches the four objectives; the count loss encodes
   the counterfactual captions as one batched ``[B·N_cf, T]`` text forward,
@@ -26,6 +27,28 @@
   (SIGTERM through ``install_preemption_handler``) saves ``preempt/`` at
   the next step boundary.
 
+Data parallelism (``mesh``: ``parallel/mesh.py::Mesh``; each rank feeds
+its own rows ``[accum, B/W, …]``):
+
+* **Local negatives** (the default; the reference's DDP): each rank's
+  loss sees its own rows; it accumulates its microbatches with no
+  collective, then one all-reduce (mean) of all gradients through one flat
+  fp32 buffer and one of the losses, then the clip and the optimizer.
+* **Global negatives** (``cfg.global_negatives``): inside each
+  microbatch's loss the contrastive terms' embeddings are gathered over
+  the ranks by a gather whose backward sums over them, so every rank
+  computes the global batch's loss; after the same mean all-reduce the
+  gradient is that loss's exactly (the gather's backward hands each rank
+  W times its rows' share, the mean divides by W).
+* **ZeRO-1 / FSDP** (``cfg.zero1`` / ``cfg.fsdp``, ``parallel/zero.py``):
+  the optimizer steps this rank's shards; under FSDP the step gathers the
+  parameters before the forward and reduce-scatters the gradients after
+  the backward in place of the all-reduce.
+
+The model is not wrapped in ``DistributedDataParallel``: its hooks reduce
+bucket by bucket during every backward (accumulation would need
+``no_sync``), and its ``module.`` prefix would change the checkpoint keys.
+
 Every encoder layer goes through ``ops/attention.py`` (forward and
 backward kernels) and, under SPARC, the local term through
 ``ops/sparc_kernel.py``: on the card their CUDA kernels, on the CPU their
@@ -37,9 +60,8 @@ dynamic int8 GEMMs of ``ops/quant.py``.
 Deliberate differences from the JAX package: with no state dict the
 ``Trainer`` starts from ``models/convert.py::random_params(cfg, seed)``
 (numpy), not from ``jax.random``; its checkpoints are torch files (the
-reference ``.pt`` format is the bridge between the packages); mesh, ZeRO,
-FSDP and the unstacked layer layout wait for the multi-GPU slice, so the
-checkpoint format is the model's and optimizer's own state dicts.
+reference ``.pt`` format is the bridge between the packages), written
+whole by rank 0 in the replicated format under every layout.
 """
 
 from __future__ import annotations
@@ -57,6 +79,8 @@ from ..models import clip as m
 from ..models import convert
 from ..objectives import losses as L
 from ..optim.factory import ClippedOptimizer, make_optimizer
+from ..parallel import collectives as C
+from ..parallel.mesh import A6B, Mesh, replicate, shard_batch_from_local
 
 Batch = Mapping[str, torch.Tensor]
 
@@ -77,14 +101,17 @@ def device_pixels(batch: Batch,
 
 def compute_loss(model: m.CLIPModel, batch: Batch, cfg: TrainConfig,
                  model_cfg: CLIPConfig, *, dtype,
-                 pixel_bank: Optional[torch.Tensor] = None
+                 pixel_bank: Optional[torch.Tensor] = None,
+                 mesh: Optional[Mesh] = None
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Forward and objective for one microbatch → (total loss, loss dict).
 
     ``batch``: pixel_values [B, H, W, 3] (normalized float, or uint8), or
     with ``pixel_bank`` pixel_index [B] (rows of the bank); input_ids
     [B, T]; cf_input_ids [B, N_cf, T] for ``count``; optional
-    group_input_ids [B, G, T] for ``clip_count``."""
+    group_input_ids [B, G, T] for ``clip_count``. ``mesh``: global
+    negatives: every embedding of an in-batch contrastive term is gathered
+    over the data ranks (SPARC's pooled ones, in ``sparc_loss``)."""
     input_ids = batch["input_ids"]
     out = m.clip_forward(model, device_pixels(batch, pixel_bank), input_ids,
                          dtype=dtype, quant=cfg.quant)
@@ -97,15 +124,23 @@ def compute_loss(model: m.CLIPModel, batch: Batch, cfg: TrainConfig,
             similarity_threshold=cfg.similarity_threshold,
             global_loss_weight=cfg.global_loss_weight,
             local_loss_weight=cfg.local_loss_weight,
-            inverse_temperature=cfg.inverse_temperature)
-    elif cfg.loss_type == "count":
+            inverse_temperature=cfg.inverse_temperature, mesh=mesh)
+        return losses["total_loss"], losses
+
+    ie, te = out.image_embeds, out.text_embeds
+    if mesh is not None:
+        ie, te = mesh.gather(ie), mesh.gather(te)
+    if cfg.loss_type == "count":
         cf = batch["cf_input_ids"]
         B, N, T = cf.shape
         ek_cf = m.encode_text(model, cf.reshape(B * N, T), dtype=dtype,
                               quant=cfg.quant).reshape(B, N, -1)
-        losses = L.count_loss(out.logits_per_image, out.logits_per_text,
-                              out.image_embeds, out.text_embeds, ek_cf,
-                              alpha=cfg.count_alpha)
+        logits_per_text = out.logits_per_text if mesh is None \
+            else m.clip_logits(model, ie, te)
+        if mesh is not None:
+            ek_cf = mesh.gather(ek_cf)
+        losses = L.count_loss(logits_per_text.t(), logits_per_text, ie, te,
+                              ek_cf, alpha=cfg.count_alpha)
     elif cfg.loss_type == "clip_count":
         group = batch.get("group_input_ids")
         ek = None
@@ -113,27 +148,30 @@ def compute_loss(model: m.CLIPModel, batch: Batch, cfg: TrainConfig,
             B, G, T = group.shape
             ek = m.encode_text(model, group.reshape(B * G, T), dtype=dtype,
                                quant=cfg.quant).reshape(B, G, -1)
-        losses = L.clip_count_loss(out.image_embeds, out.text_embeds, ek,
-                                   count_alpha=cfg.count_alpha)
+            if mesh is not None:
+                ek = mesh.gather(ek)
+        losses = L.clip_count_loss(ie, te, ek, count_alpha=cfg.count_alpha)
     else:  # "clip"
-        losses = L.clip_loss(out.image_embeds, out.text_embeds)
+        losses = L.clip_loss(ie, te)
     return losses["total_loss"], losses
 
 
 def accumulate_grads(model: m.CLIPModel, batch: Batch, cfg: TrainConfig,
                      model_cfg: CLIPConfig, *, dtype,
-                     pixel_bank: Optional[torch.Tensor] = None
+                     pixel_bank: Optional[torch.Tensor] = None,
+                     mesh: Optional[Mesh] = None
                      ) -> Dict[str, torch.Tensor]:
     """Forward and backward over each microbatch of ``batch`` (leaves
     ``[accum, B, …]`` on the model's device); leaves the mean gradient in
-    ``.grad`` and returns the mean loss dict (detached)."""
+    ``.grad`` and returns the mean loss dict (detached). ``mesh``: global
+    negatives (:func:`compute_loss`)."""
     model.zero_grad(set_to_none=True)
     accum = batch["input_ids"].shape[0]
     totals: Dict[str, torch.Tensor] = {}
     for i in range(accum):
         loss, losses = compute_loss(model, {k: x[i] for k, x in batch.items()},
                                     cfg, model_cfg, dtype=dtype,
-                                    pixel_bank=pixel_bank)
+                                    pixel_bank=pixel_bank, mesh=mesh)
         loss.backward()
         for k, x in losses.items():
             totals[k] = totals[k] + x.detach() if k in totals else x.detach()
@@ -145,9 +183,30 @@ def accumulate_grads(model: m.CLIPModel, batch: Batch, cfg: TrainConfig,
     return {k: x * inv for k, x in totals.items()}
 
 
+def check_parallel(cfg: TrainConfig) -> None:
+    """Refuse the layouts the step cannot build, as the JAX package does
+    (FSDP without global negatives, FSDP with ZeRO-1) or as this port does
+    until ROADMAP A6b (tensor, pipeline and sequence parallelism)."""
+    if cfg.mesh.model > 1 or cfg.mesh.pipe > 1 or cfg.sequence_parallel \
+            or cfg.sp_ring or cfg.pipeline_microbatches:
+        raise ValueError(f"mesh {cfg.mesh.data}x{cfg.mesh.model}x"
+                         f"{cfg.mesh.pipe}, sequence_parallel="
+                         f"{cfg.sequence_parallel}, sp_ring={cfg.sp_ring}, "
+                         f"pipeline_microbatches={cfg.pipeline_microbatches}"
+                         f": {A6B}")
+    if cfg.fsdp and not cfg.global_negatives:
+        raise ValueError("fsdp requires global_negatives=True: the "
+                         "local-negatives (DDP) step assumes replicated "
+                         "params")
+    if cfg.fsdp and cfg.zero1:
+        raise ValueError("fsdp subsumes zero1 (optimizer state inherits the "
+                         "data-sharded param layout); enable only one")
+
+
 def make_train_step(cfg: TrainConfig, model_cfg: CLIPConfig,
                     model: m.CLIPModel, optimizer: ClippedOptimizer,
-                    pixel_bank: Optional[torch.Tensor] = None) -> Callable:
+                    pixel_bank: Optional[torch.Tensor] = None,
+                    mesh: Optional[Mesh] = None) -> Callable:
     """``train_step(batch) -> metrics``: ``batch`` leaves are
     ``[accum, B, …]`` (tensors or numpy arrays, moved to the model's
     device); ``metrics`` holds the mean losses (with ``grad_cache``: the
@@ -158,25 +217,52 @@ def make_train_step(cfg: TrainConfig, model_cfg: CLIPConfig,
     ``pixel_bank``: a uint8 ``[N, S, S, 3]`` tensor on the model's device
     (``place_pixel_bank``). Batches then carry ``pixel_index [accum, B]``
     in place of ``pixel_values``, and a step's host-to-device traffic
-    drops from S·S·3 to 4 bytes a sample."""
+    drops from S·S·3 to 4 bytes a sample.
+
+    ``mesh``: data parallelism; ``batch`` holds this rank's rows
+    ``[accum, B/W, …]`` (``parallel/mesh.py::shard_batch``), the metrics
+    are the means over the ranks. With ``cfg.zero1`` or ``cfg.fsdp`` the
+    optimizer must have been built with ``make_optimizer(..., mesh=…)``."""
+    check_parallel(cfg)
     dtype = compute_dtype(cfg)
     device = next(model.parameters()).device
     if pixel_bank is not None and pixel_bank.device != device:
         raise ValueError(f"pixel bank on {pixel_bank.device}, model on "
                          f"{device}")
+    layout = optimizer.layout
+    if mesh is not None and (cfg.zero1 or cfg.fsdp) and (
+            layout is None or layout.fsdp != cfg.fsdp):
+        raise ValueError("zero1/fsdp on a mesh: build the optimizer with "
+                         "make_optimizer(cfg, ..., mesh=mesh)")
     grads = accumulate_grads
     if cfg.grad_cache:
         # One loss over the whole accum x B pool (train/gradcache.py) in
         # place of the mean of the microbatches' losses.
         from .gradcache import gradcache_grads, validate_gradcache
-        validate_gradcache(cfg)
+        validate_gradcache(cfg, mesh)
         grads = gradcache_grads
+    loss_mesh = mesh if cfg.global_negatives else None
+    fsdp = layout is not None and layout.fsdp
+    params = list(model.parameters())
 
     def train_step(batch) -> Dict[str, torch.Tensor]:
         batch = {k: torch.as_tensor(x).to(device, non_blocking=True)
                  for k, x in batch.items()}
+        if fsdp:
+            layout.gather_params()
         metrics = grads(model, batch, cfg, model_cfg, dtype=dtype,
-                        pixel_bank=pixel_bank)
+                        pixel_bank=pixel_bank, mesh=loss_mesh)
+        if mesh is not None:
+            # The DDP all-reduce (mean) of the gradients, or under FSDP
+            # their reduce-scatter into the shards; then the losses'.
+            for p in params:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            if fsdp:
+                layout.reduce_grads()
+            else:
+                C.all_reduce_mean_([p.grad for p in params])
+            C.all_reduce_mean_(list(metrics.values()))
         metrics["grad_norm"] = optimizer.step()
         return metrics
 
@@ -206,14 +292,20 @@ class Trainer:
 
     def __init__(self, cfg: TrainConfig,
                  state_dict: Optional[Mapping[str, torch.Tensor]] = None, *,
-                 device="cuda", checkpoint_manager=None, pixel_bank=None):
+                 device="cuda", checkpoint_manager=None, pixel_bank=None,
+                 mesh: Optional[Mesh] = None):
         """``state_dict``: HF-named weights (``models/convert.py``); None
         draws ``random_params(model_cfg, cfg.seed)``. AdamSPD anchors are
         the weights at construction. ``device`` is the card unless the
         caller asks for the CPU; ``pixel_bank`` (uint8 ``[N, S, S, 3]``,
-        numpy or torch) is placed on it once."""
+        numpy or torch) is placed on it once, whole on every rank.
+        ``mesh``: data parallelism; rank 0's weights are broadcast, and
+        every rank must call ``step``, ``train``, ``state_dict`` and
+        ``load_state_dict`` alike (they run collectives)."""
+        check_parallel(cfg)
         self.cfg = cfg
         self.model_cfg = cfg.model_config()
+        self.mesh = mesh
         if state_dict is None:
             state_dict = convert.state_dict_from_jax(
                 convert.random_params(self.model_cfg, cfg.seed),
@@ -221,33 +313,54 @@ class Trainer:
         self.model = m.build_train_model(self.model_cfg, state_dict,
                                          device=device)
         self.device = next(self.model.parameters()).device
-        self.optimizer = make_optimizer(cfg, self.model.named_parameters())
+        if mesh is not None:
+            replicate(self.model.state_dict(), mesh)
+        self.optimizer = make_optimizer(cfg, self.model.named_parameters(),
+                                        mesh=mesh)
         self.pixel_bank = None if pixel_bank is None \
             else place_pixel_bank(pixel_bank, self.device)
         self.train_step = make_train_step(cfg, self.model_cfg, self.model,
-                                          self.optimizer, self.pixel_bank)
+                                          self.optimizer, self.pixel_bank,
+                                          mesh=mesh)
         self.global_step = 0
         self.best_loss = float("inf")
         self.preempt_requested = False
         self.checkpoint_manager = checkpoint_manager
 
     def _device_batch(self, batch: Mapping[str, Any]) -> Dict[str, Any]:
-        """Host batch [accum·B, …] → [accum, B, …]."""
+        """Host batch [accum·B, …] → [accum, B, …]. Under a mesh the batch
+        is this rank's (its pipeline reads its own shard of the data at
+        ``effective_batch_size / W``): B must be ``batch_size / W``."""
         a = self.cfg.gradient_accumulation_steps
 
         def fold(x):
             x = np.asarray(x)
             return x.reshape((a, x.shape[0] // a) + x.shape[1:])
 
-        return {k: fold(v) for k, v in batch.items()}
+        batch = {k: fold(v) for k, v in batch.items()}
+        if self.mesh is None:
+            return batch
+        return shard_batch_from_local(
+            batch, self.mesh, accum_axis=True,
+            rows=self.cfg.batch_size // self.mesh.data)
 
     def state_dict(self) -> Dict[str, Any]:
-        """What a checkpoint holds: the model's and the optimizer's state."""
-        return {"model": self.model.state_dict(),
-                "optimizer": self.optimizer.state_dict()}
+        """What a checkpoint holds: the model's and the optimizer's state,
+        whole tensors under any layout (gathered: every rank calls it)."""
+        layout = self.optimizer.layout
+        model = self.model.state_dict()
+        if layout is not None and layout.fsdp:
+            model.update(layout.full_params())
+        return {"model": model, "optimizer": self.optimizer.state_dict()}
 
     def load_state_dict(self, state: Mapping[str, Any]) -> None:
-        self.model.load_state_dict(state["model"])
+        """Restore a :meth:`state_dict` of any rank count into this rank's
+        layout."""
+        layout = self.optimizer.layout
+        if layout is not None and layout.fsdp:
+            layout.load_params(state["model"])
+        else:
+            self.model.load_state_dict(state["model"])
         self.optimizer.load_state_dict(state["optimizer"])
 
     def step(self, batch: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
@@ -262,6 +375,16 @@ class Trainer:
         call it): ``train`` finishes the step in flight, saves
         ``<ckpt>/preempt`` and returns with ``preempted=True``."""
         self.preempt_requested = True
+
+    def _preempt_agreed(self) -> bool:
+        """Whether to stop at this step boundary: under a mesh, the flag
+        all-reduced with MAX, so that a request on any rank stops every
+        rank at the same step (one leaving alone would hang the others in
+        their next collective)."""
+        if self.mesh is not None:
+            self.preempt_requested = C.all_reduce_max_flag(
+                self.preempt_requested, self.mesh.device)
+        return self.preempt_requested
 
     def _save_preempt(self, epoch: int, avg_loss: float) -> None:
         if self.checkpoint_manager is None:
@@ -297,7 +420,7 @@ class Trainer:
                     log_fn(f"epoch {epoch} step {self.global_step} "
                            f"loss {metrics['total_loss'].item():.4f} "
                            f"gnorm {metrics['grad_norm'].item():.3f}")
-                if self.preempt_requested:
+                if self._preempt_agreed():
                     avg = total.item() / count
                     self._save_preempt(epoch, avg)
                     if log_fn:

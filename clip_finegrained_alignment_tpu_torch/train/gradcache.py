@@ -28,9 +28,13 @@ its log-sum-exp (no grad), phase 3 with it (under grad): the same kernel
 and the same output either way.
 
 Scope: ``loss_type`` ``clip`` or ``sparc``, the two objectives whose
-samples are each other's negatives. The JAX package's mesh,
-``sequence_parallel`` and pipeline checks come with the multi-GPU slice,
-which brings those fields.
+samples are each other's negatives. On a data mesh GradCache needs
+``global_negatives`` (one loss over the whole pool is the point): each
+rank embeds its own chunks, the loss gathers the ranks' caches (SPARC's
+pooled embeddings, ``objectives/losses.py``), so it covers ``accum·B``
+globally, and the engine averages the gradients over the ranks after
+phase 3. Sequence and pipeline parallelism refuse it, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -47,14 +51,29 @@ from .engine import device_pixels
 Batch = Mapping[str, torch.Tensor]
 
 
-def validate_gradcache(cfg: TrainConfig) -> None:
-    """Refuse the objectives GradCache cannot carry."""
+def validate_gradcache(cfg: TrainConfig, mesh=None) -> None:
+    """Refuse the configurations GradCache cannot carry (JAX
+    ``train/gradcache.py::validate_gradcache``)."""
     if cfg.loss_type not in ("clip", "sparc"):
         raise ValueError(
             f"grad_cache supports loss_type 'clip' or 'sparc', got "
             f"{cfg.loss_type!r}: the count losses pair each sample "
             "against its own counterfactuals, so accumulation already "
             "sees the full negative pool")
+    if mesh is not None and not cfg.global_negatives:
+        raise ValueError(
+            "grad_cache on a mesh requires global_negatives=True: the "
+            "whole point is ONE loss over the full effective batch, "
+            "which contradicts the DDP-parity per-device local-negative "
+            "semantics")
+    if cfg.sequence_parallel:
+        raise ValueError("grad_cache is not supported with "
+                         "sequence_parallel (the token dim the embedding "
+                         "cache indexes is sharded)")
+    if cfg.mesh.pipe > 1:
+        raise ValueError("grad_cache is not supported with pipeline "
+                         "parallelism (the GPipe wavefront already holds "
+                         "all microbatches in flight)")
 
 
 def _chunk_embeddings(model: m.CLIPModel, mb: Batch, cfg: TrainConfig,
@@ -72,9 +91,11 @@ def _chunk_embeddings(model: m.CLIPModel, mb: Batch, cfg: TrainConfig,
 
 def _full_batch_loss(embs: Tuple[torch.Tensor, torch.Tensor],
                      input_ids: torch.Tensor, cfg: TrainConfig,
-                     model_cfg: CLIPConfig) -> Dict[str, torch.Tensor]:
+                     model_cfg: CLIPConfig, mesh=None
+                     ) -> Dict[str, torch.Tensor]:
     """The objective over the concatenated ``[accum·B, …]`` embeddings:
-    ``objectives/losses.py`` at the bigger batch."""
+    ``objectives/losses.py`` at the bigger batch; with ``mesh``, over
+    every rank's."""
     if cfg.loss_type == "sparc":
         v_patch, l_token = embs
         mask = input_ids.reshape(-1, input_ids.shape[-1]) \
@@ -84,18 +105,21 @@ def _full_batch_loss(embs: Tuple[torch.Tensor, torch.Tensor],
             similarity_threshold=cfg.similarity_threshold,
             global_loss_weight=cfg.global_loss_weight,
             local_loss_weight=cfg.local_loss_weight,
-            inverse_temperature=cfg.inverse_temperature)
+            inverse_temperature=cfg.inverse_temperature, mesh=mesh)
+    if mesh is not None:
+        embs = tuple(mesh.gather(e) for e in embs)
     return L.clip_loss(*embs)
 
 
 def gradcache_grads(model: m.CLIPModel, batch: Batch, cfg: TrainConfig,
                     model_cfg: CLIPConfig, *, dtype,
-                    pixel_bank: Optional[torch.Tensor] = None
-                    ) -> Dict[str, torch.Tensor]:
+                    pixel_bank: Optional[torch.Tensor] = None,
+                    mesh=None) -> Dict[str, torch.Tensor]:
     """In place of ``engine.accumulate_grads``: ``batch`` leaves are
     ``[accum, B, …]`` on the model's device; leaves the gradient of the
-    loss over all ``accum·B`` samples in ``.grad`` and returns that loss
-    dict (detached)."""
+    loss over all ``accum·B`` samples (with ``mesh``: over every rank's,
+    before the engine's mean over the ranks) in ``.grad`` and returns that
+    loss dict (detached)."""
     model.zero_grad(set_to_none=True)
     accum = batch["input_ids"].shape[0]
     chunks = [{k: x[i] for k, x in batch.items()} for i in range(accum)]
@@ -109,7 +133,8 @@ def gradcache_grads(model: m.CLIPModel, batch: Batch, cfg: TrainConfig,
     del embs
 
     # Phase 2: the full-pool loss and its cotangent at the cache.
-    losses = _full_batch_loss(cache, batch["input_ids"], cfg, model_cfg)
+    losses = _full_batch_loss(cache, batch["input_ids"], cfg, model_cfg,
+                              mesh)
     cotangents = torch.autograd.grad(losses["total_loss"], cache)
     del cache
 
