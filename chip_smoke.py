@@ -146,7 +146,9 @@ Phases, each of which fails the script (non-zero exit, no "ok" line):
    scorer call (as many calls as the samples and batch size imply), 36 an
    ``evaluate_batch``, no other kernel; every accuracy and score finite in
    [0, 1]. The first scorer call of each subcommand and the held-out batch
-   against the port in fp32 on the CPU (same weights). Then samples/s of
+   against the port in fp32 on the CPU (same weights; run last, in a
+   thread beside phase 10's one-rank NCCL step, which times nothing: the
+   lap "9-10"). Then samples/s of
    each subcommand on the host clock (decode and preprocessing included),
    the device time of one scorer call (32 images x 10 templates) with its
    kernel profile, #1 in fp32 at evaluation's shapes (vision B=32, text
@@ -179,16 +181,38 @@ Phases, each of which fails the script (non-zero exit, no "ok" line):
    ``best/`` against one process (every probability within
    ``EVAL_MAX_ABS``, exact launches); and a ``--resume`` of H by one
    process to a second epoch, its restored weights and optimizer state
-   equal to ``best/``'s bit for bit.
+   equal to ``best/``'s bit for bit;
+11. tensor and pipeline parallelism (``parallel/``,
+   ``perf/model_parallel_check.py``) on the one card, gloo ranks on
+   ``cuda:0``, ViT-B/16 at full width and depth, SPARC + AdamSPD with
+   global negatives in bf16, random weights from phase 6's seed, a global
+   batch of 32 x accum 2: ``tp2`` (1 x 2 x 1, 6 vision and 4 text heads a
+   rank) and ``pp2`` (1 x 1 x 2, 4 GPipe microbatches) on two ranks, then
+   ``tp2pp2`` (1 x 2 x 2) and ``dp2tp2`` (2 x 2 x 1 with FSDP) on four,
+   3 steps each against a one-process oracle on the same global batch
+   (phase 10's global-negatives oracle, the same weights and batch)
+   within ``MP_LIMITS`` (set from the CPU before any card reading),
+   AdamSPD's anchors one step off the weights; each rank's exact launches
+   of #1-#4 in its first step, step ms and peak memory (ranks sharing one
+   card over gloo: not a scaling figure); run I, ``cli/train.py
+   --model-parallel 2 --pipeline-parallel 2 --global-negatives`` on the
+   four ranks for one epoch of phase 8's data (every epoch loss finite and
+   equal on every rank, exact launches), then a ``--resume`` of it by one
+   process (its epoch done: no step), its restored weights and optimizer
+   state equal to ``best/``'s bit for bit. Phase 3 holds #1 and #2 at this
+   phase's shapes (``MP_ATTENTION_SHAPES``: H/2 heads, B/4 rows) against
+   their plain versions, bf16 and fp32, with their times.
 
 The last lines are the kernels' JSON line (``launches_by_path`` has
 ``serve``, ``train``, ``long``, ``train_cli`` (runs A-D), ``eval``,
 ``gradcache`` (phase 6b's counted steps), ``train_cli_gradcache`` (run E),
 ``train_cli_interop`` (run F), ``eval_openai``, ``train_quant`` (phase
-6c's counted steps), ``train_cli_quant`` (run G) and ``data_parallel``
+6c's counted steps), ``train_cli_quant`` (run G), ``data_parallel``
 (phase 10: both ranks' counted steps, run H, its resume and both
-evaluations); the forward kernel's
-entry also carries its ``fp32_eval`` rows, the backward's its
+evaluations) and ``model_parallel`` (phase 11: every rank's counted
+steps, run I and its resume); the forward kernel's
+entry also carries its ``fp32_eval`` rows, #1 and #2 their
+``model_parallel_shapes`` rows, the backward its
 ``fp32_train`` rows, the SPARC kernels' their ``gradcache_pool`` row at
 B=256), the ``nvidia-smi`` line
 and ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -455,6 +479,35 @@ DP_LIMITS = {"loss_rel": 1e-5, "grad_norm_rel": 2e-2,
 # and 4.6e-6. Set before any card reading: 1e-3, 20x above 12 layers at
 # a linear growth and 50x below the fault.
 DP_SHARD_MAX_FIRST_UPDATE_REL = 1e-3
+# Phase 11: tensor and pipeline parallelism on the one card (gloo), a
+# global batch of MP_B x accum MP_ACCUM, MP_STEPS steps a mode, MP_MICRO
+# GPipe microbatches (perf/model_parallel_check.py's modes: tp2, pp2,
+# tp2pp2, dp2tp2 with FSDP).
+MP_B = 32
+MP_ACCUM = 2
+MP_STEPS = 3
+MP_MICRO = 4
+# Each mode against its one-process oracle on the card, both in bf16,
+# AdamSPD's anchors one step off the weights: the largest per-step loss
+# and gradient-norm relative differences, the smallest per-tensor cosine
+# of the first step's gradients and of the three steps' whole update,
+# the largest per-tensor relative error of the first step's gradients,
+# and of the first update against a replay (one process's optimizer
+# stepping the run's own first-step gradients from the same weights and
+# anchors). Set before any card reading from perf/model_parallel_check.py
+# on the CPU (bf16, ViT-B/16 widths with 2 layers a tower, a global batch
+# of 32 x accum 2, seed 0): the four modes read loss <= 1.8e-7, gradient
+# norm <= 2.7e-4, gradient cosine >= 0.99978, update cosine >= 0.99990,
+# gradient error <= 2.1e-2 (bf16 on a text q projection), replay
+# <= 1.2e-5. The faults of trouble spots a and b read: post-pipeline
+# gradients summed over the stages (pp2) norm 0.106 and gradient error
+# 1.0; a TP shard's AdamSPD sums read alone (tp2) replay 5.3e-2, every
+# other reading inside; whole tensors counted on every model rank in the
+# norm (tp2) norm 0.133. The limits leave 12 layers of bf16 room (a
+# cosine of 0.99 is a relative error of ~0.14) and fail each fault:
+MP_LIMITS = {"loss_rel": 1e-5, "grad_norm_rel": 2e-2,
+             "min_grad_cosine": 0.99, "min_update_cosine": 0.99,
+             "max_grad_rel": 0.25, "replay_first_update_rel": 1e-3}
 # The training CLI (phase 8): a procedural dataset of this many 224 px
 # samples (two SPARC steps an epoch at TRAIN_B x TRAIN_ACCUM; eight count
 # steps at TRAIN_B x CLI_COUNT_ACCUM).
@@ -636,6 +689,14 @@ ATTENTION_SHAPES = [  # (what, S, H, Dh, causal, also in the backward check)
 BACKWARD_EXTRA_SHAPES = [  # (what, B, S, H, Dh, causal)
     ("counterfactual text (causal)", 9 * TRAIN_B, 77, 8, 64, True),
 ]
+# #1 and #2 at phase 11's shapes: H/tp heads of a tensor-parallel rank
+# (tp = 2) and the B/M rows of a pipeline microbatch (32 / 4).
+MP_ATTENTION_SHAPES = [  # (what, B, S, H, Dh, causal)
+    ("tp2 ViT-B/16 vision", 32, 197, 6, 64, False),
+    ("tp2 text (causal)", 32, 77, 4, 64, True),
+    ("pp microbatch ViT-B/16 vision", 8, 197, 12, 64, False),
+    ("pp microbatch text (causal)", 8, 77, 8, 64, True),
+]
 
 
 def bound_ms(nbytes: float, flops: float, dtype_name: str) -> dict:
@@ -795,6 +856,79 @@ def check_attention(results: dict) -> dict:
     results["attention"] = rows
     return next(r for r in rows if r["shape"] == "ViT-B/16 vision"
                 and r["B"] == BUCKET and r["dtype"] == "bfloat16")
+
+
+def check_attention_mp(results: dict) -> list:
+    """#1 and #2 at phase 11's shapes (``MP_ATTENTION_SHAPES``), bf16 and
+    fp32: the forward's output and lse and the backward's dq, dk, dv (fed
+    the forward kernel's lse) against the plain versions, with the
+    forward's and the backward's times beside the plain versions', the
+    library's and their bounds."""
+    import torch
+    import torch.nn.functional as F
+    from clip_finegrained_alignment_tpu_torch.ops import attention as ta
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    rows = []
+    for what, B, S, H, D, causal in MP_ATTENTION_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            dname = str(dtype).split(".")[-1]
+            q, k, v, do = (torch.randn(B, S, H, D, device="cuda",
+                                       generator=gen).to(dtype)
+                           for _ in range(4))
+            bias = (torch.full((S, S), -1e9, device="cuda").triu(1)
+                    [None, None] if causal else None)
+            scale = D ** -0.5
+            out, lse = ta._launch(q, k, v, bias, scale, True)
+            got = ta._launch_backward(q, k, v, bias, scale, do, lse)
+            torch.cuda.synchronize()
+            ref = ta.attention_reference(q.float(), k.float(), v.float(),
+                                         bias, scale)
+            err = (out.float() - ref).abs().max().item()
+            lse_over = lse_excess(lse_of_pair(lse),
+                                  lse_reference(q, k, bias, scale))
+            refs = ta.attention_backward_reference(q, k, v, bias, scale, do)
+            excess = {n: bwd_excess(a, b, dname)
+                      for n, a, b in zip(("dq", "dk", "dv"), got, refs)}
+            bwd_err = max((a.float() - b.float()).abs().max().item()
+                          for a, b in zip(got, refs))
+            qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                          for t in (q, k, v))
+            mask = None if bias is None else bias.to(dtype)
+            lib = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                 scale=scale)
+            row = {"shape": what, "B": B, "S": S, "H": H, "Dh": D,
+                   "dtype": dname,
+                   "fwd": {"max_abs_err": err, "tol": KERNEL_TOL[dname],
+                           "lse_err_over_tol": lse_over,
+                           **attention_fwd_times(q, k, v, bias, scale),
+                           **fused_attention_bound_ms(B, S, H, D, dname,
+                                                      causal)},
+                   "bwd": {"max_abs_err": bwd_err,
+                           "max_err_over_tol": max(excess.values()),
+                           "ms": cuda_time_ms(lambda: ta._launch_backward(
+                               q, k, v, bias, scale, do, lse)),
+                           "plain_ms": cuda_time_ms(
+                               lambda: ta.attention_backward_reference(
+                                   q, k, v, bias, scale, do), reps=5),
+                           "library_ms": cuda_time_ms(
+                               lambda: torch.autograd.grad(
+                                   lib, (qt, kt, vt), do.transpose(1, 2),
+                                   retain_graph=True)),
+                           **fused_attention_bound_ms(
+                               B, S, H, D, dname, causal, tensors=7,
+                               products=5)}}
+            log("attention model-parallel shape", json.dumps(row))
+            check(err <= KERNEL_TOL[dname] and lse_over <= 1.0
+                  and bool(torch.isfinite(out).all()),
+                  f"attention {what} {dname}: forward err {err}, lse "
+                  f"{lse_over}")
+            check(row["bwd"]["max_err_over_tol"] <= 1.0
+                  and all(bool(torch.isfinite(a).all()) for a in got),
+                  f"attention backward {what} {dname}: {excess}")
+            rows.append(row)
+    results["attention_model_parallel"] = rows
+    return rows
 
 
 MASKED_ROW_SHAPES = [  # (what, S, H, Dh, causal) at B=TRAIN_B
@@ -1471,24 +1605,21 @@ def measure_rates(clip, port, cfg, images) -> dict:
 def kernel_table(run) -> dict:
     """Device time by kernel over one call of ``run`` (``torch.profiler``):
     the total and the top rows; empty where the profiler reports no device
-    time."""
+    time. Read from the trace's raw records
+    (``perf/trace_read.py::device_rows``: kernels only, ``key_averages()``
+    takes ~20 s for a train step's trace)."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    from clip_finegrained_alignment_tpu_torch.perf.trace_read import \
+        device_rows
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         run()
         torch.cuda.synchronize()
-    # Kernels only: the CPU-side aten ops carry the same device time
-    # again, and so do the GPU-timeline annotations named after them.
-    avgs = prof.key_averages()
-    cpu_ops = {e.key for e in avgs if e.device_type == DeviceType.CPU}
-    rows = [(e.self_device_time_total, e.key, e.count) for e in avgs
-            if e.device_type == DeviceType.CUDA and e.key not in cpu_ops
-            and e.self_device_time_total > 0]
-    rows.sort(reverse=True)
+    rows = device_rows(prof)
     total = sum(r[0] for r in rows)
     # The port's own kernels by name, wherever they rank, with the
     # launches the trace holds (set beside the launch counters, they show
@@ -2784,10 +2915,12 @@ def eval_path(results: dict, best_dir: str, held_out: dict) -> dict:
     ``vlmsblind`` on their procedural fixtures, ``crop`` on the procedural
     source at the protocol's sample count; then ``evaluate_batch`` on run
     C's held-out batch. Each is counted on its own: 24 forward-kernel
-    launches a scorer call, 36 an ``evaluate_batch``, nothing else. The
-    first scorer call of each subcommand and the held-out batch are held
-    to the port in fp32 on the CPU with the same weights. Then the time of
-    one scorer call (B=32 x NT=10) and #1 in fp32 at evaluation's shapes."""
+    launches a scorer call, 36 an ``evaluate_batch``, nothing else. Then
+    the time of one scorer call (B=32 x NT=10) and #1 in fp32 at
+    evaluation's shapes. The first scorer call of each subcommand and the
+    held-out batch are held to the port in fp32 on the CPU with the same
+    weights by the returned ``vs_cpu``, which main() runs beside phase
+    10's one-rank NCCL step, after the card's timings."""
     import numpy as np
     import torch
     from clip_finegrained_alignment_tpu_torch.cli import evaluate as cli_eval
@@ -2973,30 +3106,32 @@ def eval_path(results: dict, best_dir: str, held_out: dict) -> dict:
                                                   for r in runs.values())
                      for n in _build.SOURCES}
 
-    # The card against the port in fp32 on the CPU, same weights.
-    t0 = time.time()
-    cpu = scoring.TemplateScorer(sd, cfg, device="cpu")
-    vs_cpu = {}
-    for cmd, (px, ids, mask, probs) in first.items():
-        vs_cpu[cmd] = compare_probs(probs, cpu(px, ids, mask))
-        vs_cpu[cmd]["shape"] = [len(px), ids.shape[1]]
-    _, cpu_conf, cpu_res = batch_eval.evaluate_batch(cpu.model, cfg,
-                                                     held_out)
-    vs_cpu["held_out_similarities"] = compare_probs(
-        np.stack([r["similarities"] for r in res]),
-        np.stack([r["similarities"] for r in cpu_res]))
-    vs_cpu["held_out_confusion_max_abs_err"] = float(
-        np.abs(confusion - cpu_conf).max())
-    vs_cpu["cpu_s"] = time.time() - t0
-    out["vs_cpu"] = vs_cpu
-    log("eval vs CPU fp32:", json.dumps(vs_cpu))
-    for name, r in vs_cpu.items():
-        if isinstance(r, dict):
-            check(r["max_abs_err"] <= EVAL_MAX_ABS and r["argmax_agree_clear"],
-                  f"eval {name}: the card against the CPU {r}")
-    check(vs_cpu["held_out_confusion_max_abs_err"] <= EVAL_MAX_ABS,
-          f"eval held-out confusion: {vs_cpu}")
-    del cpu
+    def vs_cpu_check():
+        """The card against the port in fp32 on the CPU, same weights (run
+        by main() beside phase 10's one-rank NCCL step)."""
+        t0 = time.time()
+        cpu = scoring.TemplateScorer(sd, cfg, device="cpu")
+        vs_cpu = {}
+        for cmd, (px, ids, mask, probs) in first.items():
+            vs_cpu[cmd] = compare_probs(probs, cpu(px, ids, mask))
+            vs_cpu[cmd]["shape"] = [len(px), ids.shape[1]]
+        _, cpu_conf, cpu_res = batch_eval.evaluate_batch(cpu.model, cfg,
+                                                         held_out)
+        vs_cpu["held_out_similarities"] = compare_probs(
+            np.stack([r["similarities"] for r in res]),
+            np.stack([r["similarities"] for r in cpu_res]))
+        vs_cpu["held_out_confusion_max_abs_err"] = float(
+            np.abs(confusion - cpu_conf).max())
+        vs_cpu["cpu_s"] = time.time() - t0
+        out["vs_cpu"] = vs_cpu
+        log("eval vs CPU fp32:", json.dumps(vs_cpu))
+        for name, r in vs_cpu.items():
+            if isinstance(r, dict):
+                check(r["max_abs_err"] <= EVAL_MAX_ABS
+                      and r["argmax_agree_clear"],
+                      f"eval {name}: the card against the CPU {r}")
+        check(vs_cpu["held_out_confusion_max_abs_err"] <= EVAL_MAX_ABS,
+              f"eval held-out confusion: {vs_cpu}")
 
     # One scorer call at countbench's first shape, B=32 x NT=10, on the
     # device; and #1 in fp32 at evaluation's two shapes.
@@ -3038,7 +3173,7 @@ def eval_path(results: dict, best_dir: str, held_out: dict) -> dict:
                                   for c, r in runs.items()}))
     results["eval"] = out
     return {"launches": eval_launches, "attention_fp32": rows,
-            "launches_openai": openai["launches"]}
+            "launches_openai": openai["launches"], "vs_cpu": vs_cpu_check}
 
 
 # ---------------------------------------------------------------------------
@@ -3080,7 +3215,7 @@ def dp_probs_spy(store: list):
     return call
 
 
-def dp_rank(packed_dir: str, work: str) -> dict:
+def dp_rank(packed_dir: str, work: str, oracle_path: str) -> dict:
     """One of the two gloo ranks on the card (spawned; the group is up):
     the collectives probe, the four modes against their oracles
     (``perf/data_parallel_check.py``), run H of ``cli/train.py`` and
@@ -3101,7 +3236,8 @@ def dp_rank(packed_dir: str, work: str) -> dict:
            "probe": dpc.probe_collectives(dev)}
     t0 = time.time()
     out["modes"] = dpc.rank_modes("ViT-B/16", None, "bfloat16", DP_B,
-                                  DP_ACCUM, SEED, DP_STEPS, list(dpc.MODES))
+                                  DP_ACCUM, SEED, DP_STEPS, list(dpc.MODES),
+                                  save_global=oracle_path)
     out["modes_s"] = time.time() - t0
 
     torch.cuda.reset_peak_memory_stats(dev)
@@ -3158,8 +3294,28 @@ def dp_nccl_rank() -> dict:
                                  DP_RANKS * DP_B, DP_ACCUM, SEED)
 
 
-def data_parallel_path(results: dict, packed_dir: str) -> dict:
-    """Phase 10 (module docstring): every rank a process on the one card."""
+def nccl_one_rank_path() -> dict:
+    """Phase 10's one-rank NCCL group (its own process): a
+    global-negatives ZeRO-1 step with the mesh bit-equal to the same step
+    with none."""
+    from clip_finegrained_alignment_tpu_torch.parallel.launch import spawn
+    t0 = time.time()
+    one = spawn(dp_nccl_rank, 1, timeout_s=300, device="cuda",
+                backend="nccl", env=dp_env())[0]
+    one["s"] = time.time() - t0
+    log("data parallel, one NCCL rank vs no mesh:", json.dumps(one))
+    check(one["backend"] == "nccl" and one["metrics_equal"]
+          and one["grads_equal"] and one["params_equal"],
+          f"one-rank NCCL step differs from mesh=None: {one}")
+    return one
+
+
+def data_parallel_path(results: dict, packed_dir: str,
+                       oracle_path: str, one: dict) -> dict:
+    """Phase 10 (module docstring): every rank a process on the one card
+    (``one``: :func:`nccl_one_rank_path`'s result). Its rank 0 writes its
+    global-negatives oracle to ``oracle_path``: phase 11's, the same
+    global batch and weights."""
     import numpy as np
     import torch
     from clip_finegrained_alignment_tpu_torch.cli import evaluate as cli_eval
@@ -3177,17 +3333,9 @@ def data_parallel_path(results: dict, packed_dir: str) -> dict:
     out = {"gpu": gpu_line(), "ranks": DP_RANKS, "rows_a_rank": DP_B,
            "accum": DP_ACCUM, "limits": DP_LIMITS,
            "note": "two ranks sharing one card over gloo (collectives staged "
-                   "through the host), not a scaling figure"}
+                   "through the host), not a scaling figure",
+           "nccl_one_rank": one}
     torch.cuda.empty_cache()
-    t0 = time.time()
-    one = spawn(dp_nccl_rank, 1, timeout_s=300, device="cuda",
-                backend="nccl", env=dp_env())[0]
-    one["s"] = time.time() - t0
-    out["nccl_one_rank"] = one
-    log("data parallel, one NCCL rank vs no mesh:", json.dumps(one))
-    check(one["backend"] == "nccl" and one["metrics_equal"]
-          and one["grads_equal"] and one["params_equal"],
-          f"one-rank NCCL step differs from mesh=None: {one}")
 
     work = tempfile.mkdtemp(prefix="cfa_dp_")
     prev_env = os.environ.get("CFA_ALLOW_HASH_TOKENIZER")
@@ -3195,9 +3343,11 @@ def data_parallel_path(results: dict, packed_dir: str) -> dict:
     load_state_dict = engine.Trainer.load_state_dict
     try:
         t0 = time.time()
-        ranks = spawn(dp_rank, DP_RANKS, (packed_dir, work), timeout_s=900,
+        ranks = spawn(dp_rank, DP_RANKS, (packed_dir, work, oracle_path),
+                      timeout_s=900,
                       device="cuda", backend="gloo", env=dp_env())
         out["gloo_spawn_s"] = time.time() - t0
+        out["modes_s_per_rank"] = [r["modes_s"] for r in ranks]
         r0, r1 = ranks
         out["probe"] = r0["probe"]
         log("data parallel, gloo on CUDA tensors:", json.dumps(r0["probe"]))
@@ -3356,6 +3506,255 @@ def data_parallel_path(results: dict, packed_dir: str) -> dict:
     return {"launches": launches}
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: tensor and pipeline parallelism (gloo ranks on one card)
+# ---------------------------------------------------------------------------
+
+def expected_mp_launches(mode: str, steps: int, layers: int) -> dict:
+    """A rank's launches in ``steps`` steps of a mode: #1 and #2 once a
+    layer this rank holds, a GPipe microbatch and a train microbatch
+    (tensor parallelism runs every layer at H/tp heads, a pipeline stage
+    its L/K layers on each of MP_MICRO microbatches); #3 and #4 once a
+    train microbatch on every rank (the loss is whole on every rank)."""
+    from clip_finegrained_alignment_tpu_torch.ops import _build
+    from clip_finegrained_alignment_tpu_torch.perf import \
+        model_parallel_check as mpc
+    pipe = mpc.MODES[mode][0]["pipe"]
+    per_micro = layers // pipe * (MP_MICRO if pipe > 1 else 1)
+    want = {n: 0 for n in _build.SOURCES}
+    want.update({"attention_fwd": steps * MP_ACCUM * per_micro,
+                 "attention_bwd": steps * MP_ACCUM * per_micro,
+                 "sparc_fwd": steps * MP_ACCUM,
+                 "sparc_bwd": steps * MP_ACCUM})
+    return want
+
+
+def mp_run_i_args(packed_dir: str, work: str, epochs: int) -> list:
+    return ["--model", "ViT-B/16", "--loss-type", "sparc", "--optimizer",
+            "adamspd", "--batch-size", str(MP_B), "--grad-accum",
+            str(MP_ACCUM), "--inverse-temperature", "0.07", "--save-every",
+            "1", "--packed", packed_dir, "--device-data", "--checkpoint-dir",
+            os.path.join(work, "ckpt"), "--experiment-name", "mp",
+            "--seed", str(SEED), "--log-every", "1", "--epochs", str(epochs),
+            "--global-negatives"]
+
+
+def mp_rank(modes: list, packed_dir, work, oracle_path) -> dict:
+    """One gloo rank on the card (spawned; the group is up): the modes
+    against their oracle (``perf/model_parallel_check.py``, the weights,
+    anchors and oracle read from ``oracle_path``), then, with
+    ``packed_dir``, run I of ``cli/train.py`` (TP x PP, 4 ranks)."""
+    import torch
+    import torch.distributed as dist
+    from clip_finegrained_alignment_tpu_torch.cli import train as cli_train
+    from clip_finegrained_alignment_tpu_torch.ops import _build
+    from clip_finegrained_alignment_tpu_torch.perf import \
+        model_parallel_check as mpc
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    out = {"rank": dist.get_rank()}
+    t0 = time.time()
+    out["modes"] = mpc.rank_modes("ViT-B/16", None, "bfloat16", MP_B,
+                                  MP_ACCUM, SEED, MP_STEPS, modes,
+                                  prepared=oracle_path)
+    out["modes_s"] = time.time() - t0
+    if packed_dir is None:
+        return out
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _build.reset_launch_counts()
+    t0 = time.time()
+    res = cli_train.main(mp_run_i_args(packed_dir, work, epochs=1)
+                         + ["--model-parallel", "2", "--pipeline-parallel",
+                            "2", "--pipeline-microbatches", str(MP_MICRO)])
+    torch.cuda.synchronize(dev)
+    out["I"] = {"launches": _build.launch_counts(),
+                "steps": res["trainer"].global_step,
+                "epoch_losses": [h["avg_loss"] for h in res["history"]],
+                "epoch_s": [h["seconds"] for h in res["history"]],
+                "peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+                "run_s": time.time() - t0}
+    return out
+
+
+def model_parallel_path(results: dict, packed_dir: str,
+                        oracle_path: str) -> dict:
+    """Phase 11 (module docstring): every rank a process on the one card,
+    over gloo; the one-process oracle is phase 10's (``oracle_path``: the
+    same weights, anchors and global batch), made here if it is not
+    there."""
+    import torch
+    from clip_finegrained_alignment_tpu_torch.cli import train as cli_train
+    from clip_finegrained_alignment_tpu_torch.config import CLIPConfig
+    from clip_finegrained_alignment_tpu_torch.ops import _build
+    from clip_finegrained_alignment_tpu_torch.parallel.launch import spawn
+    from clip_finegrained_alignment_tpu_torch.train import engine
+
+    from clip_finegrained_alignment_tpu_torch.perf import \
+        model_parallel_check as mpc
+
+    cfg = CLIPConfig.vit_b16()
+    layers = cfg.vision.num_layers + cfg.text.num_layers
+    out = {"gpu": gpu_line(), "global_batch": MP_B, "accum": MP_ACCUM,
+           "micro": MP_MICRO, "limits": MP_LIMITS,
+           "note": "gloo ranks sharing one card (collectives staged through "
+                   "the host), not a scaling figure"}
+    work = tempfile.mkdtemp(prefix="cfa_mp_")
+    prev_env = os.environ.get("CFA_ALLOW_HASH_TOKENIZER")
+    os.environ["CFA_ALLOW_HASH_TOKENIZER"] = "1"
+    load_state_dict = engine.Trainer.load_state_dict
+    launches = {n: 0 for n in _build.SOURCES}
+    try:
+        # The weights, anchors and one-process oracle, once for both
+        # spawns (its launches are not the ranks').
+        t0 = time.time()
+        if not os.path.exists(oracle_path):
+            mpc.prepare("ViT-B/16", None, "bfloat16", MP_B, MP_ACCUM, SEED,
+                        MP_STEPS, torch.device("cuda", 0), oracle_path)
+        out["oracle_s"] = time.time() - t0
+        all_ranks, out["modes"] = [], {}
+        for world, modes, with_run_i in ((2, ["tp2", "pp2"], False),
+                                         (4, ["tp2pp2", "dp2tp2"], True)):
+            torch.cuda.empty_cache()
+            t0 = time.time()
+            ranks = spawn(mp_rank, world,
+                          (modes, packed_dir if with_run_i else None, work,
+                           oracle_path),
+                          timeout_s=600, device="cuda", backend="gloo",
+                          env=dp_env())
+            out[f"spawn_{world}_s"] = time.time() - t0
+            all_ranks.append(ranks)
+            r0 = ranks[0]
+            for mode in modes:
+                res = r0["modes"][mode]
+                vs = res["vs_oracle"]
+                want = expected_mp_launches(mode, 1, layers)
+                row = {"mesh": res["mesh"], "vs_oracle": vs,
+                       "launches_per_rank": [r["modes"][mode]["launches"]
+                                             for r in ranks],
+                       "expected_launches": want,
+                       "step_ms_per_rank": [r["modes"][mode]["step_ms"]
+                                            for r in ranks],
+                       "peak_memory_gb_per_rank": [
+                           r["modes"][mode]["peak_memory_gb"]
+                           for r in ranks],
+                       "rank0_seconds": res["seconds"]}
+                out["modes"][mode] = row
+                log(f"model parallel {mode}:", json.dumps(row))
+                for r in ranks:
+                    check(r["modes"][mode]["metrics"] == res["metrics"],
+                          f"model parallel {mode}: rank {r['rank']}'s "
+                          "metrics differ from rank 0's")
+                    check(r["modes"][mode]["launches"] == want,
+                          f"model parallel {mode}: rank {r['rank']} "
+                          f"launches {r['modes'][mode]['launches']} != "
+                          f"{want}")
+                    for n in launches:
+                        launches[n] += r["modes"][mode]["launches"][n]
+                held = {k: (vs[k] >= lim if k.startswith("min_")
+                            else vs[k] <= lim)
+                        for k, lim in MP_LIMITS.items()}
+                check(all(held.values()),
+                      f"model parallel {mode} vs its oracle out of "
+                      f"MP_LIMITS: {held} {vs}")
+                check(vs["k_proj_bias_grad_share_of_norm"]
+                      <= TRAIN_MAX_ZERO_GRAD_SHARE,
+                      f"model parallel {mode}: k_proj bias share {vs}")
+        ranks = all_ranks[1]
+        # Run I: four ranks, TP x PP, one epoch of phase 8's data.
+        spe = CLI_SAMPLES // (MP_B * MP_ACCUM)
+        want_i = expected_mp_launches("tp2pp2", spe, layers)
+        i_row = {"ranks": [r["I"] for r in ranks], "expected": want_i}
+        for r in ranks:
+            check(r["I"]["steps"] == spe
+                  and all(map(math.isfinite, r["I"]["epoch_losses"])),
+                  f"train cli I: rank {r['rank']} {r['I']}")
+            check(r["I"]["launches"] == want_i,
+                  f"train cli I: rank {r['rank']} launches "
+                  f"{r['I']['launches']} != {want_i}")
+            check(r["I"]["epoch_losses"] == ranks[0]["I"]["epoch_losses"],
+                  "train cli I: the ranks' epoch losses differ")
+            for n in launches:
+                launches[n] += r["I"]["launches"][n]
+        # ... resumed by one process: the restored weights and optimizer
+        # state are best/'s bit for bit (its epoch is done: no step).
+        best = os.path.join(work, "ckpt", "mp", "best")
+        want_state = torch.load(os.path.join(best, "state.pt"),
+                                map_location="cpu", weights_only=True)
+        restored = {}
+
+        def spy_load(self, state):
+            load_state_dict(self, state)
+            restored["state"] = cpu_copy(self.state_dict())
+        engine.Trainer.load_state_dict = spy_load
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launch_counts()
+        t0 = time.time()
+        res = cli_train.main(mp_run_i_args(packed_dir, work, epochs=1)
+                             + ["--resume"])
+        torch.cuda.synchronize()
+        engine.Trainer.load_state_dict = load_state_dict
+        resume = {"launches": _build.launch_counts(),
+                  "steps": res["trainer"].global_step,
+                  "epoch_losses": [x["avg_loss"] for x in res["history"]],
+                  "run_s": time.time() - t0,
+                  "state_equal_to_best": same_state(restored.get("state"),
+                                                    want_state)}
+        del res, want_state, restored
+        torch.cuda.empty_cache()
+        i_row["resume_w1"] = resume
+        out["I"] = i_row
+        log("train cli I (4 gloo ranks, --model-parallel 2 "
+            "--pipeline-parallel 2), then --resume in one process:",
+            json.dumps(i_row))
+        check(resume["state_equal_to_best"],
+              "train cli I: the one-process resume did not restore best/ "
+              "exactly")
+        check(resume["steps"] == spe and not resume["epoch_losses"]
+              and not any(resume["launches"].values()),
+              f"train cli I resume: {resume}")
+        for n in launches:
+            launches[n] += resume["launches"][n]
+    finally:
+        engine.Trainer.load_state_dict = load_state_dict
+        if prev_env is None:
+            os.environ.pop("CFA_ALLOW_HASH_TOKENIZER", None)
+        else:
+            os.environ["CFA_ALLOW_HASH_TOKENIZER"] = prev_env
+        shutil.rmtree(work, ignore_errors=True)
+    log("model parallel:", json.dumps(
+        {"gpu": out["gpu"], "note": out["note"],
+         "step_ms_per_rank": {m: r["step_ms_per_rank"]
+                              for m, r in out["modes"].items()},
+         "peak_memory_gb_per_rank": {m: r["peak_memory_gb_per_rank"]
+                                     for m, r in out["modes"].items()}}))
+    results["model_parallel"] = out
+    return {"launches": launches}
+
+
+
+def beside(background, foreground):
+    """``foreground()`` while ``background()`` runs in a thread; returns
+    ``foreground``'s result once both are done, and raises what either
+    raised."""
+    failed = []
+
+    def run():
+        try:
+            background()
+        except BaseException as e:       # re-raised below
+            failed.append(e)
+    thread = threading.Thread(target=run)
+    thread.start()
+    try:
+        out = foreground()
+    finally:
+        thread.join()
+    if failed:
+        raise failed[0]
+    return out
 
 
 def main(argv=None) -> int:
@@ -3452,6 +3851,7 @@ def main(argv=None) -> int:
     fwd = check_attention(results)
     bwd = check_attention_backward(results)
     check_attention_masked_rows(results)
+    attention_mp = check_attention_mp(results)
     sparc_fwd, sparc_bwd = check_sparc(results)
     quant = check_quant(results)
     lap("3 kernels")
@@ -3474,8 +3874,19 @@ def main(argv=None) -> int:
         evaluation = eval_path(results, train_cli["best_dir"],
                                train_cli["held_out"])
         lap("9 eval")
-        data_parallel = data_parallel_path(results, train_cli["packed_dir"])
+        # Phase 9's CPU half beside phase 10's one-rank NCCL step: a CPU
+        # computation beside a process that times nothing.
+        one = beside(evaluation["vs_cpu"], nccl_one_rank_path)
+        lap("9-10 eval vs CPU, one NCCL rank")
+        # Phase 10's global-negatives oracle is phase 11's too.
+        oracle_path = os.path.join(keep_dir, "oracle.pt")
+        data_parallel = data_parallel_path(results, train_cli["packed_dir"],
+                                           oracle_path, one)
         lap("10 data parallel")
+        model_parallel = model_parallel_path(results,
+                                             train_cli["packed_dir"],
+                                             oracle_path)
+        lap("11 model parallel")
     finally:
         shutil.rmtree(keep_dir, ignore_errors=True)
     log("phase seconds:", json.dumps(phase_s))
@@ -3521,7 +3932,8 @@ def main(argv=None) -> int:
                "eval_openai": evaluation["launches_openai"],
                "train_quant": quant_train["launches"],
                "train_cli_quant": train_cli["launches_quant"],
-               "data_parallel": data_parallel["launches"]}
+               "data_parallel": data_parallel["launches"],
+               "model_parallel": model_parallel["launches"]}
     # The int8 passes replace no Pallas kernel: what XLA fuses in the JAX
     # package's int8 path (_absmax_quant, int8_matmul's epilogue).
     qref = ref + "quant.py:"
@@ -3544,6 +3956,13 @@ def main(argv=None) -> int:
             **({"graph_ms": row["graph_ms"]} if "graph_ms" in row else {}),
             **({"fp32_eval": evaluation["attention_fp32"]}
                if name == "attention_fwd" else {}),
+            **({"model_parallel_shapes": [
+                {"shape": r["shape"], "B": r["B"], "S": r["S"], "H": r["H"],
+                 "dtype": r["dtype"],
+                 **{k: r[name[-3:]][k] for k in (
+                     "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                     "max_abs_err")}} for r in attention_mp]}
+               if name in ("attention_fwd", "attention_bwd") else {}),
             **({"gradcache_pool": {
                 k: gradcache["sparc"][pool][name[-3:]][k]
                 for k in ("B", "ms", "graph_ms", "plain_ms", "bound_ms",

@@ -39,16 +39,34 @@ loss sees its own rows and the gradients are averaged (the reference's
 DDP); with it the contrastive terms see the global batch. ``--zero1``
 shards the optimizer state, ``--fsdp`` (with ``--global-negatives``) the
 parameters too. Rank 0 prints, logs and writes the checkpoints (whole
-tensors, which resume at any rank count). ``--model-parallel``,
-``--pipeline-parallel``, ``--pipeline-microbatches``,
-``--sequence-parallel`` and ``--sp-ring`` are accepted and refused: they
-are ROADMAP A6b.
+tensors, which resume at any layout and rank count).
+
+Tensor and pipeline parallelism (with ``--global-negatives``, as in
+JAX)::
+
+    torchrun --nproc_per_node 8 -m \
+        clip_finegrained_alignment_tpu_torch.cli.train --packed DIR \
+        --device-data --model ViT-B/16 --batch-size 256 \
+        --global-negatives --model-parallel 2 --pipeline-parallel 2 \
+        --pipeline-microbatches 4
+
+lays the W ranks out as ``data × model × pipe`` with data = W / (model ·
+pipe) (``parallel/mesh.py``): ``--model-parallel`` splits every encoder
+layer Megatron-style, ``--pipeline-parallel`` cuts both towers' layers
+into GPipe stages, each train microbatch split into
+``--pipeline-microbatches`` (default 2 x the stages). ``--batch-size``
+must divide by the data degree; ranks that share a data coordinate read
+the same shard. ``--zero1`` and ``--fsdp`` compose with both.
+``--sequence-parallel`` and ``--sp-ring`` exit: sequence parallelism is
+ROADMAP A6c. ``--quant`` with ``--model-parallel`` exits too (A6d).
 
 Left out, against the JAX CLI: the TPU knobs (``--pallas``,
 ``--fused-sparc``, ``--remat``, ``--unroll-*``, ``--unstack-layers``).
 ``--eval-every-epoch`` (count loss only) holds out the first batch of
 epoch 0 and runs ``eval/batch_eval.py::evaluate_batch`` on it in fp32 on
-the trainer's master weights, before training (when the run starts at
+the trainer's master weights (under ``--model-parallel`` or
+``--pipeline-parallel`` gathered whole, then evaluated by rank 0), before
+training (when the run starts at
 epoch 0) and after every epoch, between the epochs' timings; it logs
 ``count_eval_accuracy`` and writes ``confusion_{pretrain|epoch_<n>}.png``
 into the checkpoint directory. ``--pretrained`` takes a local
@@ -145,14 +163,20 @@ def build_parser() -> argparse.ArgumentParser:
                    help="shard the parameters too (FSDP): gathered for "
                         "each step, gradients reduce-scattered. Subsumes "
                         "--zero1; requires --global-negatives")
-    for flag in ("--model-parallel", "--pipeline-parallel",
-                 "--sequence-parallel"):
-        p.add_argument(flag, type=int, default=1,
-                       help="not ported yet (ROADMAP A6b): above 1 exits")
+    p.add_argument("--model-parallel", type=int, default=1,
+                   help="tensor-parallel degree (Megatron column/row "
+                        "splits of every encoder layer); requires "
+                        "--global-negatives")
+    p.add_argument("--pipeline-parallel", type=int, default=1,
+                   help="pipeline stages (GPipe over both towers' "
+                        "encoder layers); requires --global-negatives")
     p.add_argument("--pipeline-microbatches", type=int, default=0,
-                   help="not ported yet (ROADMAP A6b): above 0 exits")
+                   help="GPipe microbatches a train microbatch (0 = 2 x "
+                        "the stages)")
+    p.add_argument("--sequence-parallel", type=int, default=1,
+                   help="not ported yet (ROADMAP A6c): above 1 exits")
     p.add_argument("--sp-ring", action="store_true",
-                   help="not ported yet (ROADMAP A6b): exits")
+                   help="not ported yet (ROADMAP A6c): exits")
     p.add_argument("--bpe-path", default=None,
                    help="CLIP BPE vocab (bpe_simple_vocab_16e6.txt.gz or "
                         "an HF tokenizer dir). Required unless "
@@ -253,9 +277,20 @@ def main(argv=None) -> Dict[str, Any]:
     world = pmesh.world_size()
     writer = pmesh.rank() == 0
     say = print if writer else (lambda *a, **k: None)
-    if args.batch_size % world:
+    degree = args.model_parallel * args.pipeline_parallel
+    if degree > 1 and not args.global_negatives:
+        raise SystemExit("--model-parallel/--pipeline-parallel > 1 require "
+                         "--global-negatives: the DDP-parity shard_map path "
+                         "assumes replicated params (train/engine.py)")
+    if world % degree:
+        raise SystemExit(f"--model-parallel {args.model_parallel} x "
+                         f"--pipeline-parallel {args.pipeline_parallel} "
+                         f"must divide the world size ({world} processes)")
+    data = world // degree
+    if args.batch_size % data:
         raise SystemExit(f"--batch-size {args.batch_size} must be divisible "
-                         f"by the data-parallel degree ({world} processes)")
+                         f"by the data-parallel degree ({data} of {world} "
+                         "processes)")
     cfg = TrainConfig(
         lr=args.lr, batch_size=args.batch_size,
         gradient_accumulation_steps=args.grad_accum,
@@ -270,15 +305,17 @@ def main(argv=None) -> Dict[str, Any]:
         log_every=args.log_every, grad_cache=args.grad_cache,
         quant=args.quant, global_negatives=args.global_negatives,
         zero1=args.zero1, fsdp=args.fsdp,
-        mesh=MeshConfig(data=world, model=args.model_parallel,
+        mesh=MeshConfig(data=data, model=args.model_parallel,
                         pipe=args.pipeline_parallel),
         pipeline_microbatches=args.pipeline_microbatches,
         sequence_parallel=args.sequence_parallel > 1, sp_ring=args.sp_ring)
-    try:   # the layouts the step refuses (A6b among them) exit here
+    try:   # the layouts the step refuses (A6c among them) exit here
         check_parallel(cfg)
     except ValueError as e:
         raise SystemExit(str(e)) from None
     mesh = pmesh.make_mesh(cfg.mesh, device) if world > 1 else None
+    shard = {} if mesh is None else {"process_index": mesh.data_rank,
+                                     "process_count": mesh.data}
     if cfg.grad_cache:
         from ..train.gradcache import validate_gradcache
         try:
@@ -288,8 +325,9 @@ def main(argv=None) -> Dict[str, Any]:
     if writer:
         cfg.print_config()
     model_cfg = cfg.model_config()
-    # Each rank's pipeline reads its own shard at its share of the batch.
-    rank_batch = cfg.effective_batch_size // world
+    # Each rank's pipeline reads its data coordinate's shard at its share
+    # of the batch.
+    rank_batch = cfg.effective_batch_size // data
 
     # ---------------- data ----------------
     mode = "counterfactual" if args.loss_type == "count" else "standard"
@@ -301,7 +339,7 @@ def main(argv=None) -> Dict[str, Any]:
             expect_mode=mode,
             expect_image_size=model_cfg.vision.image_size,
             expect_context_length=model_cfg.text.max_position_embeddings,
-            index_only=args.device_data)
+            index_only=args.device_data, **shard)
         say(f"packed dataset: {pipeline._num_samples()} samples, "
             f"{pipeline.steps_per_epoch()} steps/epoch"
             + (f", {pipeline.pixel_bank_bytes() / 1e9:.3f} GB pixel bank "
@@ -322,7 +360,7 @@ def main(argv=None) -> Dict[str, Any]:
             dataset, rank_batch, mode=mode,
             image_size=model_cfg.vision.image_size,
             context_length=model_cfg.text.max_position_embeddings,
-            tokenizer=tokenizer, seed=cfg.seed)
+            tokenizer=tokenizer, seed=cfg.seed, **shard)
         image_path = "native" if pipeline._native else "PIL"
         say(f"dataset: {len(dataset)} samples, "
             f"{pipeline.steps_per_epoch()} steps/epoch, image decode: "
@@ -394,16 +432,24 @@ def main(argv=None) -> Dict[str, Any]:
     metrics_log = MetricsLogger(args.metrics_file if writer else None)
     meter = ThroughputMeter()
 
-    def count_eval(tag: str, step: int) -> float:
+    evaluating = args.eval_every_epoch and mode == "counterfactual"
+    # Under tensor or pipeline parallelism the model is in parts: every
+    # rank gathers it whole (a collective) and rank 0 evaluates that copy.
+    in_parts = mesh is not None and (mesh.model > 1 or mesh.pipe > 1)
+
+    def count_eval(tag: str, step: int, what: str) -> None:
+        model = trainer.model_state() if in_parts else trainer.model
+        if eval_batch is None:
+            return
         acc, _, _ = evaluate_batch(
-            trainer.model, model_cfg, eval_batch, dtype=torch.float32,
+            model, model_cfg, eval_batch, device=device, dtype=torch.float32,
             filename=os.path.join(ckpt_dir, f"confusion_{tag}.png"))
         metrics_log.log(step, count_eval_accuracy=acc)
-        return acc
+        say(f"{what} counting-eval accuracy: {acc:.3f}")
 
     # The counting eval's held-out batch: the first of epoch 0.
     eval_batch = None
-    if args.eval_every_epoch and mode == "counterfactual" and writer:
+    if evaluating and writer:
         eval_batch = next(iter(pipeline.epoch(0)))
         if args.device_data:   # the eval needs pixels, not bank indices
             eval_batch = pipeline.materialize(eval_batch)
@@ -447,9 +493,8 @@ def main(argv=None) -> Dict[str, Any]:
     try:
         # Evaluated before training too: the chance-level anchor of the
         # accuracy curve (not on resume; the anchor belongs to step 0).
-        if eval_batch is not None and start_epoch == 0:
-            acc = count_eval("pretrain", 0)
-            say(f"pre-training counting-eval accuracy: {acc:.3f}")
+        if evaluating and start_epoch == 0:
+            count_eval("pretrain", 0, "pre-training")
         for epoch in range(start_epoch, args.epochs):
             out = trainer.train(batches, num_epochs=epoch + 1,
                                 start_epoch=epoch,
@@ -461,9 +506,9 @@ def main(argv=None) -> Dict[str, Any]:
                     f"(resume with --resume <that path>)")
                 result["preempted"] = True
                 return result
-            if eval_batch is not None:
-                acc = count_eval(f"epoch_{epoch}", trainer.global_step)
-                say(f"epoch {epoch} counting-eval accuracy: {acc:.3f}")
+            if evaluating:
+                count_eval(f"epoch_{epoch}", trainer.global_step,
+                           f"epoch {epoch}")
     finally:
         if profiling["active"]:  # the run ended before the stop step
             profile.close()

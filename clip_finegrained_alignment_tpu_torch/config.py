@@ -9,12 +9,13 @@ the parallel fields among them. Not carried: the TPU-only knobs
 (``remat``, ``unroll*``, ``unstack_layers``, ``use_pallas_attention``,
 ``use_fused_sparc``), since the port always runs its kernels.
 
-``mesh.data`` is the number of data-parallel processes (one a GPU,
-``parallel/mesh.py``). ``mesh.model > 1``, ``mesh.pipe > 1``,
-``pipeline_microbatches``, ``sequence_parallel`` and ``sp_ring`` are
-accepted here, so that a JAX ``meta.json`` round-trips, and refused where
-a step is built (``train/engine.py``): tensor, pipeline and sequence
-parallelism are ROADMAP A6b.
+``mesh`` lays the processes (one a GPU, ``parallel/mesh.py``) out as
+``data × model × pipe``: data-parallel, tensor-parallel and pipeline
+ranks; ``pipeline_microbatches`` is the GPipe split of a train
+microbatch (``parallel/pipeline.py``). ``sequence_parallel`` and
+``sp_ring`` are accepted here, so that a JAX ``meta.json`` round-trips,
+and refused where a step is built (``train/engine.py``): sequence
+parallelism is ROADMAP A6c.
 """
 
 from __future__ import annotations
@@ -136,7 +137,9 @@ class CLIPConfig:
 @dataclass(frozen=True)
 class MeshConfig:
     """The process layout: ``data`` data-parallel ranks (batch-sharded),
-    ``model`` tensor-parallel and ``pipe`` pipeline ranks (both A6b)."""
+    ``model`` tensor-parallel ranks (Megatron splits of the encoder
+    layers) and ``pipe`` pipeline stages (GPipe over the encoder
+    layers)."""
     data: int = 1
     model: int = 1
     pipe: int = 1
@@ -195,8 +198,10 @@ class TrainConfig:
     zero1: bool = False                   # optimizer state sharded over data
     fsdp: bool = False                    # parameters too; needs
     #                                       global_negatives, excludes zero1
-    # Accepted for meta.json round trips; refused by the train step (A6b).
+    # GPipe microbatches a train microbatch under mesh.pipe > 1 (0 = 2 x
+    # the stages; parallel/pipeline.py).
     pipeline_microbatches: int = 0
+    # Accepted for meta.json round trips; refused by the train step (A6c).
     sequence_parallel: bool = False
     sp_ring: bool = False
 

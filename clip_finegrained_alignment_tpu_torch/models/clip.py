@@ -31,6 +31,23 @@ casts in the functions are then no-ops and the numbers are unchanged.
 Training (:func:`build_train_model`) keeps fp32 master parameters and lets
 the per-call casts run, as the JAX package does; their gradients flow back
 through the casts to fp32.
+
+Tensor and pipeline parallelism (``build_train_model(..., mesh=...)``
+with ``mesh.model`` or ``mesh.pipe`` above 1; ``parallel/``): the model
+holds this rank's part, under the whole model's HF names.
+
+* **TP** (``parallel/sharding_rules.py::tp_dim``): q, k, v and fc1 are
+  column-parallel (their weight's and bias's rows split), out_proj and fc2
+  row-parallel (their weight's columns split; the bias whole, added once
+  after the all-reduce). A rank runs H/tp heads at the same head dim,
+  between Megatron's ``copy_to_model`` and ``reduce_from_model``
+  (``parallel/collectives.py``). ``quant`` is refused with TP
+  (``train/engine.py::check_parallel``, ROADMAP A6d): a shard would take
+  the absmax of its part of a split contraction, not the whole row's.
+* **PP** (``parallel/pipeline.py``): each tower's encoder holds layers
+  ``[s·L/K, (s+1)·L/K)`` of stage s (an ``nn.ModuleDict`` keyed by the
+  global layer index, so the names stay the whole model's) and runs them
+  in the GPipe schedule; only stage 0 computes the embeddings.
 """
 
 from __future__ import annotations
@@ -121,45 +138,80 @@ def patch_kernel(conv_weight: torch.Tensor) -> torch.Tensor:
 # Modules (parameter containers with HF names)
 # ---------------------------------------------------------------------------
 
+class TP(NamedTuple):
+    """A rank's tensor-parallel share: its process group of ``size``."""
+    group: object
+    size: int
+
+
+def _column_input(x, tp: Optional[TP]):
+    """A column-parallel layer's input: under TP, through
+    ``copy_to_model`` (its backward sums dx over the shards)."""
+    if tp is not None:
+        from ..parallel.collectives import copy_to_model
+        x = copy_to_model(x, tp.group)
+    return x
+
+
+def _row(lin: nn.Linear, x, dtype, quant, tp: Optional[TP]):
+    """A row-parallel layer: under TP the partial product summed over the
+    model ranks, then the whole bias, once."""
+    if tp is None:
+        return _apply(lin, x, dtype, quant)
+    from ..parallel.collectives import reduce_from_model
+    y = reduce_from_model(_linear_fn(quant)(x, lin.weight, None, dtype),
+                          tp.group)
+    return y + lin.bias.to(y.dtype)
+
+
 class Attention(nn.Module):
-    def __init__(self, d: int, num_heads: int):
+    def __init__(self, d: int, num_heads: int, tp: Optional[TP] = None):
         super().__init__()
-        self.num_heads = num_heads
-        self.q_proj = nn.Linear(d, d)
-        self.k_proj = nn.Linear(d, d)
-        self.v_proj = nn.Linear(d, d)
-        self.out_proj = nn.Linear(d, d)
+        n = 1 if tp is None else tp.size
+        self.tp = tp
+        self.num_heads = num_heads // n     # this rank's heads
+        self.q_proj = nn.Linear(d, d // n)
+        self.k_proj = nn.Linear(d, d // n)
+        self.v_proj = nn.Linear(d, d // n)
+        self.out_proj = nn.Linear(d // n, d)
 
     def forward(self, x, bias, dtype, quant="none"):
-        B, S, D = x.shape
+        x = _column_input(x, self.tp)
+        B, S, _ = x.shape
         H = self.num_heads
+        D = self.q_proj.weight.shape[0]     # this rank's H heads
         heads = (lambda y: y.view(B, S, H, D // H))
         q = heads(_apply(self.q_proj, x, dtype, quant))
         k = heads(_apply(self.k_proj, x, dtype, quant))
         v = heads(_apply(self.v_proj, x, dtype, quant))
         out = flash_attention(q, k, v, bias, (D // H) ** -0.5)
-        return _apply(self.out_proj, out.reshape(B, S, D), dtype, quant)
+        return _row(self.out_proj, out.reshape(B, S, D), dtype, quant,
+                    self.tp)
 
 
 class MLP(nn.Module):
-    def __init__(self, d: int, d_ff: int):
+    def __init__(self, d: int, d_ff: int, tp: Optional[TP] = None):
         super().__init__()
-        self.fc1 = nn.Linear(d, d_ff)
-        self.fc2 = nn.Linear(d_ff, d)
+        n = 1 if tp is None else tp.size
+        self.tp = tp
+        self.fc1 = nn.Linear(d, d_ff // n)
+        self.fc2 = nn.Linear(d_ff // n, d)
 
     def forward(self, x, dtype, quant="none"):
+        x = _column_input(x, self.tp)
         h = quick_gelu(_apply(self.fc1, x, dtype, quant))
-        return _apply(self.fc2, h, dtype, quant)
+        return _row(self.fc2, h, dtype, quant, self.tp)
 
 
 class EncoderLayer(nn.Module):
     """Pre-LN block: x + attn(ln1(x)), then + mlp(ln2(·))."""
 
-    def __init__(self, d: int, d_ff: int, num_heads: int, eps: float):
+    def __init__(self, d: int, d_ff: int, num_heads: int, eps: float,
+                 tp: Optional[TP] = None):
         super().__init__()
-        self.self_attn = Attention(d, num_heads)
+        self.self_attn = Attention(d, num_heads, tp)
         self.layer_norm1 = nn.LayerNorm(d, eps=eps)
-        self.mlp = MLP(d, d_ff)
+        self.mlp = MLP(d, d_ff, tp)
         self.layer_norm2 = nn.LayerNorm(d, eps=eps)
 
     def forward(self, x, bias, dtype, quant="none"):
@@ -169,15 +221,37 @@ class EncoderLayer(nn.Module):
 
 
 class Encoder(nn.Module):
-    def __init__(self, d, d_ff, num_heads, eps, num_layers):
-        super().__init__()
-        self.layers = nn.ModuleList(
-            EncoderLayer(d, d_ff, num_heads, eps) for _ in range(num_layers))
+    """The layer stack, in an ``nn.ModuleDict`` keyed by the global layer
+    index (HF's names). ``tp``: tensor-parallel layers. ``pipeline``
+    (``parallel/pipeline.py::GPipe``): only this stage's layers, run in
+    its schedule."""
 
-    def forward(self, x, bias, dtype, quant="none"):
-        for layer in self.layers:
+    def __init__(self, d, d_ff, num_heads, eps, num_layers,
+                 tp: Optional[TP] = None, pipeline=None):
+        super().__init__()
+        self.pipeline = pipeline
+        per, lo = num_layers, 0
+        if pipeline is not None:
+            per = num_layers // pipeline.stages
+            lo = pipeline.stage * per
+        self.layers = nn.ModuleDict(
+            {str(i): EncoderLayer(d, d_ff, num_heads, eps, tp)
+             for i in range(lo, lo + per)})
+
+    def _run(self, x, bias, dtype, quant):
+        for layer in self.layers.values():
             x = layer(x, bias, dtype, quant)
         return x
+
+    def forward(self, x, bias, dtype, quant="none", shape=None):
+        """``x`` [B, S, D] (under a pipeline: the embeddings on stage 0,
+        None on the others, and ``shape`` the rows' [B, S, D])."""
+        if self.pipeline is None:
+            return self._run(x, bias, dtype, quant)
+        return self.pipeline.run(
+            lambda h, b: self._run(h, b, dtype, quant), x, bias, shape,
+            dtype, bias.device if bias is not None else
+            next(self.parameters()).device)
 
 
 class TowerOutput(NamedTuple):
@@ -195,28 +269,39 @@ class VisionEmbeddings(nn.Module):
         self.position_embedding = nn.Embedding(cfg.seq_len, cfg.hidden_size)
 
 
+def _embeds(pipeline) -> bool:
+    """Whether this rank computes the embeddings: all but the pipeline's
+    later stages."""
+    return pipeline is None or pipeline.first
+
+
 class VisionTransformer(nn.Module):
-    def __init__(self, cfg: VisionConfig):
+    def __init__(self, cfg: VisionConfig, tp: Optional[TP] = None,
+                 pipeline=None):
         super().__init__()
         self.cfg = cfg
         d, eps = cfg.hidden_size, cfg.layer_norm_eps
         self.embeddings = VisionEmbeddings(cfg)
         self.pre_layrnorm = nn.LayerNorm(d, eps=eps)  # HF's spelling
         self.encoder = Encoder(d, cfg.intermediate_size, cfg.num_heads, eps,
-                               cfg.num_layers)
+                               cfg.num_layers, tp, pipeline)
         self.post_layernorm = nn.LayerNorm(d, eps=eps)
 
     def forward(self, pixel_values, dtype, quant="none") -> TowerOutput:
         """``pixel_values``: [B, H, W, 3] NHWC, normalized."""
         e = self.embeddings
-        x = patchify(pixel_values.to(dtype), self.cfg.patch_size)
-        x = _linear_fn(quant)(x, patch_kernel(e.patch_embedding.weight),
-                              None, dtype)
-        cls = e.class_embedding.to(dtype).expand(x.shape[0], 1, -1)
-        x = torch.cat([cls, x], dim=1)
-        x = x + e.position_embedding.weight.to(dtype)[None]
-        x = layer_norm(self.pre_layrnorm, x)
-        x = self.encoder(x, None, dtype, quant)
+        x = None
+        if _embeds(self.encoder.pipeline):
+            x = patchify(pixel_values.to(dtype), self.cfg.patch_size)
+            x = _linear_fn(quant)(x, patch_kernel(e.patch_embedding.weight),
+                                  None, dtype)
+            cls = e.class_embedding.to(dtype).expand(x.shape[0], 1, -1)
+            x = torch.cat([cls, x], dim=1)
+            x = x + e.position_embedding.weight.to(dtype)[None]
+            x = layer_norm(self.pre_layrnorm, x)
+        x = self.encoder(x, None, dtype, quant,
+                         shape=(pixel_values.shape[0], self.cfg.seq_len,
+                                self.cfg.hidden_size))
         pooled = layer_norm(self.post_layernorm, x[:, 0])
         return TowerOutput(last_hidden_state=x, pooled=pooled)
 
@@ -242,13 +327,14 @@ def text_attention_bias(seq_len: int, attention_mask: Optional[torch.Tensor],
 
 
 class TextTransformer(nn.Module):
-    def __init__(self, cfg: TextConfig):
+    def __init__(self, cfg: TextConfig, tp: Optional[TP] = None,
+                 pipeline=None):
         super().__init__()
         self.cfg = cfg
         d, eps = cfg.hidden_size, cfg.layer_norm_eps
         self.embeddings = TextEmbeddings(cfg)
         self.encoder = Encoder(d, cfg.intermediate_size, cfg.num_heads, eps,
-                               cfg.num_layers)
+                               cfg.num_layers, tp, pipeline)
         self.final_layer_norm = nn.LayerNorm(d, eps=eps)
 
     def forward(self, input_ids, dtype, attention_mask=None,
@@ -258,10 +344,13 @@ class TextTransformer(nn.Module):
         e = self.embeddings
         B, T = input_ids.shape
         ids = input_ids.long()
-        x = F.embedding(ids, e.token_embedding.weight.to(dtype))
-        x = x + e.position_embedding.weight.to(dtype)[None, :T]
-        bias = text_attention_bias(T, attention_mask, x.device)
-        x = self.encoder(x, bias, dtype, quant)
+        x = None
+        if _embeds(self.encoder.pipeline):
+            x = F.embedding(ids, e.token_embedding.weight.to(dtype))
+            x = x + e.position_embedding.weight.to(dtype)[None, :T]
+        bias = text_attention_bias(T, attention_mask, ids.device)
+        x = self.encoder(x, bias, dtype, quant,
+                         shape=(B, T, self.cfg.hidden_size))
         x = layer_norm(self.final_layer_norm, x)
         eos_pos = (ids == self.cfg.eos_token_id).int().argmax(dim=-1)
         pooled = x[torch.arange(B, device=x.device), eos_pos]
@@ -281,11 +370,15 @@ class CLIPOutput(NamedTuple):
 
 
 class CLIPModel(nn.Module):
-    def __init__(self, cfg: CLIPConfig):
+    def __init__(self, cfg: CLIPConfig, tp: Optional[TP] = None,
+                 pipeline=None):
+        """``tp``, ``pipeline``: this rank's tensor-parallel share and
+        pipeline schedule (:func:`build_train_model` with a mesh)."""
         super().__init__()
         self.cfg = cfg
-        self.vision_model = VisionTransformer(cfg.vision)
-        self.text_model = TextTransformer(cfg.text)
+        self.pipeline = pipeline
+        self.vision_model = VisionTransformer(cfg.vision, tp, pipeline)
+        self.text_model = TextTransformer(cfg.text, tp, pipeline)
         self.visual_projection = nn.Linear(cfg.vision.hidden_size,
                                            cfg.projection_dim, bias=False)
         self.text_projection = nn.Linear(cfg.text.hidden_size,
@@ -358,23 +451,60 @@ def sparc_embeddings(model: CLIPModel, out: CLIPOutput, *,
     return v, l
 
 
-def _load(cfg: CLIPConfig, state_dict, dev) -> CLIPModel:
+def _load(cfg: CLIPConfig, state_dict, dev, tp: Optional[TP] = None,
+          pipeline=None, mesh=None, copy: bool = False) -> CLIPModel:
+    """A :class:`CLIPModel` (this rank's part under ``tp`` / ``pipeline``)
+    built on the meta device and given ``state_dict``'s tensors, on
+    ``dev`` in fp32; with ``copy``, copies of this rank's parts of them
+    (:func:`local_state`)."""
     with torch.device("meta"):
-        model = CLIPModel(cfg)
+        model = CLIPModel(cfg, tp, pipeline)
+    if copy:
+        state_dict = local_state(model, state_dict, mesh)
     model.load_state_dict(state_dict, strict=True, assign=True)
     return model.to(device=dev, dtype=torch.float32)
 
 
 def build_train_model(cfg: CLIPConfig, state_dict, *,
-                      device="cuda") -> CLIPModel:
+                      device="cuda", mesh=None,
+                      num_micro: int = 0) -> CLIPModel:
     """A trainable :class:`CLIPModel` holding a copy of ``state_dict``
     (HF names, ``strict=True``) on ``device``: fp32 master parameters that
     require grad, never cast (the forward casts per call). The optimizer
-    updates them in place, so they never alias the caller's tensors."""
-    dev = resolve_device(device)
-    model = _load(cfg, {k: v.detach().clone() for k, v in state_dict.items()},
-                  dev)
+    updates them in place, so they never alias the caller's tensors.
+
+    ``mesh`` with ``model`` or ``pipe`` above 1 (``parallel/mesh.py``):
+    the whole ``state_dict`` is cut down to this rank's tensor-parallel
+    shards and pipeline stage (:func:`local_state`); ``num_micro``: the
+    pipeline's microbatches an encoder call
+    (``parallel/pipeline.py::default_num_micro``)."""
+    tp = pipeline = None
+    if mesh is not None and mesh.model > 1:
+        tp = TP(mesh.group("model"), mesh.model)
+    if mesh is not None and mesh.pipe > 1:
+        from ..parallel.pipeline import GPipe, default_num_micro
+        pipeline = GPipe(mesh, default_num_micro(mesh.pipe, num_micro))
+    model = _load(cfg, state_dict, resolve_device(device), tp, pipeline,
+                  mesh, copy=True)
     return model.requires_grad_(True).train()
+
+
+def local_state(model: CLIPModel, state_dict, mesh) -> dict:
+    """Copies of the entries of a whole (HF-named) ``state_dict`` that
+    ``model`` (this rank's part) holds, each cut to this rank's
+    tensor-parallel shard; all of them, whole, without tensor or pipeline
+    parallelism (so that ``strict`` loading still sees every key)."""
+    from ..parallel.sharding_rules import tp_dim
+    if mesh is None or (mesh.model == 1 and mesh.pipe == 1):
+        return {k: v.detach().clone() for k, v in state_dict.items()}
+    out = {}
+    for name in model.state_dict():
+        t = state_dict[name].detach()
+        d = tp_dim(name) if mesh.model > 1 else None
+        if d is not None:
+            t = t.chunk(mesh.model, d)[mesh.model_rank]
+        out[name] = t.clone()
+    return out
 
 
 def build_model(cfg: CLIPConfig, state_dict, *, device="cuda",

@@ -19,15 +19,16 @@ when asked, optax's linear warmup from 0 over ``warmup_steps``).
   (AdamSPD's anchors, moments and step; AdamW's moments and steps) and the
   update count the schedule reads, so a checkpoint resumes the same
   trajectory.
-* ZeRO-1 and FSDP (``make_optimizer(..., mesh=...)`` with ``cfg.zero1``
-  or ``cfg.fsdp``): the inner optimizer steps this rank's shards
-  (``parallel/zero.py::ShardLayout``), AdamSPD's per-tensor sums are
-  added over the ranks in one all-reduce a step, and the state dict is
-  gathered whole (every rank takes part), in the replicated format, so a
-  checkpoint restores at any rank count. Under ZeRO-1 the norm and the
-  clip read the whole (mean) gradients; under FSDP, which holds only
-  shards of them, the norm is the square root of the shards' squares
-  summed over the ranks.
+* ZeRO-1, FSDP, tensor and pipeline parallelism
+  (``make_optimizer(..., mesh=...)`` with ``cfg.zero1`` or ``cfg.fsdp``,
+  or a mesh with ``model`` or ``pipe`` above 1): the inner optimizer
+  steps this rank's shards (``parallel/zero.py::ShardLayout``), AdamSPD's
+  per-tensor sums are added over every rank's parts of each tensor in one
+  all-reduce a step, and so are the gradient norm's squares, each tensor
+  counted once (a tensor-parallel shard's parts summed, a tensor
+  replicated over model ranks or stages counted on one); the state dict
+  is gathered whole (every rank takes part), in the replicated format,
+  so a checkpoint restores at any layout and rank count.
 """
 
 from __future__ import annotations
@@ -72,15 +73,18 @@ class ClippedOptimizer:
     def __init__(self, optimizer: torch.optim.Optimizer,
                  max_grad_norm: float,
                  schedule: Optional[Callable[[int], float]] = None,
-                 layout=None):
+                 layout=None, groups=None):
         """``schedule``: the learning rate of update ``count`` (0 for the
         first), set on every group before the update; None keeps the
         groups' own. ``layout``: the ``ShardLayout`` whose shards
-        ``optimizer`` steps (ZeRO-1, FSDP), or None."""
+        ``optimizer`` steps (ZeRO-1, FSDP, tensor and pipeline
+        parallelism), or None; ``groups``: then the whole model's
+        optimizer groups, by parameter name (the checkpoints' layout)."""
         self.optimizer = optimizer
         self.max_grad_norm = max_grad_norm
         self.schedule = schedule
         self.layout = layout
+        self.groups = groups
         self.count = 0
 
     @property
@@ -96,14 +100,13 @@ class ClippedOptimizer:
         layout = self.layout
         if layout is not None and layout.fsdp:
             grads = [s.grad for s in layout.shards]
-            norm = layout.grad_norm()
         else:
             params = self.params if layout is None else layout.params
             for p in params:
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
             grads = [p.grad for p in params]
-            norm = global_norm(grads)
+        norm = global_norm(grads) if layout is None else layout.grad_norm()
         if self.max_grad_norm and self.max_grad_norm > 0:
             keep = norm < self.max_grad_norm
             for g in grads:
@@ -126,6 +129,9 @@ class ClippedOptimizer:
         sd = self.optimizer.state_dict()
         if self.layout is not None:
             sd = self.layout.full_optimizer_state(sd, self._order())
+            if self.layout.model_parallel:
+                sd = self.layout.whole_optimizer_state(sd, self._order(),
+                                                       self.groups)
         return {"optimizer": sd, "count": self.count}
 
     def load_state_dict(self, state: dict) -> None:
@@ -133,6 +139,10 @@ class ClippedOptimizer:
         kind over the same parameters, at any rank count (tensors go to
         the parameters' device)."""
         sd = state["optimizer"]
+        if self.layout is not None and self.layout.model_parallel:
+            sd = self.layout.local_optimizer_state(
+                sd, self._order(), self.groups,
+                self.optimizer.state_dict()["param_groups"])
         if self.layout is not None:
             sd = self.layout.shard_optimizer_state(sd, self._order())
         self.optimizer.load_state_dict(sd)
@@ -150,20 +160,25 @@ def make_optimizer(cfg: TrainConfig,
     """Clip by ``cfg.max_grad_norm`` (0 = no clip), then AdamSPD (one
     group, anchors = ``anchors`` or the parameters now) or AdamW with
     :func:`decay_mask`, at :func:`make_schedule`'s learning rate. With a
-    ``mesh`` and ``cfg.zero1`` or ``cfg.fsdp`` it steps this rank's
-    shards (FSDP also releases the model's whole parameters)."""
+    ``mesh`` and ``cfg.zero1`` or ``cfg.fsdp``, or a ``mesh`` with
+    ``model`` or ``pipe`` above 1 (``named_params``: this rank's part of
+    the model), it steps this rank's shards (FSDP also releases the
+    model's whole parameters); ``anchors`` are whole tensors, cut here."""
     named = [(n, p) for n, p in named_params if p.requires_grad]
     schedule = make_schedule(cfg, use_warmup)
     lr = schedule(0) if callable(schedule) else schedule
     layout = None
-    if mesh is not None and (cfg.zero1 or cfg.fsdp):
+    if mesh is not None and (cfg.zero1 or cfg.fsdp or mesh.model > 1
+                             or mesh.pipe > 1):
         from ..parallel.zero import ShardLayout
-        layout = ShardLayout(named, mesh, fsdp=cfg.fsdp)
+        layout = ShardLayout(named, mesh, fsdp=cfg.fsdp,
+                             data_sharded=cfg.zero1 or cfg.fsdp)
         named = list(zip(layout.names, layout.shards))
         if anchors is not None:   # whole tensors: this rank's parts
-            anchors = {n: anchors[n] if d is None
-                       else layout.part(anchors[n], d)
-                       for n, d in zip(layout.names, layout.dims)}
+            anchors = {n: layout.local_part(i, anchors[n]) if d is None
+                       else layout.part(layout.local_part(i, anchors[n]), d)
+                       for i, (n, d) in enumerate(zip(layout.names,
+                                                      layout.dims))}
     if cfg.optimizer_type == "adamspd":
         order = list(range(len(named)))
         opt = AdamSPD([p for _, p in named], lr=lr, betas=cfg.betas,
@@ -182,6 +197,16 @@ def make_optimizer(cfg: TrainConfig,
              "weight_decay": 0.0}]
         opt = torch.optim.AdamW([g for g in groups if g["params"]], lr=lr,
                                 betas=cfg.betas, eps=cfg.eps)
+    whole = None
+    if layout is not None and layout.model_parallel:
+        # The whole model's groups by name, as one process would make them.
+        if cfg.optimizer_type == "adamspd":
+            whole = [layout.whole]
+        else:
+            mask = decay_mask(layout.whole)
+            whole = [g for g in ([n for n in layout.whole if mask[n]],
+                                 [n for n in layout.whole if not mask[n]])
+                     if g]
     return ClippedOptimizer(opt, cfg.max_grad_norm,
                             schedule if callable(schedule) else None,
-                            layout=layout)
+                            layout=layout, groups=whole)

@@ -1,6 +1,6 @@
-"""Start W data-parallel worker processes on one host, as torchrun would,
-and bring back each rank's result: the harness of the multi-process CPU
-tests and of ``chip_smoke.py``'s two ranks on one card.
+"""Start W worker processes on one host, as torchrun would, and bring
+back each rank's result: the harness of the multi-process CPU tests and
+of ``chip_smoke.py``'s ranks sharing one card.
 
 ``spawn(fn, W, args)`` starts W processes by ``multiprocessing``'s spawn
 method. Each gets torchrun's environment (``RANK``, ``WORLD_SIZE``,

@@ -1,13 +1,16 @@
-"""Processes, the data mesh and host-side data sharding: the port of
-``clip_finegrained_alignment_tpu/parallel/mesh.py``.
+"""Processes, the ``data × model × pipe`` mesh and host-side data
+sharding: the port of ``clip_finegrained_alignment_tpu/parallel/mesh.py``.
 
 The JAX package builds one ``jax.sharding.Mesh`` over every device of one
-program. The port runs one process a GPU, the reference's and torchrun's
-model: ``distributed_init`` joins the ``torch.distributed`` group that
-torchrun's environment describes, and :class:`Mesh` is this process's
-view of it (its rank, the number of data-parallel ranks and its
-device). The ``model`` and ``pipe`` axes (tensor and pipeline
-parallelism) are ROADMAP A6b: ``make_mesh`` refuses them.
+program, its devices laid out as ``reshape(data, model, pipe)`` with
+``pipe`` minor. The port runs one process a GPU, the reference's and
+torchrun's model: ``distributed_init`` joins the ``torch.distributed``
+group that torchrun's environment describes, and :class:`Mesh` is this
+process's place in it: rank ``r = (d·model + m)·pipe + p`` has data
+coordinate ``d``, model coordinate ``m`` (tensor parallelism) and pipe
+coordinate ``p`` (its pipeline stage), and holds the process groups of
+its three axes. Sequence parallelism (``sequence_parallel``, ``sp_ring``)
+is ROADMAP A6c: ``make_mesh`` refuses it.
 
 A process's index and count are ``torch.distributed``'s rank and world
 size when a process group is initialized, and 0 and 1 otherwise.
@@ -16,16 +19,20 @@ size when a process group is initialized, and 0 and 1 otherwise.
 from __future__ import annotations
 
 import os
-from dataclasses import dataclass
-from typing import Any, Mapping, Optional, Tuple
+from dataclasses import dataclass, field
+from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
 from ..config import MeshConfig
 
-A6B = ("tensor, pipeline and sequence parallelism are not ported yet "
-       "(ROADMAP A6b)")
+A6C = ("sequence parallelism (sequence_parallel, sp_ring) is not ported "
+       "yet (ROADMAP A6c)")
+A6D = ("int8 under tensor parallelism is not ported yet (ROADMAP A6d): a "
+       "shard would quantize its part of a split contraction with its own "
+       "absmax, where the whole row's is wanted")
+AXES = ("data", "model", "pipe")
 
 
 def _distributed():
@@ -87,12 +94,45 @@ def distributed_init(device="cuda",
 
 @dataclass(frozen=True)
 class Mesh:
-    """This process's place in the data mesh: ``data`` ranks (every rank
-    of the default process group), this one ``rank`` and the device this
-    rank computes on."""
+    """This process's place in the ``data × model × pipe`` mesh: the axes'
+    sizes, this process's global ``rank``, the device it computes on and
+    the process groups of its axes (``groups``: axis → the group of the
+    ranks that share this rank's other coordinates, None where that is
+    every rank: the default group; ``"hop_prev"`` / ``"hop_next"``: the
+    two-rank groups of the pipeline hops). A mesh made by hand (no
+    ``groups``) runs its collectives on the default group."""
     data: int
     rank: int
     device: torch.device
+    model: int = 1
+    pipe: int = 1
+    groups: Dict[str, Any] = field(default_factory=dict, compare=False,
+                                   repr=False)
+
+    @property
+    def data_rank(self) -> int:
+        return self.rank // (self.model * self.pipe)
+
+    @property
+    def model_rank(self) -> int:
+        return self.rank // self.pipe % self.model
+
+    @property
+    def pipe_rank(self) -> int:
+        return self.rank % self.pipe
+
+    def group(self, axis: str):
+        """The process group of ``axis`` (None: the default group)."""
+        return self.groups.get(axis)
+
+    def global_rank(self, data: Optional[int] = None,
+                    model: Optional[int] = None,
+                    pipe: Optional[int] = None) -> int:
+        """The global rank at these coordinates, this rank's where None."""
+        d = self.data_rank if data is None else data
+        m = self.model_rank if model is None else model
+        p = self.pipe_rank if pipe is None else pipe
+        return (d * self.model + m) * self.pipe + p
 
     @property
     def backend(self) -> str:
@@ -100,39 +140,89 @@ class Mesh:
         return dist.get_backend()
 
     def gather(self, x: torch.Tensor) -> torch.Tensor:
-        """Every rank's rows of ``x`` on dim 0, the backward summing over
-        the ranks (``collectives.all_gather_with_grad``)."""
+        """Every data rank's rows of ``x`` on dim 0, the backward summing
+        over them (``collectives.all_gather_with_grad``)."""
         from .collectives import all_gather_with_grad
-        return all_gather_with_grad(x)
+        return all_gather_with_grad(x, self.group("data"))
 
     def total(self, x: torch.Tensor) -> torch.Tensor:
-        """The sum of ``x`` over the ranks, no gradient."""
+        """The sum of ``x`` over the data ranks, no gradient."""
         from .collectives import all_reduce_sum
-        return all_reduce_sum(x)
+        return all_reduce_sum(x, self.group("data"))
+
+
+def axis_ranks(cfg: MeshConfig, axis: str) -> List[List[int]]:
+    """The rank sets of ``axis``: one a point of the other two axes, in
+    the order of those points, each in the axis's order."""
+    sizes = {"data": cfg.data, "model": cfg.model, "pipe": cfg.pipe}
+    others = [a for a in AXES if a != axis]
+    out = []
+    for i in range(sizes[others[0]]):
+        for j in range(sizes[others[1]]):
+            ranks = []
+            for k in range(sizes[axis]):
+                c = {others[0]: i, others[1]: j, axis: k}
+                ranks.append((c["data"] * cfg.model + c["model"]) * cfg.pipe
+                             + c["pipe"])
+            out.append(ranks)
+    return out
+
+
+def _new_groups(rank_sets: List[List[int]], rank: int, world: int):
+    """``new_group`` for every set, in order, on every rank (the rule of
+    ``torch.distributed``), returning this rank's; a set of every rank is
+    the default group (None), and makes no group."""
+    import torch.distributed as dist
+    mine = None
+    for ranks in rank_sets:
+        if len(ranks) == world:
+            return None
+        g = dist.new_group(ranks)
+        if rank in ranks:
+            mine = g
+    return mine
 
 
 def make_mesh(cfg: Optional[MeshConfig] = None,
-              device: Optional[torch.device] = None) -> Mesh:
-    """The ``data`` mesh over the initialized process group (every rank a
-    data rank). ``cfg`` None takes the group's size; a ``cfg`` whose
-    ``data`` differs from it, or with ``model`` or ``pipe`` above 1,
-    raises. ``device`` defaults to the current CUDA device, or the CPU
+              device: Optional[torch.device] = None, *,
+              sequence_parallel: bool = False,
+              sp_ring: bool = False) -> Mesh:
+    """The mesh over the initialized process group. ``cfg`` None takes
+    every rank as a data rank; a ``cfg`` whose product of axes is not the
+    group's size raises, as does sequence parallelism (A6c). Every rank
+    makes the groups of all three axes and of the pipeline hops, in the
+    same order. ``device`` defaults to the current CUDA device, or the CPU
     without one."""
     import torch.distributed as dist
     if not (dist.is_available() and dist.is_initialized()):
         raise RuntimeError("make_mesh needs an initialized process group "
                            "(parallel.mesh.distributed_init)")
-    size = dist.get_world_size()
+    if sequence_parallel or sp_ring:
+        raise ValueError(A6C)
+    size, rank_ = dist.get_world_size(), dist.get_rank()
     cfg = cfg or MeshConfig(data=size)
-    if cfg.model > 1 or cfg.pipe > 1:
-        raise ValueError(f"mesh {cfg.data}x{cfg.model}x{cfg.pipe}: {A6B}")
-    if cfg.data != size:
-        raise ValueError(f"mesh data={cfg.data} but the process group has "
-                         f"{size} rank(s)")
+    if cfg.data * cfg.model * cfg.pipe != size:
+        raise ValueError(f"mesh {cfg.data}x{cfg.model}x{cfg.pipe} needs "
+                         f"{cfg.data * cfg.model * cfg.pipe} ranks; the "
+                         f"process group has {size}")
+    groups = {axis: _new_groups(axis_ranks(cfg, axis), rank_, size)
+              for axis in AXES}
+    if cfg.pipe > 1:
+        # The hops s -> s + 1: one two-rank group each, made on every rank
+        # in the same order.
+        pairs = [(chain[s], chain[s + 1]) for chain in axis_ranks(cfg, "pipe")
+                 for s in range(cfg.pipe - 1)]
+        for a, b in pairs:
+            g = None if size == 2 else dist.new_group([a, b])
+            if rank_ == a:
+                groups["hop_next"] = g
+            if rank_ == b:
+                groups["hop_prev"] = g
     if device is None:
         device = torch.device("cuda", torch.cuda.current_device()) \
             if torch.cuda.is_available() else torch.device("cpu")
-    return Mesh(data=size, rank=dist.get_rank(), device=torch.device(device))
+    return Mesh(data=cfg.data, rank=rank_, device=torch.device(device),
+                model=cfg.model, pipe=cfg.pipe, groups=groups)
 
 
 def _rows(x, mesh: Mesh, dim: int):
@@ -140,18 +230,18 @@ def _rows(x, mesh: Mesh, dim: int):
     if n % mesh.data:
         raise ValueError(f"batch dim {n} is not divisible by the "
                          f"{mesh.data} data ranks")
-    per = n // mesh.data
-    index = (slice(None),) * dim + (slice(mesh.rank * per,
-                                          (mesh.rank + 1) * per),)
+    per, r = n // mesh.data, mesh.data_rank
+    index = (slice(None),) * dim + (slice(r * per, (r + 1) * per),)
     return x[index]
 
 
 def shard_batch(batch: Mapping[str, Any], mesh: Mesh, *,
                 accum_axis: bool = False) -> dict:
-    """This rank's contiguous rows ``[r·B/W, (r+1)·B/W)`` of a global host
-    batch (numpy arrays or tensors, not moved): of the first dim, or with
-    ``accum_axis`` (leaves ``[accum, B, …]``) of the second, as JAX's
-    ``batch_sharding(accum_axis=True)`` lays it out."""
+    """This rank's contiguous rows ``[d·B/D, (d+1)·B/D)`` of a global host
+    batch (numpy arrays or tensors, not moved), ``d`` its data coordinate
+    of ``D``: of the first dim, or with ``accum_axis`` (leaves ``[accum, B,
+    …]``) of the second, as JAX's ``batch_sharding(accum_axis=True)`` lays
+    it out. Ranks that share a data coordinate hold the same rows."""
     dim = 1 if accum_axis else 0
     return {k: _rows(x, mesh, dim) for k, x in batch.items()}
 
@@ -175,10 +265,13 @@ def shard_batch_from_local(local_batch: Mapping[str, Any], mesh: Mesh, *,
 
 
 def replicate(tensors: Mapping[str, torch.Tensor], mesh: Mesh) -> None:
-    """Overwrite ``tensors`` (e.g. a model's state dict) in place with rank
-    0's values: one broadcast of a flat buffer for each dtype."""
+    """Overwrite ``tensors`` (e.g. a model's state dict) in place with
+    data rank 0's values (the rank of data coordinate 0 that shares this
+    rank's model and pipe coordinates, whose shards are the same ones):
+    one broadcast over the data group of a flat buffer for each dtype."""
     from .collectives import broadcast_flat_
-    broadcast_flat_(list(tensors.values()), src=0)
+    broadcast_flat_(list(tensors.values()), src=mesh.global_rank(data=0),
+                    group=mesh.group("data"))
 
 
 # ---------------------------------------------------------------------------

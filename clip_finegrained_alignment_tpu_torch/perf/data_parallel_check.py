@@ -311,7 +311,7 @@ def probe_collectives(device) -> dict:
 
 def rank_modes(model_name: str, layers: Optional[int], dtype: str, B: int,
                accum: int, seed: int, steps: int,
-               modes: List[str]) -> dict:
+               modes: List[str], save_global: Optional[str] = None) -> dict:
     """On every rank (the group is up): each mode's ``steps`` on this
     rank's rows of the global batch ``[accum, W·B, …]``, AdamSPD's
     anchors :func:`anchors_off` the weights; on rank 0 also
@@ -321,7 +321,10 @@ def rank_modes(model_name: str, layers: Optional[int], dtype: str, B: int,
     sharded layout against the replicated one on the same ranks, whose
     gradients are the same computation, so that only the optimizer's
     reading of a shard (AdamSPD's per-tensor sums, FSDP's norm) can part
-    them."""
+    them. ``save_global``: rank 0 also writes the weights, the anchors and
+    the global-negatives oracle there, in
+    ``model_parallel_check.prepare``'s format, for a later run on the
+    same global batch to read."""
     import torch
     from ..models import clip as m
     from ..models.convert import random_params, state_dict_from_jax
@@ -344,6 +347,10 @@ def rank_modes(model_name: str, layers: Optional[int], dtype: str, B: int,
             refs[neg] = oracle(cfg, train_config(neg, mesh.data * B, accum,
                                                  dtype),
                                sd, anchors, batch, steps, mesh.data, device)
+        if save_global is not None:
+            torch.save({"sd": sd, "ref": refs["global"],
+                        "anchors": {k: v.cpu() for k, v in anchors.items()}},
+                       save_global)
     local = {k: torch.from_numpy(np.ascontiguousarray(x)).to(device)
              for k, x in pmesh.shard_batch(batch, mesh,
                                            accum_axis=True).items()}

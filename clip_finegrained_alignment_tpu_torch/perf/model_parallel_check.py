@@ -1,0 +1,371 @@
+"""Tensor and pipeline parallelism held to one process: W ranks
+(``parallel/launch.py``) laid out as ``data × model × pipe`` each step
+SPARC + AdamSPD with global negatives (its anchors
+``data_parallel_check.anchors_off`` the weights) on their data
+coordinate's rows of one global batch, and rank 0 holds every mode to a
+one-process oracle stepping the whole global batch
+(``data_parallel_check.oracle``):
+
+* ``tp2``: 1 x 2 x 1, Megatron TP (H/2 heads a rank);
+* ``pp2``: 1 x 1 x 2, GPipe with ``MICRO`` microbatches;
+* ``tp2pp2``: 1 x 2 x 2, TP inside each stage;
+* ``dp2tp2``: 2 x 2 x 1 with FSDP over the data ranks.
+
+Three steps each: every step's loss and gradient norm, the first step's
+per-tensor gradient cosines and relative errors, and the per-tensor
+cosine and relative error of the parameters' whole update and of the
+first step's update (``data_parallel_check.compare``, plus
+``max_grad_rel``). Against the oracle, bf16 moves every gradient a
+little (a rank's GEMMs are other shapes than one process's), and
+AdamSPD's first update turns that into whole steps of the learning rate;
+so the first update is also held to a replay (``replay_first_update_rel``):
+one process's optimizer stepping the run's own first-step gradients,
+gathered whole, from the same weights and anchors. There only the
+distributed optimizer's reading of the tensors' parts (AdamSPD's
+per-tensor sums, the norm) can part the two. Each rank also reports its
+launches of the port's kernels in its first step, its step ms after the
+first step and its peak memory.
+
+:data:`FAULTS` are the faults the gates are for (trouble spots a and b):
+``pipe_summed_post`` sums the gradients of the parameters after the
+pipeline over the stages (they are already equal there), ``tp_sums_alone``
+lets AdamSPD read a tensor-parallel shard's sums alone, and
+``norm_counts_tp`` counts a tensor whole on every model rank tp times in
+the gradient norm. :func:`inject` puts one into this process's port.
+
+``chip_smoke.py`` phase 11 runs the modes on the card at ViT-B/16 full
+width, ranks sharing one GPU over gloo. On the CPU, at fewer layers (an
+even count: the pipeline cuts each tower in two), this module is the
+study that set phase 11's limits::
+
+    python -m clip_finegrained_alignment_tpu_torch.perf.model_parallel_check \\
+        --device cpu --layers 2 [--fault NAME]
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import time
+from typing import Dict, List, Optional
+
+from . import data_parallel_check as dpc
+
+# GPipe microbatches of a train microbatch (phase 11: B = 32 rows, 8 a
+# pipeline microbatch).
+MICRO = 4
+MODES = {"tp2": ({"data": 1, "model": 2, "pipe": 1}, {}),
+         "pp2": ({"data": 1, "model": 1, "pipe": 2}, {}),
+         "tp2pp2": ({"data": 1, "model": 2, "pipe": 2}, {}),
+         "dp2tp2": ({"data": 2, "model": 2, "pipe": 1}, {"fsdp": True})}
+
+
+def ranks_of(mode: str) -> int:
+    mesh, _ = MODES[mode]
+    return mesh["data"] * mesh["model"] * mesh["pipe"]
+
+
+def train_config(mode: str, B: int, accum: int, dtype: str):
+    """The mode's config: ``data_parallel_check``'s global-negatives
+    SPARC + AdamSPD config on the mode's mesh."""
+    import dataclasses
+    from ..config import MeshConfig
+    mesh, extra = MODES[mode]
+    return dataclasses.replace(
+        dpc.train_config("global", B, accum, dtype),
+        mesh=MeshConfig(**mesh), pipeline_microbatches=MICRO, **extra)
+
+
+# ---------------------------------------------------------------------------
+# The faults
+# ---------------------------------------------------------------------------
+
+def _pipe_summed_post():
+    from ..parallel import sharding_rules
+    from ..train import engine
+    engine.before_pipeline = lambda n: sharding_rules.layer_index(n) is None
+
+
+def _tp_sums_alone():
+    from ..parallel.zero import ShardLayout
+    ShardLayout.reduce_sums = lambda self, rows, order: rows
+
+
+def _norm_counts_tp():
+    import torch
+    from ..parallel.zero import ShardLayout
+
+    def grad_norm(self):
+        grads = [s.grad for s in self.shards] if self.fsdp else \
+            [p.grad for p in self.params]
+        sq = torch.stack([g.float().pow(2).sum() for g in grads])
+        m = self.mesh
+        keep = torch.tensor([
+            ((self.fsdp and self.dims[i] is not None) or m.data_rank == 0)
+            and (self.staged[i] or m.pipe_rank == 0)
+            for i in range(len(grads))], device=sq.device)
+        index = torch.tensor(self.rows, device=sq.device)
+        buf = sq.new_zeros(len(self.whole))
+        buf.index_copy_(0, index, torch.where(keep, sq, 0.0))
+        from ..parallel import collectives as C
+        return C.all_reduce_sum(buf).sum().sqrt()
+    ShardLayout.grad_norm = grad_norm
+
+
+FAULTS = {"pipe_summed_post": _pipe_summed_post,
+          "tp_sums_alone": _tp_sums_alone,
+          "norm_counts_tp": _norm_counts_tp}
+
+
+def inject(fault: Optional[str]) -> None:
+    """Put fault ``fault`` (a key of :data:`FAULTS`) into this process's
+    port; None leaves it as it is."""
+    if fault is not None:
+        FAULTS[fault]()
+
+
+# ---------------------------------------------------------------------------
+# The modes
+# ---------------------------------------------------------------------------
+
+def whole_grads(opt) -> Dict[str, "torch.Tensor"]:
+    """name → fp32 gradient of every parameter of the whole model, on the
+    rank's device (FSDP: the shards' mean gradients gathered over the data
+    ranks; then the model ranks' shards and the stages'; every rank takes
+    part)."""
+    import torch
+    from ..parallel import collectives as C
+    layout = opt.layout
+    grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+             for p in layout.params]
+    if layout.fsdp:
+        split = [i for i, d in enumerate(layout.dims) if d is not None]
+        whole = C.all_gather_shards([layout.shards[i].grad for i in split],
+                                    [layout.dims[i] for i in split],
+                                    layout.mesh.group("data"))
+        for i, w in zip(split, whole):
+            grads[i] = w
+    out = layout.whole_tensors([[g] for g in grads])
+    return {n: t[0].detach().float() for n, t in zip(layout.whole, out)}
+
+
+def whole_params(opt) -> Dict[str, "torch.Tensor"]:
+    """name → fp32 copy of every parameter of the whole model, on the
+    rank's device."""
+    layout = opt.layout
+    params = layout.full_params()
+    out = layout.whole_tensors([[params[n]] for n in layout.names])
+    return {n: t[0].detach().float().clone()
+            for n, t in zip(layout.whole, out)}
+
+
+def compare(run: dict, ref: dict, initial, device=None) -> dict:
+    """``data_parallel_check.compare`` and the largest per-tensor
+    relative error of the first step's gradients, ``max_grad_rel`` (a
+    gradient counted twice keeps its cosine)."""
+    import torch
+    out = dpc.compare(run, ref, initial, device)
+    rel = {}
+    for n, want in ref["grads"].items():
+        if n.endswith("self_attn.k_proj.bias") or not want.any():
+            continue
+        w = want.to(device, torch.float64)
+        rel[n] = ((run["grads"][n].to(device, torch.float64) - w).norm()
+                  / w.norm()).item()
+    worst = max(rel, key=rel.get)
+    out.update(max_grad_rel=rel[worst], max_grad_rel_tensor=worst)
+    return out
+
+
+def replay_first_update(tcfg, initial, anchors, grads, first,
+                        device) -> float:
+    """The largest per-tensor relative difference between the run's first
+    update (``first`` − ``initial``) and one process's optimizer
+    (``tcfg``'s, no clipping: ``grads`` are those the run's optimizer
+    stepped, already clipped) stepping ``grads`` from ``initial`` with
+    ``anchors``."""
+    import dataclasses
+    import torch
+    from ..optim.factory import make_optimizer
+    params = {n: t.to(device).clone().requires_grad_()
+              for n, t in initial.items()}
+    opt = make_optimizer(dataclasses.replace(tcfg, max_grad_norm=0.0),
+                         params.items(), anchors=anchors)
+    for n, p in params.items():
+        p.grad = grads[n].to(device)
+    opt.step()
+    worst = 0.0
+    with torch.no_grad():
+        for n, p in params.items():
+            want = (p.double() - initial[n].to(device).double())
+            if want.any():
+                got = first[n].to(device).double() \
+                    - initial[n].to(device).double()
+                worst = max(worst, ((got - want).norm()
+                                    / want.norm()).item())
+    return worst
+
+
+def prepare(model_name: str, layers: Optional[int], dtype: str, B: int,
+            accum: int, seed: int, steps: int, device=None,
+            path: Optional[str] = None) -> dict:
+    """The weights, AdamSPD's anchors and the one-process oracle of
+    :func:`rank_modes` (the oracle's tensors on ``device``); with ``path``
+    also written there (CPU tensors) for ranks to load in place of
+    computing them again."""
+    import torch
+    from ..models.convert import random_params, state_dict_from_jax
+    cfg = dpc.model_config(model_name, layers)
+    sd = state_dict_from_jax(random_params(cfg, seed), cfg)
+    anchors = dpc.anchors_off(sd, seed)
+    ref = dpc.oracle(cfg, dpc.train_config("global", B, accum, dtype), sd,
+                     {k: v.to(device) for k, v in anchors.items()},
+                     dpc.global_batch(cfg, accum, B, seed), steps, 1, device)
+    out = {"sd": sd, "anchors": anchors, "ref": ref}
+    if path is not None:
+        torch.save(out, path)
+    return out
+
+
+def rank_modes(model_name: str, layers: Optional[int], dtype: str, B: int,
+               accum: int, seed: int, steps: int, modes: List[str],
+               fault: Optional[str] = None,
+               prepared: Optional[str] = None) -> dict:
+    """On every rank (the group is up, its size each mode's rank count):
+    each mode's ``steps`` on this rank's rows of the global batch
+    ``[accum, B, …]``; on rank 0 also the oracle and the comparisons.
+    ``prepared``: a file of :func:`prepare` for these arguments, read in
+    place of computing the weights, anchors and oracle. Returns per mode:
+    metrics, first-step launches, step ms, peak memory, host seconds, and
+    on rank 0 ``vs_oracle``."""
+    import torch
+    from ..models import clip as m
+    from ..ops import _build
+    from ..optim.factory import make_optimizer
+    from ..parallel import mesh as pmesh
+    from ..train.engine import make_train_step
+
+    inject(fault)
+    t_start = time.perf_counter()
+    rank = torch.distributed.get_rank()
+    device = torch.device("cuda", torch.cuda.current_device()) \
+        if torch.cuda.is_available() else torch.device("cpu")
+    cfg = dpc.model_config(model_name, layers)
+    if prepared is not None:
+        ready = torch.load(prepared, map_location="cpu", weights_only=True,
+                           mmap=True)
+    elif rank == 0:
+        ready = prepare(model_name, layers, dtype, B, accum, seed, steps,
+                        device)
+    else:
+        from ..models.convert import random_params, state_dict_from_jax
+        sd = state_dict_from_jax(random_params(cfg, seed), cfg)
+        ready = {"sd": sd, "anchors": dpc.anchors_off(sd, seed)}
+    sd = ready["sd"]
+    anchors = {k: v.to(device) for k, v in ready["anchors"].items()}
+    batch = dpc.global_batch(cfg, accum, B, seed)
+    ref, initial = None, None
+    if rank == 0:   # the comparisons run on the device
+        ref = {k: v if k == "metrics" else {n: t.to(device)
+                                             for n, t in v.items()}
+               for k, v in ready["ref"].items()}
+        initial = {k: v.to(device, torch.float32) for k, v in sd.items()}
+    setup_s = time.perf_counter() - t_start
+    out = {}
+    for mode in modes:
+        t_mode = time.perf_counter()
+        tcfg = train_config(mode, B, accum, dtype)
+        mesh = pmesh.make_mesh(tcfg.mesh, device)
+        local = {k: torch.from_numpy(x.copy()).to(device)
+                 for k, x in pmesh.shard_batch(batch, mesh,
+                                               accum_axis=True).items()}
+        model = m.build_train_model(cfg, sd, device=device, mesh=mesh,
+                                    num_micro=tcfg.pipeline_microbatches)
+        opt = make_optimizer(tcfg, model.named_parameters(),
+                             anchors=anchors, mesh=mesh)
+        step = make_train_step(tcfg, cfg, model, opt, mesh=mesh)
+        metrics, ms, launches, grads, first = [], [], None, None, None
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(device)
+        for s in range(steps):
+            dpc._sync(device)
+            _build.reset_launch_counts()
+            t0 = time.perf_counter()
+            got = step(local)
+            dpc._sync(device)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            if s == 0:
+                launches = _build.launch_counts()
+                grads = whole_grads(opt)
+                first = whole_params(opt)
+            metrics.append({k: float(v) for k, v in got.items()})
+        run = {"metrics": metrics, "grads": grads, "first_params": first,
+               "params": whole_params(opt)}
+        res = {"metrics": metrics, "launches": launches,
+               "step_ms": ms[1:] if len(ms) > 1 else ms,
+               "peak_memory_gb": torch.cuda.max_memory_allocated(device)
+               / 1e9 if device.type == "cuda" else None,
+               "mesh": dict(MODES[mode][0]), "rank": rank}
+        t_cmp = time.perf_counter()
+        if rank == 0:
+            res["vs_oracle"] = compare(run, ref, initial, device)
+            res["vs_oracle"]["replay_first_update_rel"] = \
+                replay_first_update(dpc.train_config("global", B, accum,
+                                                     dtype),
+                                    initial, anchors, grads, first, device)
+        del model, opt, step, run
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        now = time.perf_counter()
+        # Host seconds: setup (weights, batch) and rank 0's oracle, before
+        # the first mode; each mode's whole time and its comparisons.
+        res["seconds"] = {"setup": setup_s, "mode": now - t_mode,
+                          "compare": now - t_cmp}
+        if mode == modes[0]:
+            res["seconds"]["before_first_mode"] = t_mode - t_start
+        out[mode] = res
+    return out
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--model", default="ViT-B/16")
+    ap.add_argument("--layers", type=int, default=None)
+    ap.add_argument("--dtype", default="bfloat16",
+                    choices=["bfloat16", "float32"])
+    ap.add_argument("--batch", type=int, default=32, help="global rows")
+    ap.add_argument("--accum", type=int, default=2)
+    ap.add_argument("--steps", type=int, default=3)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--modes", nargs="*", default=list(MODES))
+    ap.add_argument("--fault", default=None, choices=sorted(FAULTS))
+    args = ap.parse_args(argv)
+    from ..parallel.launch import spawn
+    env = {"LOCAL_RANK": "0"} if args.device == "cuda" else {}
+    by_world: Dict[int, List[str]] = {}
+    for mode in args.modes:
+        by_world.setdefault(ranks_of(mode), []).append(mode)
+    for world, modes in sorted(by_world.items()):
+        ranks = spawn(rank_modes, world,
+                      (args.model, args.layers, args.dtype, args.batch,
+                       args.accum, args.seed, args.steps, modes, args.fault),
+                      timeout_s=3000, device=args.device, backend="gloo",
+                      env=env)
+        for mode, res in ranks[0].items():
+            vs = {k: v for k, v in res["vs_oracle"].items()
+                  if k not in ("losses", "oracle_losses", "grad_norms",
+                               "oracle_grad_norms")}
+            print(json.dumps({"mode": mode, "layers": args.layers,
+                              "dtype": args.dtype, "fault": args.fault,
+                              **vs, "step_ms": res["step_ms"]}))
+            same = all(r[mode]["metrics"] == res["metrics"] for r in ranks)
+            print(json.dumps({"mode": mode, "ranks_agree": same}))
+            if not all(math.isfinite(x["total_loss"])
+                       for x in res["metrics"]):
+                raise SystemExit(f"{mode}: a loss is not finite")
+
+
+if __name__ == "__main__":
+    main()

@@ -28,7 +28,7 @@ microbatch accumulation, ``make_train_step``, ``Trainer`` and
   the next step boundary.
 
 Data parallelism (``mesh``: ``parallel/mesh.py::Mesh``; each rank feeds
-its own rows ``[accum, B/W, …]``):
+its data coordinate's rows ``[accum, B/D, …]``, D data ranks):
 
 * **Local negatives** (the default; the reference's DDP): each rank's
   loss sees its own rows; it accumulates its microbatches with no
@@ -44,6 +44,18 @@ its own rows ``[accum, B/W, …]``):
   the optimizer steps this rank's shards; under FSDP the step gathers the
   parameters before the forward and reduce-scatters the gradients after
   the backward in place of the all-reduce.
+
+Tensor and pipeline parallelism (a mesh with ``model`` or ``pipe`` above
+1, global negatives only, as in JAX): the model holds this rank's
+tensor-parallel shards and pipeline stage (``models/clip.py``,
+``parallel/pipeline.py``); ranks that share a data coordinate feed the
+same rows. After the microbatches the embeddings' gradients (stage 0's
+alone) are summed over the pipe group; every other whole parameter's
+gradient is already the same on every model rank and stage and is not
+reduced there. Then the data reduction above, over the data group. The
+norm and AdamSPD's sums count every tensor once
+(``parallel/zero.py::ShardLayout.reduce_rows``). Sequence parallelism
+(ROADMAP A6c) and ``quant`` under tensor parallelism (A6d) are refused.
 
 The model is not wrapped in ``DistributedDataParallel``: its hooks reduce
 bucket by bucket during every backward (accumulation would need
@@ -61,7 +73,8 @@ Deliberate differences from the JAX package: with no state dict the
 ``Trainer`` starts from ``models/convert.py::random_params(cfg, seed)``
 (numpy), not from ``jax.random``; its checkpoints are torch files (the
 reference ``.pt`` format is the bridge between the packages), written
-whole by rank 0 in the replicated format under every layout.
+whole by rank 0 in the replicated format under every layout, and loaded
+into any layout.
 """
 
 from __future__ import annotations
@@ -80,7 +93,8 @@ from ..models import convert
 from ..objectives import losses as L
 from ..optim.factory import ClippedOptimizer, make_optimizer
 from ..parallel import collectives as C
-from ..parallel.mesh import A6B, Mesh, replicate, shard_batch_from_local
+from ..parallel.mesh import A6C, A6D, Mesh, replicate, shard_batch_from_local
+from ..parallel.sharding_rules import before_pipeline
 
 Batch = Mapping[str, torch.Tensor]
 
@@ -173,6 +187,8 @@ def accumulate_grads(model: m.CLIPModel, batch: Batch, cfg: TrainConfig,
                                     cfg, model_cfg, dtype=dtype,
                                     pixel_bank=pixel_bank, mesh=mesh)
         loss.backward()
+        if model.pipeline is not None:   # the stages' backward schedule
+            model.pipeline.backward()
         for k, x in losses.items():
             totals[k] = totals[k] + x.detach() if k in totals else x.detach()
     inv = 1.0 / accum
@@ -184,16 +200,22 @@ def accumulate_grads(model: m.CLIPModel, batch: Batch, cfg: TrainConfig,
 
 
 def check_parallel(cfg: TrainConfig) -> None:
-    """Refuse the layouts the step cannot build, as the JAX package does
-    (FSDP without global negatives, FSDP with ZeRO-1) or as this port does
-    until ROADMAP A6b (tensor, pipeline and sequence parallelism)."""
-    if cfg.mesh.model > 1 or cfg.mesh.pipe > 1 or cfg.sequence_parallel \
-            or cfg.sp_ring or cfg.pipeline_microbatches:
-        raise ValueError(f"mesh {cfg.mesh.data}x{cfg.mesh.model}x"
-                         f"{cfg.mesh.pipe}, sequence_parallel="
-                         f"{cfg.sequence_parallel}, sp_ring={cfg.sp_ring}, "
-                         f"pipeline_microbatches={cfg.pipeline_microbatches}"
-                         f": {A6B}")
+    """Refuse the layouts the step cannot build, with the JAX package's
+    words where it refuses them too (tensor or pipeline parallelism
+    without global negatives, FSDP without them, FSDP with ZeRO-1, shapes
+    the model or pipe axis does not divide), sequence parallelism, which
+    is ROADMAP A6c, and ``quant`` under tensor parallelism (A6d)."""
+    if cfg.sequence_parallel or cfg.sp_ring:
+        raise ValueError(f"sequence_parallel={cfg.sequence_parallel}, "
+                         f"sp_ring={cfg.sp_ring}: {A6C}")
+    if cfg.mesh.pipe > 1 and not cfg.global_negatives:
+        raise ValueError("pipeline parallelism (mesh.pipe > 1) requires "
+                         "global_negatives=True: the DDP-parity shard_map "
+                         "path assumes replicated params")
+    if cfg.mesh.model > 1 and not cfg.global_negatives:
+        raise ValueError("tensor parallelism (mesh.model > 1) requires "
+                         "global_negatives=True: the DDP-parity shard_map "
+                         "path assumes replicated params")
     if cfg.fsdp and not cfg.global_negatives:
         raise ValueError("fsdp requires global_negatives=True: the "
                          "local-negatives (DDP) step assumes replicated "
@@ -201,6 +223,22 @@ def check_parallel(cfg: TrainConfig) -> None:
     if cfg.fsdp and cfg.zero1:
         raise ValueError("fsdp subsumes zero1 (optimizer state inherits the "
                          "data-sharded param layout); enable only one")
+    if cfg.mesh.model > 1 and cfg.quant != "none":
+        raise ValueError(f"quant={cfg.quant!r} with tensor parallelism "
+                         f"(mesh.model > 1): {A6D}")
+    if cfg.mesh.model > 1 or cfg.mesh.pipe > 1:
+        from ..parallel.pipeline import validate_pipe_divisibility
+        from ..parallel.sharding_rules import validate_tp_divisibility
+        model_cfg = cfg.model_config()
+        with torch.device("meta"):
+            whole = m.CLIPModel(model_cfg)
+        validate_tp_divisibility(
+            {n: tuple(p.shape) for n, p in whole.named_parameters()},
+            cfg.mesh.model, {"vision": model_cfg.vision.num_heads,
+                             "text": model_cfg.text.num_heads})
+        validate_pipe_divisibility(model_cfg, cfg.mesh,
+                                   cfg.batch_size // max(1, cfg.mesh.data),
+                                   cfg.pipeline_microbatches)
 
 
 def make_train_step(cfg: TrainConfig, model_cfg: CLIPConfig,
@@ -220,10 +258,25 @@ def make_train_step(cfg: TrainConfig, model_cfg: CLIPConfig,
     drops from S·S·3 to 4 bytes a sample.
 
     ``mesh``: data parallelism; ``batch`` holds this rank's rows
-    ``[accum, B/W, …]`` (``parallel/mesh.py::shard_batch``), the metrics
-    are the means over the ranks. With ``cfg.zero1`` or ``cfg.fsdp`` the
-    optimizer must have been built with ``make_optimizer(..., mesh=…)``."""
+    ``[accum, B/D, …]`` (``parallel/mesh.py::shard_batch``), the metrics
+    are the means over the data ranks. With ``cfg.zero1`` or ``cfg.fsdp``
+    the optimizer must have been built with ``make_optimizer(...,
+    mesh=…)``; with ``mesh.model`` or ``mesh.pipe`` above 1 the model too
+    (``build_train_model(..., mesh=…)``)."""
     check_parallel(cfg)
+    tp_pp = mesh is not None and (mesh.model > 1 or mesh.pipe > 1)
+    if (cfg.mesh.model, cfg.mesh.pipe) != ((mesh.model, mesh.pipe)
+                                           if mesh is not None else (1, 1)):
+        raise ValueError(f"config mesh model={cfg.mesh.model} "
+                         f"pipe={cfg.mesh.pipe} but the step's mesh is "
+                         f"{mesh}")
+    if tp_pp and optimizer.layout is None:
+        raise ValueError("tensor or pipeline parallelism: build the "
+                         "optimizer with make_optimizer(cfg, ..., "
+                         "mesh=mesh)")
+    if (mesh is not None and mesh.pipe > 1) != (model.pipeline is not None):
+        raise ValueError("pipeline parallelism: build the model with "
+                         "build_train_model(..., mesh=mesh)")
     dtype = compute_dtype(cfg)
     device = next(model.parameters()).device
     if pixel_bank is not None and pixel_bank.device != device:
@@ -244,6 +297,10 @@ def make_train_step(cfg: TrainConfig, model_cfg: CLIPConfig,
     loss_mesh = mesh if cfg.global_negatives else None
     fsdp = layout is not None and layout.fsdp
     params = list(model.parameters())
+    # Under a pipeline the embeddings' gradients live on stage 0 alone.
+    first_stage = [p for n, p in model.named_parameters()
+                   if before_pipeline(n)] \
+        if mesh is not None and mesh.pipe > 1 else []
 
     def train_step(batch) -> Dict[str, torch.Tensor]:
         batch = {k: torch.as_tensor(x).to(device, non_blocking=True)
@@ -258,11 +315,15 @@ def make_train_step(cfg: TrainConfig, model_cfg: CLIPConfig,
             for p in params:
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
+            if first_stage:
+                C.all_reduce_mean_([p.grad for p in first_stage],
+                                   mesh.group("pipe"), mean=False)
             if fsdp:
                 layout.reduce_grads()
             else:
-                C.all_reduce_mean_([p.grad for p in params])
-            C.all_reduce_mean_(list(metrics.values()))
+                C.all_reduce_mean_([p.grad for p in params],
+                                   mesh.group("data"))
+            C.all_reduce_mean_(list(metrics.values()), mesh.group("data"))
         metrics["grad_norm"] = optimizer.step()
         return metrics
 
@@ -299,10 +360,18 @@ class Trainer:
         the weights at construction. ``device`` is the card unless the
         caller asks for the CPU; ``pixel_bank`` (uint8 ``[N, S, S, 3]``,
         numpy or torch) is placed on it once, whole on every rank.
-        ``mesh``: data parallelism; rank 0's weights are broadcast, and
-        every rank must call ``step``, ``train``, ``state_dict`` and
-        ``load_state_dict`` alike (they run collectives)."""
+        ``mesh``: data, tensor and pipeline parallelism
+        (``parallel/mesh.py``): each rank holds its part of the whole
+        ``state_dict``, data rank 0's weights are broadcast over the data
+        ranks, and every rank must call ``step``, ``train``,
+        ``state_dict`` and ``load_state_dict`` alike (they run
+        collectives)."""
         check_parallel(cfg)
+        if (cfg.mesh.model > 1 or cfg.mesh.pipe > 1) and mesh is None:
+            raise ValueError(f"mesh {cfg.mesh.data}x{cfg.mesh.model}x"
+                             f"{cfg.mesh.pipe}: tensor and pipeline "
+                             "parallelism need the process group's mesh "
+                             "(parallel/mesh.py::make_mesh)")
         self.cfg = cfg
         self.model_cfg = cfg.model_config()
         self.mesh = mesh
@@ -310,8 +379,9 @@ class Trainer:
             state_dict = convert.state_dict_from_jax(
                 convert.random_params(self.model_cfg, cfg.seed),
                 self.model_cfg)
-        self.model = m.build_train_model(self.model_cfg, state_dict,
-                                         device=device)
+        self.model = m.build_train_model(
+            self.model_cfg, state_dict, device=device, mesh=mesh,
+            num_micro=cfg.pipeline_microbatches)
         self.device = next(self.model.parameters()).device
         if mesh is not None:
             replicate(self.model.state_dict(), mesh)
@@ -329,8 +399,9 @@ class Trainer:
 
     def _device_batch(self, batch: Mapping[str, Any]) -> Dict[str, Any]:
         """Host batch [accum·B, …] → [accum, B, …]. Under a mesh the batch
-        is this rank's (its pipeline reads its own shard of the data at
-        ``effective_batch_size / W``): B must be ``batch_size / W``."""
+        is this rank's (its pipeline reads its data coordinate's shard of
+        the data at ``effective_batch_size / D``): B must be
+        ``batch_size / D``."""
         a = self.cfg.gradient_accumulation_steps
 
         def fold(x):
@@ -344,20 +415,29 @@ class Trainer:
             batch, self.mesh, accum_axis=True,
             rows=self.cfg.batch_size // self.mesh.data)
 
-    def state_dict(self) -> Dict[str, Any]:
-        """What a checkpoint holds: the model's and the optimizer's state,
-        whole tensors under any layout (gathered: every rank calls it)."""
+    def model_state(self) -> Dict[str, torch.Tensor]:
+        """The model's parameters by HF name, whole tensors under any
+        layout (gathered: every rank calls it)."""
         layout = self.optimizer.layout
         model = self.model.state_dict()
         if layout is not None and layout.fsdp:
             model.update(layout.full_params())
-        return {"model": model, "optimizer": self.optimizer.state_dict()}
+        if layout is not None and layout.model_parallel:
+            whole = layout.whole_tensors([[model[n]] for n in layout.names])
+            model = {n: t[0] for n, t in zip(layout.whole, whole)}
+        return model
+
+    def state_dict(self) -> Dict[str, Any]:
+        """What a checkpoint holds: the model's and the optimizer's state,
+        whole tensors under any layout (gathered: every rank calls it)."""
+        return {"model": self.model_state(),
+                "optimizer": self.optimizer.state_dict()}
 
     def load_state_dict(self, state: Mapping[str, Any]) -> None:
         """Restore a :meth:`state_dict` of any rank count into this rank's
         layout."""
         layout = self.optimizer.layout
-        if layout is not None and layout.fsdp:
+        if layout is not None and (layout.fsdp or layout.model_parallel):
             layout.load_params(state["model"])
         else:
             self.model.load_state_dict(state["model"])

@@ -33,8 +33,9 @@ samples are each other's negatives. On a data mesh GradCache needs
 rank embeds its own chunks, the loss gathers the ranks' caches (SPARC's
 pooled embeddings, ``objectives/losses.py``), so it covers ``accum·B``
 globally, and the engine averages the gradients over the ranks after
-phase 3. Sequence and pipeline parallelism refuse it, as in the JAX
-package.
+phase 3. Under tensor parallelism both forwards run the shards (every
+model rank holds the same cache and loss); sequence and pipeline
+parallelism refuse it, as in the JAX package.
 """
 
 from __future__ import annotations

@@ -141,14 +141,28 @@ def test_shard_dim_rule_matches_jax_specs(model, dp, eight_devices):
         assert any(d is not None for d in want.values())
 
 
+# The cases keep the ids they had when tensor, pipeline and sequence
+# parallelism were all refused (ROADMAP A6b); they now hold JAX's
+# refusals, and sequence parallelism's (A6c).
 REFUSALS = [
     (dict(fsdp=True), "global_negatives"),
     (dict(fsdp=True, global_negatives=True, zero1=True), "subsumes"),
-    (dict(mesh=MeshConfig(data=1, model=2)), "A6b"),
-    (dict(mesh=MeshConfig(data=1, pipe=2)), "A6b"),
-    (dict(sequence_parallel=True, global_negatives=True), "A6b"),
-    (dict(sp_ring=True), "A6b"),
-    (dict(pipeline_microbatches=4), "A6b"),
+    pytest.param(dict(mesh=MeshConfig(data=1, model=2)),
+                 r"tensor parallelism \(mesh.model > 1\) requires "
+                 "global_negatives", id="kw2-A6b"),
+    pytest.param(dict(mesh=MeshConfig(data=1, pipe=2)),
+                 r"pipeline parallelism \(mesh.pipe > 1\) requires "
+                 "global_negatives", id="kw3-A6b"),
+    pytest.param(dict(sequence_parallel=True, global_negatives=True),
+                 "A6c", id="kw4-A6b"),
+    pytest.param(dict(sp_ring=True), "A6c", id="kw5-A6b"),
+    pytest.param(dict(pipeline_microbatches=3, global_negatives=True,
+                      mesh=MeshConfig(data=1, pipe=2)),
+                 "batch_size 8 not divisible by pipeline_microbatches 3",
+                 id="kw6-A6b"),
+    # int8 under TP would take a shard's absmax of a split contraction.
+    pytest.param(dict(mesh=MeshConfig(data=1, model=2), quant="switchback",
+                      global_negatives=True), "A6d", id="kw7-A6d"),
 ]
 
 

@@ -121,12 +121,20 @@ def test_evaluate_data_parallel_2_equals_1(tmp_path):
         assert blobs[1][k] == blobs[0][k], k
 
 
+# The first five keep the ids they had when the flags were all refused
+# (ROADMAP A6b); they now hold JAX's refusals, and sequence
+# parallelism's (A6c).
 @pytest.mark.parametrize("extra,message", [
-    (["--model-parallel", "2"], "A6b"),
-    (["--pipeline-parallel", "2"], "A6b"),
-    (["--pipeline-microbatches", "4"], "A6b"),
-    (["--sequence-parallel", "2"], "A6b"),
-    (["--sp-ring"], "A6b"),
+    pytest.param(["--model-parallel", "2"], "require --global-negatives",
+                 id="extra0-A6b"),
+    pytest.param(["--pipeline-parallel", "2"], "require --global-negatives",
+                 id="extra1-A6b"),
+    pytest.param(["--pipeline-parallel", "2", "--pipeline-microbatches",
+                  "4", "--global-negatives"],
+                 "must divide the world size (1 processes)",
+                 id="extra2-A6b"),
+    pytest.param(["--sequence-parallel", "2"], "A6c", id="extra3-A6b"),
+    pytest.param(["--sp-ring"], "A6c", id="extra4-A6b"),
     (["--fsdp"], "requires global_negatives"),
     (["--fsdp", "--global-negatives", "--zero1"], "subsumes"),
     (["--grad-cache", "--global-negatives", "--fsdp",

@@ -1,5 +1,6 @@
 """Rank functions of the port's multi-process tests
-(``test_torch_parallel.py``, ``test_torch_parallel_cli.py``), run by
+(``test_torch_parallel.py``, ``test_torch_parallel_cli.py``,
+``test_torch_model_parallel.py``), run by
 ``parallel/launch.py::spawn`` in W gloo processes on the CPU; this module
 holds no test. Kept apart from the test files: spawn imports a rank
 function's module in every worker, and this one imports torch and the
@@ -91,8 +92,9 @@ def optimizer_bytes(opt) -> int:
                for t in st.values() if torch.is_tensor(t))
 
 
-def _mesh():
-    return pmesh.make_mesh(device=torch.device("cpu"))
+def _mesh(mesh_kw=None):
+    return pmesh.make_mesh(MeshConfig(**mesh_kw) if mesh_kw else None,
+                           device=torch.device("cpu"))
 
 
 def anchors_off(seed: int) -> dict:
@@ -153,19 +155,22 @@ def _rows_batches(mesh, cfg, seeds, hook=None):
     return batches
 
 
-def checkpoint_cases(cfg_kw: dict, ckpt_root: str, w1_dir: str):
+def checkpoint_cases(cfg_kw: dict, ckpt_root: str, w1_dir: str,
+                     mesh_kw=None):
     """Per layout in ``cfg_kw`` (a list of extra fields): an unbroken run
     of 2 epochs x 2 steps saving each epoch; a run restored from its
     ``epoch_0/`` trained on through epoch 1; a run preempted by rank 1
     alone after its first step; and the state a trainer restores from
-    ``w1_dir`` (written by one process)."""
-    mesh = _mesh()
+    ``w1_dir`` (written by one process). ``mesh_kw``: the ``MeshConfig``
+    fields (None: every rank a data rank)."""
+    mesh = _mesh(mesh_kw)
     seeds = [[11, 12], [13, 14]]
     out = {}
     for name, extra in cfg_kw.items():
         cfg = train_config(optimizer_type="adamspd", global_negatives=True,
-                           save_every=1, mesh=MeshConfig(data=mesh.data),
-                           **extra)
+                           save_every=1,
+                           mesh=MeshConfig(**mesh_kw) if mesh_kw
+                           else MeshConfig(data=mesh.data), **extra)
         d = os.path.join(ckpt_root, name)
         unbroken = Trainer(cfg, initial_state(5), device="cpu", mesh=mesh,
                            checkpoint_manager=CheckpointManager(
@@ -239,3 +244,69 @@ def phase_10_modes(shard_sums_alone: bool, *args):
             init(self, *a, **{**kw, "reduce_sums": None})
         adamspd.AdamSPD.__init__ = alone
     return dpc.rank_modes(*args)
+
+
+def mp_steps(cases, seed: int, batch_seed: int, steps: int = 1):
+    """For each ``(mesh_kw, cfg_kw)`` of ``cases`` (one rank count): the
+    Trainer on that ``data × model × pipe`` mesh of this group, ``steps``
+    steps on this rank's rows of one global batch: per step its metrics,
+    then the whole state it gathers, this rank's coordinates and its
+    parameters' shapes."""
+    out = []
+    for mesh_kw, cfg_kw in cases:
+        cfg = train_config(mesh=MeshConfig(**mesh_kw), **cfg_kw)
+        mesh = _mesh(mesh_kw)
+        batch = pmesh.shard_batch(make_batch(
+            batch_seed, cfg.loss_type, cfg.gradient_accumulation_steps,
+            cfg.batch_size), mesh, accum_axis=True)
+        t = Trainer(cfg, initial_state(seed), device="cpu", mesh=mesh)
+        metrics = [{k: float(v) for k, v in t.train_step(batch).items()}
+                   for _ in range(steps)]
+        out.append({"metrics": metrics,
+                    "state": numpy_state(t.state_dict()),
+                    "coords": (mesh.data_rank, mesh.model_rank,
+                               mesh.pipe_rank),
+                    "shapes": {n: tuple(p.shape)
+                               for n, p in t.model.named_parameters()}})
+    return out
+
+
+def phase_11_gate_cases(cases, *args):
+    """For each ``(fault, modes)`` of ``cases``:
+    ``perf/model_parallel_check.py::rank_modes(*args, modes, fault=fault)``
+    on this rank, the port put back as it was after each."""
+    from clip_finegrained_alignment_tpu_torch.parallel.zero import \
+        ShardLayout
+    from clip_finegrained_alignment_tpu_torch.perf import \
+        model_parallel_check as mpc
+    from clip_finegrained_alignment_tpu_torch.train import engine
+    kept = (engine.before_pipeline, ShardLayout.reduce_sums,
+            ShardLayout.grad_norm)
+    out = []
+    for fault, modes in cases:
+        try:
+            out.append(mpc.rank_modes(*args, modes, fault=fault))
+        finally:
+            (engine.before_pipeline, ShardLayout.reduce_sums,
+             ShardLayout.grad_norm) = kept
+    return out
+
+
+def checkpoint_layouts(layouts, ckpt_root: str, w1_dir: str):
+    """:func:`checkpoint_cases` for each ``(name, mesh_kw, extra)`` of
+    ``layouts`` in turn, on the same ranks."""
+    return {name: checkpoint_cases({name: extra},
+                                   os.path.join(ckpt_root, name), w1_dir,
+                                   mesh_kw)[name]
+            for name, mesh_kw, extra in layouts}
+
+
+def mp_group(steps_args, gate_args=None, checkpoint_args=None):
+    """One spawn's work in ``test_torch_model_parallel.py``:
+    :func:`mp_steps` ``(*steps_args)``, then, where given,
+    :func:`phase_11_gate_cases` ``(*gate_args)`` and
+    :func:`checkpoint_layouts` ``(*checkpoint_args)`` on the same ranks."""
+    return {"steps": mp_steps(*steps_args),
+            "gates": gate_args and phase_11_gate_cases(*gate_args),
+            "checkpoints": checkpoint_args
+            and checkpoint_layouts(*checkpoint_args)}
