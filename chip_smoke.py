@@ -182,7 +182,7 @@ Phases, each of which fails the script (non-zero exit, no "ok" line):
    ``EVAL_MAX_ABS``, exact launches); and a ``--resume`` of H by one
    process to a second epoch, its restored weights and optimizer state
    equal to ``best/``'s bit for bit;
-11. tensor and pipeline parallelism (``parallel/``,
+11. tensor, pipeline and sequence parallelism (``parallel/``,
    ``perf/model_parallel_check.py``) on the one card, gloo ranks on
    ``cuda:0``, ViT-B/16 at full width and depth, SPARC + AdamSPD with
    global negatives in bf16, random weights from phase 6's seed, a global
@@ -194,14 +194,22 @@ Phases, each of which fails the script (non-zero exit, no "ok" line):
    within ``MP_LIMITS`` (set from the CPU before any card reading),
    AdamSPD's anchors one step off the weights; each rank's exact launches
    of #1-#4 in its first step, step ms and peak memory (ranks sharing one
-   card over gloo: not a scaling figure); run I, ``cli/train.py
-   --model-parallel 2 --pipeline-parallel 2 --global-negatives`` on the
-   four ranks for one epoch of phase 8's data (every epoch loss finite and
-   equal on every rank, exact launches), then a ``--resume`` of it by one
-   process (its epoch done: no step), its restored weights and optimizer
-   state equal to ``best/``'s bit for bit. Phase 3 holds #1 and #2 at this
-   phase's shapes (``MP_ATTENTION_SHAPES``: H/2 heads, B/4 rows) against
-   their plain versions, bf16 and fp32, with their times.
+   card over gloo: not a scaling figure); sequence parallelism
+   (``perf/sequence_parallel_check.py``) the same way: ``sp2`` (1 x 2,
+   GSPMD SP: the tokens split over the two ranks, K and V gathered) and
+   ``sp2-ring`` (ring attention) on the two ranks, ``dp2sp2-ring`` (2 x 2,
+   FSDP) on the four, within ``SP_LIMITS`` (set from the CPU before any
+   card reading), with exact launches: no #1 or #2 (the SP attention is
+   PyTorch, as JAX's is XLA), #3 and #4 once a train microbatch; run J,
+   ``cli/train.py --sequence-parallel 2 --sp-ring --global-negatives`` on
+   the two ranks, and run I, ``cli/train.py --model-parallel 2
+   --pipeline-parallel 2 --global-negatives`` on the four, each for one
+   epoch of phase 8's data (every epoch loss finite and equal on every
+   rank, exact launches), then a ``--resume`` of each by one process (its
+   epoch done: no step), its restored weights and optimizer state equal
+   to ``best/``'s bit for bit. Phase 3 holds #1 and #2 at this phase's
+   shapes (``MP_ATTENTION_SHAPES``: H/2 heads, B/4 rows) against their
+   plain versions, bf16 and fp32, with their times.
 
 The last lines are the kernels' JSON line (``launches_by_path`` has
 ``serve``, ``train``, ``long``, ``train_cli`` (runs A-D), ``eval``,
@@ -210,7 +218,7 @@ The last lines are the kernels' JSON line (``launches_by_path`` has
 6c's counted steps), ``train_cli_quant`` (run G), ``data_parallel``
 (phase 10: both ranks' counted steps, run H, its resume and both
 evaluations) and ``model_parallel`` (phase 11: every rank's counted
-steps, run I and its resume); the forward kernel's
+steps, runs I and J and their resumes); the forward kernel's
 entry also carries its ``fp32_eval`` rows, #1 and #2 their
 ``model_parallel_shapes`` rows, the backward its
 ``fp32_train`` rows, the SPARC kernels' their ``gradcache_pool`` row at
@@ -508,6 +516,22 @@ MP_MICRO = 4
 MP_LIMITS = {"loss_rel": 1e-5, "grad_norm_rel": 2e-2,
              "min_grad_cosine": 0.99, "min_update_cosine": 0.99,
              "max_grad_rel": 0.25, "replay_first_update_rel": 1e-3}
+# Phase 11's sequence-parallel modes (perf/sequence_parallel_check.py:
+# sp2, sp2-ring, dp2sp2-ring with FSDP) against the same oracle, with the
+# same readings. Set before any card reading from that study on the CPU
+# (bf16, ViT-B/16 widths with 2 layers a tower, a global batch of 32 x
+# accum 2, seed 0): the three modes read loss <= 1.8e-7, gradient norm
+# <= 3.6e-4, gradient cosine >= 0.99978, update cosine >= 0.99990,
+# gradient error <= 2.1e-2 (bf16 on a text q projection), replay
+# <= 3.9e-5. The faults of the gradient rule and of the copies read: the
+# towers' gather summing the model ranks' cotangents (sp2) loss 2.0e-5,
+# norm 1.03 and gradient error 1.0; the gradients after the gather summed
+# over the model ranks too (sp2-ring) norm 0.107 and gradient error 1.0;
+# whole tensors counted on every model rank in the norm (sp2) norm 0.414.
+# The SP attention is PyTorch in fp32 scores where the oracle runs the
+# bf16 kernels; the limits are MP_LIMITS' own, which leave 12 layers of
+# bf16 room and fail each fault:
+SP_LIMITS = dict(MP_LIMITS)
 # The training CLI (phase 8): a procedural dataset of this many 224 px
 # samples (two SPARC steps an epoch at TRAIN_B x TRAIN_ACCUM; eight count
 # steps at TRAIN_B x CLI_COUNT_ACCUM).
@@ -3507,20 +3531,24 @@ def data_parallel_path(results: dict, packed_dir: str,
 
 
 # ---------------------------------------------------------------------------
-# Phase 11: tensor and pipeline parallelism (gloo ranks on one card)
+# Phase 11: tensor, pipeline and sequence parallelism (gloo ranks on one card)
 # ---------------------------------------------------------------------------
 
 def expected_mp_launches(mode: str, steps: int, layers: int) -> dict:
     """A rank's launches in ``steps`` steps of a mode: #1 and #2 once a
     layer this rank holds, a GPipe microbatch and a train microbatch
     (tensor parallelism runs every layer at H/tp heads, a pipeline stage
-    its L/K layers on each of MP_MICRO microbatches); #3 and #4 once a
-    train microbatch on every rank (the loss is whole on every rank)."""
+    its L/K layers on each of MP_MICRO microbatches; sequence parallelism
+    none, its attention is PyTorch on this rank's queries against other
+    ranks' keys, which #1 and #2 do not take); #3 and #4 once a train
+    microbatch on every rank (the loss is whole on every rank)."""
     from clip_finegrained_alignment_tpu_torch.ops import _build
     from clip_finegrained_alignment_tpu_torch.perf import \
         model_parallel_check as mpc
-    pipe = mpc.MODES[mode][0]["pipe"]
-    per_micro = layers // pipe * (MP_MICRO if pipe > 1 else 1)
+    mesh, extra = mpc.mode_spec(mode)
+    pipe = mesh["pipe"]
+    per_micro = 0 if extra.get("sequence_parallel") else \
+        layers // pipe * (MP_MICRO if pipe > 1 else 1)
     want = {n: 0 for n in _build.SOURCES}
     want.update({"attention_fwd": steps * MP_ACCUM * per_micro,
                  "attention_bwd": steps * MP_ACCUM * per_micro,
@@ -3529,21 +3557,30 @@ def expected_mp_launches(mode: str, steps: int, layers: int) -> dict:
     return want
 
 
-def mp_run_i_args(packed_dir: str, work: str, epochs: int) -> list:
+# Phase 11's runs of cli/train.py: (experiment, the mode whose launches a
+# step they make, flags); I on the four ranks, J on the two.
+MP_RUNS = {"I": ("mp", "tp2pp2", ["--model-parallel", "2",
+                                  "--pipeline-parallel", "2",
+                                  "--pipeline-microbatches", str(MP_MICRO)]),
+           "J": ("sp", "sp2-ring", ["--sequence-parallel", "2",
+                                    "--sp-ring"])}
+
+
+def mp_run_args(packed_dir: str, work: str, name: str, epochs: int) -> list:
     return ["--model", "ViT-B/16", "--loss-type", "sparc", "--optimizer",
             "adamspd", "--batch-size", str(MP_B), "--grad-accum",
             str(MP_ACCUM), "--inverse-temperature", "0.07", "--save-every",
             "1", "--packed", packed_dir, "--device-data", "--checkpoint-dir",
-            os.path.join(work, "ckpt"), "--experiment-name", "mp",
+            os.path.join(work, "ckpt"), "--experiment-name", name,
             "--seed", str(SEED), "--log-every", "1", "--epochs", str(epochs),
             "--global-negatives"]
 
 
-def mp_rank(modes: list, packed_dir, work, oracle_path) -> dict:
+def mp_rank(modes: list, run, packed_dir, work, oracle_path) -> dict:
     """One gloo rank on the card (spawned; the group is up): the modes
     against their oracle (``perf/model_parallel_check.py``, the weights,
-    anchors and oracle read from ``oracle_path``), then, with
-    ``packed_dir``, run I of ``cli/train.py`` (TP x PP, 4 ranks)."""
+    anchors and oracle read from ``oracle_path``), then, with ``run``, that
+    run of ``cli/train.py`` (``MP_RUNS``)."""
     import torch
     import torch.distributed as dist
     from clip_finegrained_alignment_tpu_torch.cli import train as cli_train
@@ -3560,23 +3597,91 @@ def mp_rank(modes: list, packed_dir, work, oracle_path) -> dict:
                                   MP_ACCUM, SEED, MP_STEPS, modes,
                                   prepared=oracle_path)
     out["modes_s"] = time.time() - t0
-    if packed_dir is None:
+    if run is None:
         return out
+    name, _, flags = MP_RUNS[run]
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
     _build.reset_launch_counts()
     t0 = time.time()
-    res = cli_train.main(mp_run_i_args(packed_dir, work, epochs=1)
-                         + ["--model-parallel", "2", "--pipeline-parallel",
-                            "2", "--pipeline-microbatches", str(MP_MICRO)])
+    res = cli_train.main(mp_run_args(packed_dir, work, name, 1) + flags)
     torch.cuda.synchronize(dev)
-    out["I"] = {"launches": _build.launch_counts(),
+    out[run] = {"launches": _build.launch_counts(),
                 "steps": res["trainer"].global_step,
                 "epoch_losses": [h["avg_loss"] for h in res["history"]],
                 "epoch_s": [h["seconds"] for h in res["history"]],
                 "peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
                 "run_s": time.time() - t0}
     return out
+
+
+def mp_run_check(run: str, ranks: list, packed_dir: str, work: str,
+                 layers: int, launches: dict) -> dict:
+    """Run I or J (``MP_RUNS``) as the ranks made it: every rank's steps,
+    finite and equal epoch losses and exact launches; then a ``--resume``
+    of it by one process (its epoch done: no step), whose restored weights
+    and optimizer state must be ``best/``'s bit for bit. Adds the launches
+    to ``launches``."""
+    import torch
+    from clip_finegrained_alignment_tpu_torch.cli import train as cli_train
+    from clip_finegrained_alignment_tpu_torch.ops import _build
+    from clip_finegrained_alignment_tpu_torch.train import engine
+
+    name, mode, flags = MP_RUNS[run]
+    spe = CLI_SAMPLES // (MP_B * MP_ACCUM)
+    want = expected_mp_launches(mode, spe, layers)
+    row = {"flags": flags, "ranks": [r[run] for r in ranks],
+           "expected": want}
+    for r in ranks:
+        check(r[run]["steps"] == spe
+              and all(map(math.isfinite, r[run]["epoch_losses"])),
+              f"train cli {run}: rank {r['rank']} {r[run]}")
+        check(r[run]["launches"] == want,
+              f"train cli {run}: rank {r['rank']} launches "
+              f"{r[run]['launches']} != {want}")
+        check(r[run]["epoch_losses"] == ranks[0][run]["epoch_losses"],
+              f"train cli {run}: the ranks' epoch losses differ")
+        for n in launches:
+            launches[n] += r[run]["launches"][n]
+    best = os.path.join(work, "ckpt", name, "best")
+    want_state = torch.load(os.path.join(best, "state.pt"),
+                            map_location="cpu", weights_only=True)
+    restored = {}
+    load_state_dict = engine.Trainer.load_state_dict
+
+    def spy_load(self, state):
+        load_state_dict(self, state)
+        restored["state"] = cpu_copy(self.state_dict())
+    engine.Trainer.load_state_dict = spy_load
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launch_counts()
+        t0 = time.time()
+        res = cli_train.main(mp_run_args(packed_dir, work, name, 1)
+                             + ["--resume"])
+        torch.cuda.synchronize()
+    finally:
+        engine.Trainer.load_state_dict = load_state_dict
+    resume = {"launches": _build.launch_counts(),
+              "steps": res["trainer"].global_step,
+              "epoch_losses": [x["avg_loss"] for x in res["history"]],
+              "run_s": time.time() - t0,
+              "state_equal_to_best": same_state(restored.get("state"),
+                                                want_state)}
+    del res, want_state, restored
+    torch.cuda.empty_cache()
+    row["resume_w1"] = resume
+    log(f"train cli {run} ({len(ranks)} gloo ranks, {' '.join(flags)}), "
+        "then --resume in one process:", json.dumps(row))
+    check(resume["state_equal_to_best"],
+          f"train cli {run}: the one-process resume did not restore best/ "
+          "exactly")
+    check(resume["steps"] == spe and not resume["epoch_losses"]
+          and not any(resume["launches"].values()),
+          f"train cli {run} resume: {resume}")
+    for n in launches:
+        launches[n] += resume["launches"][n]
+    return row
 
 
 def model_parallel_path(results: dict, packed_dir: str,
@@ -3586,11 +3691,9 @@ def model_parallel_path(results: dict, packed_dir: str,
     same weights, anchors and global batch), made here if it is not
     there."""
     import torch
-    from clip_finegrained_alignment_tpu_torch.cli import train as cli_train
     from clip_finegrained_alignment_tpu_torch.config import CLIPConfig
     from clip_finegrained_alignment_tpu_torch.ops import _build
     from clip_finegrained_alignment_tpu_torch.parallel.launch import spawn
-    from clip_finegrained_alignment_tpu_torch.train import engine
 
     from clip_finegrained_alignment_tpu_torch.perf import \
         model_parallel_check as mpc
@@ -3598,13 +3701,12 @@ def model_parallel_path(results: dict, packed_dir: str,
     cfg = CLIPConfig.vit_b16()
     layers = cfg.vision.num_layers + cfg.text.num_layers
     out = {"gpu": gpu_line(), "global_batch": MP_B, "accum": MP_ACCUM,
-           "micro": MP_MICRO, "limits": MP_LIMITS,
+           "micro": MP_MICRO, "limits": MP_LIMITS, "sp_limits": SP_LIMITS,
            "note": "gloo ranks sharing one card (collectives staged through "
                    "the host), not a scaling figure"}
     work = tempfile.mkdtemp(prefix="cfa_mp_")
     prev_env = os.environ.get("CFA_ALLOW_HASH_TOKENIZER")
     os.environ["CFA_ALLOW_HASH_TOKENIZER"] = "1"
-    load_state_dict = engine.Trainer.load_state_dict
     launches = {n: 0 for n in _build.SOURCES}
     try:
         # The weights, anchors and one-process oracle, once for both
@@ -3614,23 +3716,24 @@ def model_parallel_path(results: dict, packed_dir: str,
             mpc.prepare("ViT-B/16", None, "bfloat16", MP_B, MP_ACCUM, SEED,
                         MP_STEPS, torch.device("cuda", 0), oracle_path)
         out["oracle_s"] = time.time() - t0
-        all_ranks, out["modes"] = [], {}
-        for world, modes, with_run_i in ((2, ["tp2", "pp2"], False),
-                                         (4, ["tp2pp2", "dp2tp2"], True)):
+        out["modes"] = {}
+        for world, modes, run in ((2, ["tp2", "pp2", "sp2", "sp2-ring"],
+                                   "J"),
+                                  (4, ["tp2pp2", "dp2tp2", "dp2sp2-ring"],
+                                   "I")):
             torch.cuda.empty_cache()
             t0 = time.time()
             ranks = spawn(mp_rank, world,
-                          (modes, packed_dir if with_run_i else None, work,
-                           oracle_path),
+                          (modes, run, packed_dir, work, oracle_path),
                           timeout_s=600, device="cuda", backend="gloo",
                           env=dp_env())
             out[f"spawn_{world}_s"] = time.time() - t0
-            all_ranks.append(ranks)
             r0 = ranks[0]
             for mode in modes:
                 res = r0["modes"][mode]
                 vs = res["vs_oracle"]
                 want = expected_mp_launches(mode, 1, layers)
+                limits = SP_LIMITS if "sp" in mode else MP_LIMITS
                 row = {"mesh": res["mesh"], "vs_oracle": vs,
                        "launches_per_rank": [r["modes"][mode]["launches"]
                                              for r in ranks],
@@ -3655,70 +3758,20 @@ def model_parallel_path(results: dict, packed_dir: str,
                         launches[n] += r["modes"][mode]["launches"][n]
                 held = {k: (vs[k] >= lim if k.startswith("min_")
                             else vs[k] <= lim)
-                        for k, lim in MP_LIMITS.items()}
+                        for k, lim in limits.items()}
                 check(all(held.values()),
                       f"model parallel {mode} vs its oracle out of "
-                      f"MP_LIMITS: {held} {vs}")
+                      f"{'SP' if limits is SP_LIMITS else 'MP'}_LIMITS: "
+                      f"{held} {vs}")
                 check(vs["k_proj_bias_grad_share_of_norm"]
                       <= TRAIN_MAX_ZERO_GRAD_SHARE,
                       f"model parallel {mode}: k_proj bias share {vs}")
-        ranks = all_ranks[1]
-        # Run I: four ranks, TP x PP, one epoch of phase 8's data.
-        spe = CLI_SAMPLES // (MP_B * MP_ACCUM)
-        want_i = expected_mp_launches("tp2pp2", spe, layers)
-        i_row = {"ranks": [r["I"] for r in ranks], "expected": want_i}
-        for r in ranks:
-            check(r["I"]["steps"] == spe
-                  and all(map(math.isfinite, r["I"]["epoch_losses"])),
-                  f"train cli I: rank {r['rank']} {r['I']}")
-            check(r["I"]["launches"] == want_i,
-                  f"train cli I: rank {r['rank']} launches "
-                  f"{r['I']['launches']} != {want_i}")
-            check(r["I"]["epoch_losses"] == ranks[0]["I"]["epoch_losses"],
-                  "train cli I: the ranks' epoch losses differ")
-            for n in launches:
-                launches[n] += r["I"]["launches"][n]
-        # ... resumed by one process: the restored weights and optimizer
-        # state are best/'s bit for bit (its epoch is done: no step).
-        best = os.path.join(work, "ckpt", "mp", "best")
-        want_state = torch.load(os.path.join(best, "state.pt"),
-                                map_location="cpu", weights_only=True)
-        restored = {}
-
-        def spy_load(self, state):
-            load_state_dict(self, state)
-            restored["state"] = cpu_copy(self.state_dict())
-        engine.Trainer.load_state_dict = spy_load
-        torch.cuda.reset_peak_memory_stats()
-        _build.reset_launch_counts()
-        t0 = time.time()
-        res = cli_train.main(mp_run_i_args(packed_dir, work, epochs=1)
-                             + ["--resume"])
-        torch.cuda.synchronize()
-        engine.Trainer.load_state_dict = load_state_dict
-        resume = {"launches": _build.launch_counts(),
-                  "steps": res["trainer"].global_step,
-                  "epoch_losses": [x["avg_loss"] for x in res["history"]],
-                  "run_s": time.time() - t0,
-                  "state_equal_to_best": same_state(restored.get("state"),
-                                                    want_state)}
-        del res, want_state, restored
-        torch.cuda.empty_cache()
-        i_row["resume_w1"] = resume
-        out["I"] = i_row
-        log("train cli I (4 gloo ranks, --model-parallel 2 "
-            "--pipeline-parallel 2), then --resume in one process:",
-            json.dumps(i_row))
-        check(resume["state_equal_to_best"],
-              "train cli I: the one-process resume did not restore best/ "
-              "exactly")
-        check(resume["steps"] == spe and not resume["epoch_losses"]
-              and not any(resume["launches"].values()),
-              f"train cli I resume: {resume}")
-        for n in launches:
-            launches[n] += resume["launches"][n]
+            # Run J (sequence parallelism, two ranks) or I (TP x PP, four)
+            # of cli/train.py, one epoch of phase 8's data, resumed by one
+            # process.
+            out[run] = mp_run_check(run, ranks, packed_dir, work, layers,
+                                    launches)
     finally:
-        engine.Trainer.load_state_dict = load_state_dict
         if prev_env is None:
             os.environ.pop("CFA_ALLOW_HASH_TOKENIZER", None)
         else:
@@ -3732,7 +3785,6 @@ def model_parallel_path(results: dict, packed_dir: str,
                                      for m, r in out["modes"].items()}}))
     results["model_parallel"] = out
     return {"launches": launches}
-
 
 
 def beside(background, foreground):

@@ -57,15 +57,29 @@ into GPipe stages, each train microbatch split into
 ``--pipeline-microbatches`` (default 2 x the stages). ``--batch-size``
 must divide by the data degree; ranks that share a data coordinate read
 the same shard. ``--zero1`` and ``--fsdp`` compose with both.
-``--sequence-parallel`` and ``--sp-ring`` exit: sequence parallelism is
-ROADMAP A6c. ``--quant`` with ``--model-parallel`` exits too (A6d).
+``--quant`` with ``--model-parallel`` exits (ROADMAP A6d).
+
+Sequence parallelism (with ``--global-negatives``; not with
+``--model-parallel`` or ``--pipeline-parallel``, as in JAX)::
+
+    torchrun --nproc_per_node 8 -m \
+        clip_finegrained_alignment_tpu_torch.cli.train --packed DIR \
+        --device-data --model ViT-L/14@336 --batch-size 64 \
+        --global-negatives --sequence-parallel 2 --sp-ring --fsdp
+
+splits the encoders' tokens over ``--sequence-parallel`` ranks (the mesh's
+model axis; data = W / N): attention reaches every key through K and V
+gathered over the ranks, or with ``--sp-ring`` through ring attention
+(``parallel/sequence.py``). The parameters stay whole on every rank;
+``--zero1`` and ``--fsdp`` shard over the data ranks.
 
 Left out, against the JAX CLI: the TPU knobs (``--pallas``,
 ``--fused-sparc``, ``--remat``, ``--unroll-*``, ``--unstack-layers``).
 ``--eval-every-epoch`` (count loss only) holds out the first batch of
 epoch 0 and runs ``eval/batch_eval.py::evaluate_batch`` on it in fp32 on
-the trainer's master weights (under ``--model-parallel`` or
-``--pipeline-parallel`` gathered whole, then evaluated by rank 0), before
+the trainer's master weights (under ``--model-parallel``,
+``--pipeline-parallel`` or ``--fsdp`` gathered whole, then evaluated by
+rank 0; whole on every rank under ``--sequence-parallel``), before
 training (when the run starts at
 epoch 0) and after every epoch, between the epochs' timings; it logs
 ``count_eval_accuracy`` and writes ``confusion_{pretrain|epoch_<n>}.png``
@@ -174,9 +188,15 @@ def build_parser() -> argparse.ArgumentParser:
                    help="GPipe microbatches a train microbatch (0 = 2 x "
                         "the stages)")
     p.add_argument("--sequence-parallel", type=int, default=1,
-                   help="not ported yet (ROADMAP A6c): above 1 exits")
+                   help="sequence-parallel degree: the encoders' tokens "
+                        "split over this many ranks (the mesh's model "
+                        "axis), the parameters whole on each; requires "
+                        "--global-negatives, excludes --model-parallel "
+                        "and --pipeline-parallel")
     p.add_argument("--sp-ring", action="store_true",
-                   help="not ported yet (ROADMAP A6c): exits")
+                   help="with --sequence-parallel: ring attention (K and "
+                        "V blocks passed around the ranks under an online "
+                        "softmax) in place of gathering K and V")
     p.add_argument("--bpe-path", default=None,
                    help="CLIP BPE vocab (bpe_simple_vocab_16e6.txt.gz or "
                         "an HF tokenizer dir). Required unless "
@@ -213,9 +233,6 @@ def _refuse(args) -> None:
         raise SystemExit("pass exactly one of --annotations / --packed")
     if args.device_data and not args.packed:
         raise SystemExit("--device-data requires --packed")
-    if args.fsdp and args.eval_every_epoch:
-        raise SystemExit("--eval-every-epoch reads the whole model, which "
-                         "--fsdp keeps in shards")
 
 
 def check_optimizer_import(ref_meta, cfg, path) -> dict:
@@ -277,14 +294,23 @@ def main(argv=None) -> Dict[str, Any]:
     world = pmesh.world_size()
     writer = pmesh.rank() == 0
     say = print if writer else (lambda *a, **k: None)
-    degree = args.model_parallel * args.pipeline_parallel
+    if args.sequence_parallel > 1 and (args.model_parallel > 1
+                                       or args.pipeline_parallel > 1):
+        raise SystemExit("--sequence-parallel cannot be combined with "
+                         "--model-parallel or --pipeline-parallel (the "
+                         "model axis is either the TP or the sequence "
+                         "axis; train/engine.py)")
+    degree = (args.model_parallel * args.pipeline_parallel
+              * args.sequence_parallel)
     if degree > 1 and not args.global_negatives:
-        raise SystemExit("--model-parallel/--pipeline-parallel > 1 require "
+        raise SystemExit("--model-parallel/--pipeline-parallel/"
+                         "--sequence-parallel > 1 require "
                          "--global-negatives: the DDP-parity shard_map path "
                          "assumes replicated params (train/engine.py)")
     if world % degree:
         raise SystemExit(f"--model-parallel {args.model_parallel} x "
-                         f"--pipeline-parallel {args.pipeline_parallel} "
+                         f"--pipeline-parallel {args.pipeline_parallel} x "
+                         f"--sequence-parallel {args.sequence_parallel} "
                          f"must divide the world size ({world} processes)")
     data = world // degree
     if args.batch_size % data:
@@ -305,15 +331,18 @@ def main(argv=None) -> Dict[str, Any]:
         log_every=args.log_every, grad_cache=args.grad_cache,
         quant=args.quant, global_negatives=args.global_negatives,
         zero1=args.zero1, fsdp=args.fsdp,
-        mesh=MeshConfig(data=data, model=args.model_parallel,
+        mesh=MeshConfig(data=data, model=max(args.model_parallel,
+                                             args.sequence_parallel),
                         pipe=args.pipeline_parallel),
         pipeline_microbatches=args.pipeline_microbatches,
         sequence_parallel=args.sequence_parallel > 1, sp_ring=args.sp_ring)
-    try:   # the layouts the step refuses (A6c among them) exit here
+    try:   # the layouts the step refuses exit here
         check_parallel(cfg)
     except ValueError as e:
         raise SystemExit(str(e)) from None
-    mesh = pmesh.make_mesh(cfg.mesh, device) if world > 1 else None
+    mesh = pmesh.make_mesh(cfg.mesh, device,
+                           sequence_parallel=cfg.sequence_parallel,
+                           sp_ring=cfg.sp_ring) if world > 1 else None
     shard = {} if mesh is None else {"process_index": mesh.data_rank,
                                      "process_count": mesh.data}
     if cfg.grad_cache:
@@ -433,9 +462,11 @@ def main(argv=None) -> Dict[str, Any]:
     meter = ThroughputMeter()
 
     evaluating = args.eval_every_epoch and mode == "counterfactual"
-    # Under tensor or pipeline parallelism the model is in parts: every
-    # rank gathers it whole (a collective) and rank 0 evaluates that copy.
-    in_parts = mesh is not None and (mesh.model > 1 or mesh.pipe > 1)
+    # Under tensor or pipeline parallelism or FSDP the model is in parts:
+    # every rank gathers it whole (a collective) and rank 0 evaluates that
+    # copy.
+    in_parts = mesh is not None and (mesh.tensor_parallel or mesh.pipe > 1
+                                     or cfg.fsdp)
 
     def count_eval(tag: str, step: int, what: str) -> None:
         model = trainer.model_state() if in_parts else trainer.model

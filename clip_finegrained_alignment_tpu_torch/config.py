@@ -12,10 +12,9 @@ the parallel fields among them. Not carried: the TPU-only knobs
 ``mesh`` lays the processes (one a GPU, ``parallel/mesh.py``) out as
 ``data × model × pipe``: data-parallel, tensor-parallel and pipeline
 ranks; ``pipeline_microbatches`` is the GPipe split of a train
-microbatch (``parallel/pipeline.py``). ``sequence_parallel`` and
-``sp_ring`` are accepted here, so that a JAX ``meta.json`` round-trips,
-and refused where a step is built (``train/engine.py``): sequence
-parallelism is ROADMAP A6c.
+microbatch (``parallel/pipeline.py``). ``sequence_parallel`` makes the
+``model`` axis the sequence axis (GSPMD SP, or the ring with ``sp_ring``;
+``parallel/sequence.py``).
 """
 
 from __future__ import annotations
@@ -201,7 +200,10 @@ class TrainConfig:
     # GPipe microbatches a train microbatch under mesh.pipe > 1 (0 = 2 x
     # the stages; parallel/pipeline.py).
     pipeline_microbatches: int = 0
-    # Accepted for meta.json round trips; refused by the train step (A6c).
+    # Sequence parallelism over mesh.model (parallel/sequence.py): the
+    # token dim of the encoders' activations split over the model ranks,
+    # the parameters whole on each; sp_ring: attention as ring attention
+    # (without sequence_parallel it does nothing, as in JAX).
     sequence_parallel: bool = False
     sp_ring: bool = False
 
@@ -296,6 +298,8 @@ class TrainConfig:
                 "Global negatives": self.global_negatives,
                 "ZeRO-1": self.zero1,
                 "FSDP": self.fsdp,
+                "Sequence parallel": (("ring" if self.sp_ring else "gspmd")
+                                      if self.sequence_parallel else False),
             },
         }
         for group, params in groups.items():

@@ -76,14 +76,15 @@
 // tiles of the streamed pair (k and v, or qs and do) are read from device
 // memory into registers while the tile before them is computed, then split
 // once into hi / lo words in the other of two buffers (one barrier a tile).
-// 68 KB of shared memory at Dh=64: the dq pass fits two blocks an SM (188
-// registers), the dk/dv pass three (168).
+// 68 KB of shared memory at Dh=64: each pass runs two blocks an SM (dq 255
+// registers, dk/dv 247; at three, dk/dv's 168 registers spill since the
+// sums over the rows take mma_row_rn, below).
 //
 // What bounds it: not the tensor cores alone. Plain TF32 (hi·hi alone, a
 // third of the products) saves only 19-28 % of the time: each warp reads
 // its operands' words from shared memory for every tile and runs its
-// products, exponentials and splits in sequence, with 8 (dq) or 12 (dk/dv)
-// warps an SM to overlap them. Own tiles split once into hi / lo words in
+// products, exponentials and splits in sequence, with 8 warps an SM to
+// overlap them. Own tiles split once into hi / lo words in
 // shared memory (twice their bytes) measured 9-22 % slower, 32-row tiles
 // and 8-warp blocks slower on two of three shapes, and a software
 // pipeline that overlaps tile s + 1's products over the head dim with
@@ -105,12 +106,17 @@
 // 2 DH / 8 contiguous head dims of a gradient row, stored as float4s.
 //
 // Accuracy. The tensor cores round each fp32 sum mostly toward zero, not
-// to nearest (perf/fp32_grad_bias_study.py), and a vision row's sums take
-// 26 k8 steps of three products each: dq, dk and dv come out 1.5-1.9e-6
-// smaller than exact, about 15 units of fp32's last place, with or
-// without a fourth product (lo·lo). That is within a tenth of the card's
-// tolerance against the plain version, but it shows in a model's gradient
-// norm, 2.3e-6 below the CPU's at ViT-B/16 (PERF.md).
+// to nearest (perf/fp32_grad_bias_study.py). Kept in the mma accumulator
+// over a vision row's 26 k8 steps of three products each, dq, dk and dv
+// came out 1.5-1.9e-6 smaller than exact, about 15 units of fp32's last
+// place, with or without a fourth product (lo·lo), which showed in a
+// model's gradient norm, 2.3e-6 below the CPU's at ViT-B/16 (PERF.md). So
+// the four sums over the streamed rows (A, B, dk, dv) take each k8 step's
+// three products into a zeroed accumulator and add it to the running sum
+// with a round-to-nearest fp32 add (attention_tf32.cuh::mma_row_rn): the
+// truncation spans one step's products, not the whole row. On the card dq,
+// dk and dv then read 0.4-0.7e-6 small (what is left: the scores' sums
+// over the head dim) and the model's gradient norm 6.7e-8 low (PERF.md).
 //
 // Bound on the card: the vision backward at B=32 moves 136 MB for 9.5
 // GFLOP of fp32 products, 28.6 GFLOP of TF32 ones, 0.058 ms at 495
@@ -146,7 +152,7 @@ constexpr int kF32Rows = 16;       // rows of a streamed tile (dq: keys; dk/dv: 
 constexpr int kF32Products = 3;
 // Blocks an SM that __launch_bounds__ leaves registers for: dq pass, dk/dv pass.
 constexpr int kF32MinBlocks = 2;
-constexpr int kF32DkdvMinBlocks = 3;
+constexpr int kF32DkdvMinBlocks = 2;
 
 template <int DH> struct F32Bwd {
   static_assert(DH == 16 || DH == 32 || DH == 64, "head dim 16, 32 or 64");
@@ -440,8 +446,8 @@ __global__ void __launch_bounds__(32 * kF32Warps, kF32MinBlocks) attention_bwd_d
         tfa::acc_to_a(dh, dl, dp[n]);
         uint32_t bh[KS][2], bl[KS][2];
         frag_b_rows<DH>(bh, bl, Kt, 8 * n, g, t);
-        tfa::mma_row<KS, kF32Products>(A, dh, dl, bh, bl);
-        tfa::mma_row<KS, kF32Products>(Bp, ph, pl, bh, bl);
+        tfa::mma_row_rn<KS, kF32Products>(A, dh, dl, bh, bl);
+        tfa::mma_row_rn<KS, kF32Products>(Bp, ph, pl, bh, bl);
       }
     }
     if (more) pair_store<DH>(st, ring + ((s + 1) & 1) * 2 * T::kTile, 0.f);
@@ -577,9 +583,9 @@ __global__ void __launch_bounds__(32 * kF32Warps, kF32DkdvMinBlocks) attention_b
         tfa::acc_to_a(dh, dl, dp[n]);
         uint32_t bh[KS][2], bl[KS][2];
         frag_b_rows<DH>(bh, bl, Ot, 8 * n, g, t);
-        tfa::mma_row<KS, kF32Products>(dV, ph, pl, bh, bl);
+        tfa::mma_row_rn<KS, kF32Products>(dV, ph, pl, bh, bl);
         frag_b_rows<DH>(bh, bl, Qt, 8 * n, g, t);
-        tfa::mma_row<KS, kF32Products>(dK, dh, dl, bh, bl);
+        tfa::mma_row_rn<KS, kF32Products>(dK, dh, dl, bh, bl);
       }
     }
     if (more) pair_store<DH>(st, ring + ((s + 1) & 1) * 2 * T::kTile, scale);

@@ -55,6 +55,30 @@ __device__ __forceinline__ void mma_row(float (*c)[4], const uint32_t* ah, const
   for (int n = 0; n < N; ++n) tf32::mma_tf32(c[n], ah, bh[n]);
 }
 
+// c[n] += a·b[n] as mma_row, but each n8 tile's products are taken into a
+// zeroed accumulator and then added to c[n] with an ordinary fp32 add,
+// rounded to nearest. mma.sync's TF32 sums round toward zero: a running
+// sum kept in the mma accumulator itself loses about half an ulp of the
+// sum at every k8 step (the backward's dq, dk and dv came out ~2e-6
+// small, perf/fp32_grad_bias_study.py); here the truncation spans one
+// k8 step's products, and the running sum is rounded without bias.
+template <int N, int PRODUCTS>
+__device__ __forceinline__ void mma_row_rn(float (*c)[4], const uint32_t* ah, const uint32_t* al,
+                                           const uint32_t (*bh)[2], const uint32_t (*bl)[2]) {
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+    float d[4] = {0.f, 0.f, 0.f, 0.f};
+    if (PRODUCTS == 4) tf32::mma_tf32(d, al, bl[n]);
+    if (PRODUCTS >= 3) {
+      tf32::mma_tf32(d, al, bh[n]);
+      tf32::mma_tf32(d, ah, bl[n]);
+    }
+    tf32::mma_tf32(d, ah, bh[n]);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[n][e] = __fadd_rn(c[n][e], d[e]);
+  }
+}
+
 // A fragment of a 16-row block held as m16n8k8 accumulators c (rows g,
 // g + 8; columns 2t, 2t + 1), split: column t takes the accumulator's
 // column 2t and column t + 4 its column 2t + 1, so the B fragment of the

@@ -48,6 +48,14 @@ holds this rank's part, under the whole model's HF names.
   ``[s·L/K, (s+1)·L/K)`` of stage s (an ``nn.ModuleDict`` keyed by the
   global layer index, so the names stay the whole model's) and runs them
   in the GPipe schedule; only stage 0 computes the embeddings.
+* **SP** (``seq``, a ``parallel/sequence.py::SeqParallelSpec``, passed
+  to :func:`clip_forward`, :func:`encode_image` and :func:`encode_text` as
+  JAX passes it): the parameters are whole; each encoder runs on this
+  rank's block of the tokens (the embeddings are computed whole and cut),
+  its attention reaching every key through K and V gathered over the
+  sequence group or the ring, in fp32 scores (no kernel: neither JAX path
+  runs a Pallas kernel), and each tower's output is gathered whole before
+  pooling.
 """
 
 from __future__ import annotations
@@ -175,7 +183,9 @@ class Attention(nn.Module):
         self.v_proj = nn.Linear(d, d // n)
         self.out_proj = nn.Linear(d // n, d)
 
-    def forward(self, x, bias, dtype, quant="none"):
+    def forward(self, x, bias, dtype, quant="none", seq=None, seq_len=0):
+        """``seq``: ``x`` is this rank's block of a ``seq_len``-token
+        sequence and ``bias`` its rows' (``sequence.local_bias``)."""
         x = _column_input(x, self.tp)
         B, S, _ = x.shape
         H = self.num_heads
@@ -184,7 +194,11 @@ class Attention(nn.Module):
         q = heads(_apply(self.q_proj, x, dtype, quant))
         k = heads(_apply(self.k_proj, x, dtype, quant))
         v = heads(_apply(self.v_proj, x, dtype, quant))
-        out = flash_attention(q, k, v, bias, (D // H) ** -0.5)
+        if seq is None:
+            out = flash_attention(q, k, v, bias, (D // H) ** -0.5)
+        else:
+            from ..parallel.sequence import attention
+            out = attention(q, k, v, bias, (D // H) ** -0.5, seq_len, seq)
         return _row(self.out_proj, out.reshape(B, S, D), dtype, quant,
                     self.tp)
 
@@ -214,9 +228,9 @@ class EncoderLayer(nn.Module):
         self.mlp = MLP(d, d_ff, tp)
         self.layer_norm2 = nn.LayerNorm(d, eps=eps)
 
-    def forward(self, x, bias, dtype, quant="none"):
+    def forward(self, x, bias, dtype, quant="none", seq=None, seq_len=0):
         x = x + self.self_attn(layer_norm(self.layer_norm1, x), bias, dtype,
-                               quant)
+                               quant, seq, seq_len)
         return x + self.mlp(layer_norm(self.layer_norm2, x), dtype, quant)
 
 
@@ -238,14 +252,22 @@ class Encoder(nn.Module):
             {str(i): EncoderLayer(d, d_ff, num_heads, eps, tp)
              for i in range(lo, lo + per)})
 
-    def _run(self, x, bias, dtype, quant):
+    def _run(self, x, bias, dtype, quant, seq=None, seq_len=0):
         for layer in self.layers.values():
-            x = layer(x, bias, dtype, quant)
+            x = layer(x, bias, dtype, quant, seq, seq_len)
         return x
 
-    def forward(self, x, bias, dtype, quant="none", shape=None):
+    def forward(self, x, bias, dtype, quant="none", shape=None, seq=None):
         """``x`` [B, S, D] (under a pipeline: the embeddings on stage 0,
-        None on the others, and ``shape`` the rows' [B, S, D])."""
+        None on the others, and ``shape`` the rows' [B, S, D]). ``seq``:
+        the stack runs on this rank's block of the tokens, which it
+        returns (``parallel/sequence.py``)."""
+        if seq is not None:
+            from ..parallel.sequence import constrain_tokens, local_bias
+            S = x.shape[1]
+            return self._run(constrain_tokens(x, seq),
+                             local_bias(bias, S, seq, x.device), dtype,
+                             quant, seq, S)
         if self.pipeline is None:
             return self._run(x, bias, dtype, quant)
         return self.pipeline.run(
@@ -287,8 +309,10 @@ class VisionTransformer(nn.Module):
                                cfg.num_layers, tp, pipeline)
         self.post_layernorm = nn.LayerNorm(d, eps=eps)
 
-    def forward(self, pixel_values, dtype, quant="none") -> TowerOutput:
-        """``pixel_values``: [B, H, W, 3] NHWC, normalized."""
+    def forward(self, pixel_values, dtype, quant="none",
+                seq=None) -> TowerOutput:
+        """``pixel_values``: [B, H, W, 3] NHWC, normalized. ``seq``:
+        sequence parallelism (``parallel/sequence.py``)."""
         e = self.embeddings
         x = None
         if _embeds(self.encoder.pipeline):
@@ -301,7 +325,10 @@ class VisionTransformer(nn.Module):
             x = layer_norm(self.pre_layrnorm, x)
         x = self.encoder(x, None, dtype, quant,
                          shape=(pixel_values.shape[0], self.cfg.seq_len,
-                                self.cfg.hidden_size))
+                                self.cfg.hidden_size), seq=seq)
+        if seq is not None:
+            from ..parallel.sequence import gather_tokens
+            x = gather_tokens(x, self.cfg.seq_len, seq)
         pooled = layer_norm(self.post_layernorm, x[:, 0])
         return TowerOutput(last_hidden_state=x, pooled=pooled)
 
@@ -338,9 +365,9 @@ class TextTransformer(nn.Module):
         self.final_layer_norm = nn.LayerNorm(d, eps=eps)
 
     def forward(self, input_ids, dtype, attention_mask=None,
-                quant="none") -> TowerOutput:
+                quant="none", seq=None) -> TowerOutput:
         """``input_ids``: [B, T] int. Pools the hidden state at the FIRST
-        EOS token, as HF does."""
+        EOS token, as HF does. ``seq``: sequence parallelism."""
         e = self.embeddings
         B, T = input_ids.shape
         ids = input_ids.long()
@@ -350,7 +377,10 @@ class TextTransformer(nn.Module):
             x = x + e.position_embedding.weight.to(dtype)[None, :T]
         bias = text_attention_bias(T, attention_mask, ids.device)
         x = self.encoder(x, bias, dtype, quant,
-                         shape=(B, T, self.cfg.hidden_size))
+                         shape=(B, T, self.cfg.hidden_size), seq=seq)
+        if seq is not None:
+            from ..parallel.sequence import gather_tokens
+            x = gather_tokens(x, T, seq)
         x = layer_norm(self.final_layer_norm, x)
         eos_pos = (ids == self.cfg.eos_token_id).int().argmax(dim=-1)
         pooled = x[torch.arange(B, device=x.device), eos_pos]
@@ -398,27 +428,28 @@ class CLIPModel(nn.Module):
 
 
 def encode_image(model: CLIPModel, pixel_values: torch.Tensor, *,
-                 dtype=torch.float32, quant="none") -> torch.Tensor:
+                 dtype=torch.float32, quant="none", seq=None) -> torch.Tensor:
     """Projected image embedding (not normalized), in ``dtype``."""
-    out = model.vision_model(pixel_values, dtype, quant)
+    out = model.vision_model(pixel_values, dtype, quant, seq)
     return _apply(model.visual_projection, out.pooled, dtype)
 
 
 def encode_text(model: CLIPModel, input_ids: torch.Tensor, *,
                 attention_mask=None, dtype=torch.float32,
-                quant="none") -> torch.Tensor:
+                quant="none", seq=None) -> torch.Tensor:
     """Projected text embedding (not normalized), in ``dtype``."""
-    out = model.text_model(input_ids, dtype, attention_mask, quant)
+    out = model.text_model(input_ids, dtype, attention_mask, quant, seq)
     return _apply(model.text_projection, out.pooled, dtype)
 
 
 def clip_forward(model: CLIPModel, pixel_values: torch.Tensor,
                  input_ids: torch.Tensor, *, attention_mask=None,
-                 dtype=torch.float32, quant="none") -> CLIPOutput:
+                 dtype=torch.float32, quant="none", seq=None) -> CLIPOutput:
     """Both towers; normalization and logits in fp32 (unguarded norm).
-    ``quant`` picks the encoder projections' GEMM (:func:`_linear_fn`)."""
-    v = model.vision_model(pixel_values, dtype, quant)
-    t = model.text_model(input_ids, dtype, attention_mask, quant)
+    ``quant`` picks the encoder projections' GEMM (:func:`_linear_fn`);
+    ``seq``: sequence parallelism (``parallel/sequence.py``)."""
+    v = model.vision_model(pixel_values, dtype, quant, seq)
+    t = model.text_model(input_ids, dtype, attention_mask, quant, seq)
     ie = _apply(model.visual_projection, v.pooled, dtype).float()
     te = _apply(model.text_projection, t.pooled, dtype).float()
     ie = ie / ie.norm(dim=-1, keepdim=True)
@@ -479,7 +510,7 @@ def build_train_model(cfg: CLIPConfig, state_dict, *,
     pipeline's microbatches an encoder call
     (``parallel/pipeline.py::default_num_micro``)."""
     tp = pipeline = None
-    if mesh is not None and mesh.model > 1:
+    if mesh is not None and mesh.tensor_parallel:
         tp = TP(mesh.group("model"), mesh.model)
     if mesh is not None and mesh.pipe > 1:
         from ..parallel.pipeline import GPipe, default_num_micro
@@ -495,12 +526,12 @@ def local_state(model: CLIPModel, state_dict, mesh) -> dict:
     tensor-parallel shard; all of them, whole, without tensor or pipeline
     parallelism (so that ``strict`` loading still sees every key)."""
     from ..parallel.sharding_rules import tp_dim
-    if mesh is None or (mesh.model == 1 and mesh.pipe == 1):
+    if mesh is None or (not mesh.tensor_parallel and mesh.pipe == 1):
         return {k: v.detach().clone() for k, v in state_dict.items()}
     out = {}
     for name in model.state_dict():
         t = state_dict[name].detach()
-        d = tp_dim(name) if mesh.model > 1 else None
+        d = tp_dim(name) if mesh.tensor_parallel else None
         if d is not None:
             t = t.chunk(mesh.model, d)[mesh.model_rank]
         out[name] = t.clone()

@@ -7,10 +7,12 @@ program, its devices laid out as ``reshape(data, model, pipe)`` with
 torchrun's model: ``distributed_init`` joins the ``torch.distributed``
 group that torchrun's environment describes, and :class:`Mesh` is this
 process's place in it: rank ``r = (d·model + m)·pipe + p`` has data
-coordinate ``d``, model coordinate ``m`` (tensor parallelism) and pipe
-coordinate ``p`` (its pipeline stage), and holds the process groups of
-its three axes. Sequence parallelism (``sequence_parallel``, ``sp_ring``)
-is ROADMAP A6c: ``make_mesh`` refuses it.
+coordinate ``d``, model coordinate ``m`` (tensor parallelism, or under
+``sequence_parallel`` its block of the tokens) and pipe coordinate ``p``
+(its pipeline stage), and holds the process groups of its three axes.
+Under sequence parallelism the model groups are the sequence groups, and
+``sp_ring`` adds the two-rank groups of the ring's hops
+(``parallel/sequence.py``).
 
 A process's index and count are ``torch.distributed``'s rank and world
 size when a process group is initialized, and 0 and 1 otherwise.
@@ -27,8 +29,6 @@ import torch
 
 from ..config import MeshConfig
 
-A6C = ("sequence parallelism (sequence_parallel, sp_ring) is not ported "
-       "yet (ROADMAP A6c)")
 A6D = ("int8 under tensor parallelism is not ported yet (ROADMAP A6d): a "
        "shard would quantize its part of a split contraction with its own "
        "absmax, where the whole row's is wanted")
@@ -99,8 +99,10 @@ class Mesh:
     the process groups of its axes (``groups``: axis → the group of the
     ranks that share this rank's other coordinates, None where that is
     every rank: the default group; ``"hop_prev"`` / ``"hop_next"``: the
-    two-rank groups of the pipeline hops). A mesh made by hand (no
-    ``groups``) runs its collectives on the default group."""
+    two-rank groups of the pipeline hops; ``"ring_prev"`` /
+    ``"ring_next"``: those of the sequence ring's hops). A mesh made by
+    hand (no ``groups``) runs its collectives on the default group.
+    ``sequence_parallel``: the model axis shards tokens, not parameters."""
     data: int
     rank: int
     device: torch.device
@@ -108,6 +110,12 @@ class Mesh:
     pipe: int = 1
     groups: Dict[str, Any] = field(default_factory=dict, compare=False,
                                    repr=False)
+    sequence_parallel: bool = False
+
+    @property
+    def tensor_parallel(self) -> bool:
+        """Whether the model axis splits the parameters (Megatron)."""
+        return self.model > 1 and not self.sequence_parallel
 
     @property
     def data_rank(self) -> int:
@@ -189,16 +197,17 @@ def make_mesh(cfg: Optional[MeshConfig] = None,
               sp_ring: bool = False) -> Mesh:
     """The mesh over the initialized process group. ``cfg`` None takes
     every rank as a data rank; a ``cfg`` whose product of axes is not the
-    group's size raises, as does sequence parallelism (A6c). Every rank
-    makes the groups of all three axes and of the pipeline hops, in the
+    group's size raises. ``sequence_parallel``: the model axis is the
+    sequence axis; with ``sp_ring`` also the ring's pair groups (ring rank
+    i and i + 1 of each model group; at two ranks the model group itself).
+    ``sp_ring`` alone changes nothing, as in JAX's step. Every rank makes
+    the groups of all three axes and of the pipeline and ring hops, in the
     same order. ``device`` defaults to the current CUDA device, or the CPU
     without one."""
     import torch.distributed as dist
     if not (dist.is_available() and dist.is_initialized()):
         raise RuntimeError("make_mesh needs an initialized process group "
                            "(parallel.mesh.distributed_init)")
-    if sequence_parallel or sp_ring:
-        raise ValueError(A6C)
     size, rank_ = dist.get_world_size(), dist.get_rank()
     cfg = cfg or MeshConfig(data=size)
     if cfg.data * cfg.model * cfg.pipe != size:
@@ -218,11 +227,24 @@ def make_mesh(cfg: Optional[MeshConfig] = None,
                 groups["hop_next"] = g
             if rank_ == b:
                 groups["hop_prev"] = g
+    if sequence_parallel and sp_ring and cfg.model > 1:
+        # The ring's hops i -> i + 1 (mod n): one two-rank group each.
+        for ring in axis_ranks(cfg, "model"):
+            n = len(ring)
+            for i in range(n):
+                a, b = ring[i], ring[(i + 1) % n]
+                g = _new_groups([[a, b]], rank_, size) if n > 2 else \
+                    groups["model"]
+                if rank_ == a:
+                    groups["ring_next"] = g
+                if rank_ == b:
+                    groups["ring_prev"] = g
     if device is None:
         device = torch.device("cuda", torch.cuda.current_device()) \
             if torch.cuda.is_available() else torch.device("cpu")
     return Mesh(data=cfg.data, rank=rank_, device=torch.device(device),
-                model=cfg.model, pipe=cfg.pipe, groups=groups)
+                model=cfg.model, pipe=cfg.pipe, groups=groups,
+                sequence_parallel=sequence_parallel)
 
 
 def _rows(x, mesh: Mesh, dim: int):

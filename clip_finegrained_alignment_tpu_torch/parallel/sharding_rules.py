@@ -72,6 +72,15 @@ def before_pipeline(name: str) -> bool:
         "vision_model.pre_layrnorm.")
 
 
+def before_gather(name: str) -> bool:
+    """Whether parameter ``name`` is used before a tower's output is
+    gathered under sequence parallelism (the embeddings, the vision
+    pre-LayerNorm, the encoder layers): its gradient on a model rank is
+    that rank's tokens' part (``parallel/sequence.py``, the gradient
+    rule)."""
+    return before_pipeline(name) or layer_index(name) is not None
+
+
 def data_shard_dim(shape: Shape, dp: int,
                    taken: Optional[int] = None) -> Optional[int]:
     """The dim of ``shape`` split over ``dp`` data ranks, or None.

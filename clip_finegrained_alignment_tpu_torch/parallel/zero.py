@@ -21,8 +21,15 @@ layers (``models/clip.py``): those are its parameters here. On them:
   shards' ``.grad`` (mean over the data ranks) and frees the gathered
   copies (:meth:`ShardLayout.reduce_grads`). The whole model is gathered
   at the step's start; gathering layer by layer is a later perf PR.
-* **Neither** (tensor or pipeline parallelism alone): every data dim is
-  None; the layout still counts the sums and gathers the checkpoints.
+* **Neither** (tensor, pipeline or sequence parallelism alone): every
+  data dim is None; the layout still counts the sums and gathers the
+  checkpoints.
+
+Under sequence parallelism the model axis splits tokens, not parameters:
+every tensor is whole on every model rank (a copy over ``model``), its
+gradient the same there once the train step has summed the model ranks'
+parts (``parallel/sequence.py``), and ZeRO-1 and FSDP shard over the data
+ranks alone, with JAX's ``megatron_base=False`` choice of dim.
 
 A tensor the data rule leaves whole is its own shard on every data rank:
 every rank updates it the same way from the same mean gradient.
@@ -106,7 +113,7 @@ class ShardLayout:
         self.fsdp = fsdp
         self.names = [n for n, _ in named_params]
         self.params = [p for _, p in named_params]
-        self.tp_dims = [tp_dim(n) if mesh.model > 1 else None
+        self.tp_dims = [tp_dim(n) if mesh.tensor_parallel else None
                         for n in self.names]
         self.staged = [mesh.pipe > 1 and layer_index(n) is not None
                        for n in self.names]
@@ -137,8 +144,8 @@ class ShardLayout:
     @property
     def model_parallel(self) -> bool:
         """Whether this rank's parameters are a part of the model's
-        (tensor or pipeline parallelism)."""
-        return self.mesh.model > 1 or self.mesh.pipe > 1
+        (tensor or pipeline parallelism; not sequence parallelism)."""
+        return self.mesh.tensor_parallel or self.mesh.pipe > 1
 
     def part(self, x: torch.Tensor, d: int) -> torch.Tensor:
         return C.shard(x, d, self.mesh.data_rank, self.mesh.data)
@@ -268,7 +275,7 @@ class ShardLayout:
         rank takes part and gets them all."""
         m = self.mesh
         items = [list(ts) for ts in per_param]
-        if m.model > 1:
+        if m.tensor_parallel:
             flat = [(i, j) for i, ts in enumerate(items)
                     for j in range(len(ts)) if self.tp_dims[i] is not None]
             whole = C.all_gather_shards(

@@ -51,7 +51,7 @@ NAME = "attention_bwd"
 VARIANTS: Dict[str, Dict[str, int]] = {
     "hi·hi only (plain TF32, off tolerance)": {"kF32Products": 1},
     "4 products (lo·lo too)": {"kF32Products": 4},
-    "dk/dv two blocks an SM": {"kF32DkdvMinBlocks": 2},
+    "dk/dv three blocks an SM (spills)": {"kF32DkdvMinBlocks": 3},
     "dq three blocks an SM (spills)": {"kF32MinBlocks": 3},
     "8 warps, one block an SM": {"kF32Warps": 8, "kF32MinBlocks": 1,
                                  "kF32DkdvMinBlocks": 1},

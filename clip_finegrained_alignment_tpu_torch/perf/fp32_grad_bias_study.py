@@ -1,10 +1,14 @@
 """Where the float32 attention backward's gradients part from the CPU's:
 the rounding of the TF32 tensor cores' fp32 sums, measured.
 
-    python -m clip_finegrained_alignment_tpu_torch.perf.fp32_grad_bias_study
+    python -m clip_finegrained_alignment_tpu_torch.perf.fp32_grad_bias_study \
+        [--baseline FILE]
 
 Run from the repository root on the card (it needs ``nvcc``). Three
-readings, one JSON line each, then the card's name and power limit:
+readings, one JSON line each, then the card's name and power limit
+(``--baseline``: another ``attention_bwd.cu``, say an earlier commit's
+saved under the git-ignored ``_probe/``, built against this tree's
+headers and read beside the kernel as built in readings 2 and 3):
 
 1. ``mma``: how ``mma.sync.m16n8k8`` with TF32 operands rounds its fp32
    sum d = c + Σ a·b (:data:`PROBE_SOURCE`, one product a warp). The
@@ -198,7 +202,7 @@ def bias_stats(got: torch.Tensor, ref: torch.Tensor) -> dict:
             "err_rel": float(diff.norm() / ref.norm())}
 
 
-def kernel_reading(lib4) -> dict:
+def kernel_reading(lib4, baseline=None) -> dict:
     """Reading 2: the backward's magnitude bias against float64."""
     from .attention_bwd_fp32_study import run
 
@@ -212,6 +216,9 @@ def kernel_reading(lib4) -> dict:
             "kernel, 4 products": run(lib4, q, k, v, None, scale, do, lse),
             "plain fp32": ta.attention_backward_reference(q, k, v, None,
                                                           scale, do)}
+    if baseline is not None:
+        ways["baseline, 3 products"] = run(baseline, q, k, v, None, scale,
+                                           do, lse)
     return {way: {n: bias_stats(g, r)
                   for n, g, r in zip(("dq", "dk", "dv"), got, ref)}
             for way, got in ways.items()}
@@ -244,7 +251,7 @@ def breakdown(card, cpu) -> dict:
             "groups": {n: groups[n] for n in worst_groups}}
 
 
-def microbatch_reading(lib4) -> dict:
+def microbatch_reading(lib4, baseline=None) -> dict:
     """Reading 3: phase 6's fp32 check, the card's attention four ways."""
     from contextlib import ExitStack
     from unittest import mock
@@ -286,6 +293,8 @@ def microbatch_reading(lib4) -> dict:
             "forward and backward plain": (
                 mock.patch.object(ta, "_launch_backward", plain_backward),
                 mock.patch.object(ta, "_launch", plain_forward))}
+    if baseline is not None:
+        ways["backward baseline"] = (loaded("attention_bwd", baseline),)
     out = {}
     for way, patches in ways.items():
         card = grads("cuda", *patches)
@@ -295,7 +304,12 @@ def microbatch_reading(lib4) -> dict:
     return out
 
 
-def main() -> dict:
+def main(argv=None) -> dict:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--baseline", default=None,
+                    help="another attention_bwd.cu to read beside this one")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: the study runs the kernels")
     import chip_smoke as smoke
@@ -310,11 +324,13 @@ def main() -> dict:
         lib4 = build("attention_bwd",
                      with_constants({"kF32Products": 4}, "attention_bwd"),
                      tmp / "four")
+        base = None if args.baseline is None else build(
+            "attention_bwd", Path(args.baseline).read_text(), tmp / "base")
         out = {"mma": mma_reading(tmp / "probe")}
         print(json.dumps({"mma": out["mma"]}), flush=True)
-        out["kernel"] = kernel_reading(lib4)
+        out["kernel"] = kernel_reading(lib4, base)
         print(json.dumps({"kernel": out["kernel"]}), flush=True)
-        out["microbatch"] = microbatch_reading(lib4)
+        out["microbatch"] = microbatch_reading(lib4, base)
         print(json.dumps({"microbatch": out["microbatch"]}), flush=True)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)

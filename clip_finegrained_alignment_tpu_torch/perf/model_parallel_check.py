@@ -33,6 +33,10 @@ lets AdamSPD read a tensor-parallel shard's sums alone, and
 ``norm_counts_tp`` counts a tensor whole on every model rank tp times in
 the gradient norm. :func:`inject` puts one into this process's port.
 
+The sequence-parallel modes and faults (``sp2``, ``sp2-ring``,
+``dp2sp2-ring``) are ``sequence_parallel_check.py``'s; :func:`rank_modes`
+and :func:`inject` take them too (:func:`mode_spec`, :func:`all_faults`).
+
 ``chip_smoke.py`` phase 11 runs the modes on the card at ViT-B/16 full
 width, ranks sharing one GPU over gloo. On the CPU, at fewer layers (an
 even count: the pipeline cuts each tower in two), this module is the
@@ -61,8 +65,17 @@ MODES = {"tp2": ({"data": 1, "model": 2, "pipe": 1}, {}),
          "dp2tp2": ({"data": 2, "model": 2, "pipe": 1}, {"fsdp": True})}
 
 
+def mode_spec(mode: str):
+    """(mesh fields, config fields) of ``mode``: one of :data:`MODES` or
+    of ``sequence_parallel_check.MODES``."""
+    if mode in MODES:
+        return MODES[mode]
+    from .sequence_parallel_check import MODES as SP_MODES
+    return SP_MODES[mode]
+
+
 def ranks_of(mode: str) -> int:
-    mesh, _ = MODES[mode]
+    mesh, _ = mode_spec(mode)
     return mesh["data"] * mesh["model"] * mesh["pipe"]
 
 
@@ -71,7 +84,7 @@ def train_config(mode: str, B: int, accum: int, dtype: str):
     SPARC + AdamSPD config on the mode's mesh."""
     import dataclasses
     from ..config import MeshConfig
-    mesh, extra = MODES[mode]
+    mesh, extra = mode_spec(mode)
     return dataclasses.replace(
         dpc.train_config("global", B, accum, dtype),
         mesh=MeshConfig(**mesh), pipeline_microbatches=MICRO, **extra)
@@ -118,11 +131,17 @@ FAULTS = {"pipe_summed_post": _pipe_summed_post,
           "norm_counts_tp": _norm_counts_tp}
 
 
+def all_faults() -> dict:
+    """:data:`FAULTS` and ``sequence_parallel_check.FAULTS``."""
+    from .sequence_parallel_check import FAULTS as SP_FAULTS
+    return {**FAULTS, **SP_FAULTS}
+
+
 def inject(fault: Optional[str]) -> None:
-    """Put fault ``fault`` (a key of :data:`FAULTS`) into this process's
-    port; None leaves it as it is."""
+    """Put fault ``fault`` (a key of :func:`all_faults`) into this
+    process's port; None leaves it as it is."""
     if fault is not None:
-        FAULTS[fault]()
+        all_faults()[fault]()
 
 
 # ---------------------------------------------------------------------------
@@ -276,7 +295,9 @@ def rank_modes(model_name: str, layers: Optional[int], dtype: str, B: int,
     for mode in modes:
         t_mode = time.perf_counter()
         tcfg = train_config(mode, B, accum, dtype)
-        mesh = pmesh.make_mesh(tcfg.mesh, device)
+        mesh = pmesh.make_mesh(tcfg.mesh, device,
+                               sequence_parallel=tcfg.sequence_parallel,
+                               sp_ring=tcfg.sp_ring)
         local = {k: torch.from_numpy(x.copy()).to(device)
                  for k, x in pmesh.shard_batch(batch, mesh,
                                                accum_axis=True).items()}
@@ -306,7 +327,7 @@ def rank_modes(model_name: str, layers: Optional[int], dtype: str, B: int,
                "step_ms": ms[1:] if len(ms) > 1 else ms,
                "peak_memory_gb": torch.cuda.max_memory_allocated(device)
                / 1e9 if device.type == "cuda" else None,
-               "mesh": dict(MODES[mode][0]), "rank": rank}
+               "mesh": dict(mode_spec(mode)[0]), "rank": rank}
         t_cmp = time.perf_counter()
         if rank == 0:
             res["vs_oracle"] = compare(run, ref, initial, device)
@@ -340,7 +361,7 @@ def main(argv=None) -> None:
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--modes", nargs="*", default=list(MODES))
-    ap.add_argument("--fault", default=None, choices=sorted(FAULTS))
+    ap.add_argument("--fault", default=None, choices=sorted(all_faults()))
     args = ap.parse_args(argv)
     from ..parallel.launch import spawn
     env = {"LOCAL_RANK": "0"} if args.device == "cuda" else {}

@@ -54,8 +54,19 @@ alone) are summed over the pipe group; every other whole parameter's
 gradient is already the same on every model rank and stage and is not
 reduced there. Then the data reduction above, over the data group. The
 norm and AdamSPD's sums count every tensor once
-(``parallel/zero.py::ShardLayout.reduce_rows``). Sequence parallelism
-(ROADMAP A6c) and ``quant`` under tensor parallelism (A6d) are refused.
+(``parallel/zero.py::ShardLayout.reduce_rows``). ``quant`` under tensor
+parallelism is refused (ROADMAP A6d).
+
+Sequence parallelism (``cfg.sequence_parallel`` on a mesh with ``model``
+above 1, global negatives only, no pipeline, as in JAX;
+``parallel/sequence.py``): the model axis splits the encoders' tokens and
+the parameters are whole on every model rank. Every forward the step runs
+(the count loss's counterfactual ``[B·N, T]`` text forward too) takes the
+``seq`` spec; GSPMD SP or, with ``cfg.sp_ring``, ring attention. After the
+microbatches the gradients of the parameters used before the towers'
+gather (``sharding_rules.before_gather``) are summed over the model group
+(each rank's is its tokens' part); the others are already whole. Then the
+data reduction, the norm and AdamSPD's sums as above.
 
 The model is not wrapped in ``DistributedDataParallel``: its hooks reduce
 bucket by bucket during every backward (accumulation would need
@@ -93,8 +104,9 @@ from ..models import convert
 from ..objectives import losses as L
 from ..optim.factory import ClippedOptimizer, make_optimizer
 from ..parallel import collectives as C
-from ..parallel.mesh import A6C, A6D, Mesh, replicate, shard_batch_from_local
-from ..parallel.sharding_rules import before_pipeline
+from ..parallel.mesh import A6D, Mesh, replicate, shard_batch_from_local
+from ..parallel.sequence import SeqParallelSpec
+from ..parallel.sharding_rules import before_gather, before_pipeline
 
 Batch = Mapping[str, torch.Tensor]
 
@@ -116,7 +128,8 @@ def device_pixels(batch: Batch,
 def compute_loss(model: m.CLIPModel, batch: Batch, cfg: TrainConfig,
                  model_cfg: CLIPConfig, *, dtype,
                  pixel_bank: Optional[torch.Tensor] = None,
-                 mesh: Optional[Mesh] = None
+                 mesh: Optional[Mesh] = None,
+                 seq: Optional[SeqParallelSpec] = None
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Forward and objective for one microbatch → (total loss, loss dict).
 
@@ -125,10 +138,11 @@ def compute_loss(model: m.CLIPModel, batch: Batch, cfg: TrainConfig,
     [B, T]; cf_input_ids [B, N_cf, T] for ``count``; optional
     group_input_ids [B, G, T] for ``clip_count``. ``mesh``: global
     negatives: every embedding of an in-batch contrastive term is gathered
-    over the data ranks (SPARC's pooled ones, in ``sparc_loss``)."""
+    over the data ranks (SPARC's pooled ones, in ``sparc_loss``). ``seq``:
+    every forward runs sequence-parallel (``parallel/sequence.py``)."""
     input_ids = batch["input_ids"]
     out = m.clip_forward(model, device_pixels(batch, pixel_bank), input_ids,
-                         dtype=dtype, quant=cfg.quant)
+                         dtype=dtype, quant=cfg.quant, seq=seq)
 
     if cfg.loss_type == "sparc":
         v_patch, l_token = m.sparc_embeddings(model, out, dtype=dtype)
@@ -148,7 +162,7 @@ def compute_loss(model: m.CLIPModel, batch: Batch, cfg: TrainConfig,
         cf = batch["cf_input_ids"]
         B, N, T = cf.shape
         ek_cf = m.encode_text(model, cf.reshape(B * N, T), dtype=dtype,
-                              quant=cfg.quant).reshape(B, N, -1)
+                              quant=cfg.quant, seq=seq).reshape(B, N, -1)
         logits_per_text = out.logits_per_text if mesh is None \
             else m.clip_logits(model, ie, te)
         if mesh is not None:
@@ -161,7 +175,7 @@ def compute_loss(model: m.CLIPModel, batch: Batch, cfg: TrainConfig,
         if group is not None:
             B, G, T = group.shape
             ek = m.encode_text(model, group.reshape(B * G, T), dtype=dtype,
-                               quant=cfg.quant).reshape(B, G, -1)
+                               quant=cfg.quant, seq=seq).reshape(B, G, -1)
             if mesh is not None:
                 ek = mesh.gather(ek)
         losses = L.clip_count_loss(ie, te, ek, count_alpha=cfg.count_alpha)
@@ -173,19 +187,21 @@ def compute_loss(model: m.CLIPModel, batch: Batch, cfg: TrainConfig,
 def accumulate_grads(model: m.CLIPModel, batch: Batch, cfg: TrainConfig,
                      model_cfg: CLIPConfig, *, dtype,
                      pixel_bank: Optional[torch.Tensor] = None,
-                     mesh: Optional[Mesh] = None
+                     mesh: Optional[Mesh] = None,
+                     seq: Optional[SeqParallelSpec] = None
                      ) -> Dict[str, torch.Tensor]:
     """Forward and backward over each microbatch of ``batch`` (leaves
     ``[accum, B, …]`` on the model's device); leaves the mean gradient in
     ``.grad`` and returns the mean loss dict (detached). ``mesh``: global
-    negatives (:func:`compute_loss`)."""
+    negatives; ``seq``: sequence parallelism (:func:`compute_loss`)."""
     model.zero_grad(set_to_none=True)
     accum = batch["input_ids"].shape[0]
     totals: Dict[str, torch.Tensor] = {}
     for i in range(accum):
         loss, losses = compute_loss(model, {k: x[i] for k, x in batch.items()},
                                     cfg, model_cfg, dtype=dtype,
-                                    pixel_bank=pixel_bank, mesh=mesh)
+                                    pixel_bank=pixel_bank, mesh=mesh,
+                                    seq=seq)
         loss.backward()
         if model.pipeline is not None:   # the stages' backward schedule
             model.pipeline.backward()
@@ -199,20 +215,41 @@ def accumulate_grads(model: m.CLIPModel, batch: Batch, cfg: TrainConfig,
     return {k: x * inv for k, x in totals.items()}
 
 
+def sequence_parallel(cfg: TrainConfig) -> bool:
+    """Whether ``cfg`` runs sequence-parallel: ``sequence_parallel`` on a
+    mesh of more than one rank (on one, as in JAX, the step is the
+    ordinary one)."""
+    mc = cfg.mesh
+    return cfg.sequence_parallel and mc.data * mc.model * mc.pipe > 1
+
+
 def check_parallel(cfg: TrainConfig) -> None:
     """Refuse the layouts the step cannot build, with the JAX package's
-    words where it refuses them too (tensor or pipeline parallelism
-    without global negatives, FSDP without them, FSDP with ZeRO-1, shapes
-    the model or pipe axis does not divide), sequence parallelism, which
-    is ROADMAP A6c, and ``quant`` under tensor parallelism (A6d)."""
-    if cfg.sequence_parallel or cfg.sp_ring:
-        raise ValueError(f"sequence_parallel={cfg.sequence_parallel}, "
-                         f"sp_ring={cfg.sp_ring}: {A6C}")
+    words where it refuses them too (tensor, pipeline or sequence
+    parallelism without global negatives, sequence parallelism without a
+    model axis or with a pipeline, FSDP without global negatives, FSDP
+    with ZeRO-1, shapes the model or pipe axis does not divide), and
+    ``quant`` under tensor parallelism (A6d)."""
     if cfg.mesh.pipe > 1 and not cfg.global_negatives:
         raise ValueError("pipeline parallelism (mesh.pipe > 1) requires "
                          "global_negatives=True: the DDP-parity shard_map "
                          "path assumes replicated params")
-    if cfg.mesh.model > 1 and not cfg.global_negatives:
+    sp = sequence_parallel(cfg)
+    if sp:
+        if cfg.mesh.model <= 1:
+            raise ValueError(
+                "sequence_parallel needs mesh.model > 1 (the model axis "
+                "is the sequence axis)")
+        if not cfg.global_negatives:
+            raise ValueError(
+                "sequence parallelism requires global_negatives=True: "
+                "the DDP-parity shard_map path assumes replicated "
+                "single-device math")
+        if cfg.mesh.pipe > 1:
+            raise ValueError("sequence parallelism composed with pipeline "
+                             "parallelism is not supported")
+    tp = cfg.mesh.model > 1 and not sp
+    if tp and not cfg.global_negatives:
         raise ValueError("tensor parallelism (mesh.model > 1) requires "
                          "global_negatives=True: the DDP-parity shard_map "
                          "path assumes replicated params")
@@ -223,10 +260,10 @@ def check_parallel(cfg: TrainConfig) -> None:
     if cfg.fsdp and cfg.zero1:
         raise ValueError("fsdp subsumes zero1 (optimizer state inherits the "
                          "data-sharded param layout); enable only one")
-    if cfg.mesh.model > 1 and cfg.quant != "none":
+    if tp and cfg.quant != "none":
         raise ValueError(f"quant={cfg.quant!r} with tensor parallelism "
                          f"(mesh.model > 1): {A6D}")
-    if cfg.mesh.model > 1 or cfg.mesh.pipe > 1:
+    if tp or cfg.mesh.pipe > 1:
         from ..parallel.pipeline import validate_pipe_divisibility
         from ..parallel.sharding_rules import validate_tp_divisibility
         model_cfg = cfg.model_config()
@@ -234,7 +271,8 @@ def check_parallel(cfg: TrainConfig) -> None:
             whole = m.CLIPModel(model_cfg)
         validate_tp_divisibility(
             {n: tuple(p.shape) for n, p in whole.named_parameters()},
-            cfg.mesh.model, {"vision": model_cfg.vision.num_heads,
+            cfg.mesh.model if tp else 1,
+            {"vision": model_cfg.vision.num_heads,
                              "text": model_cfg.text.num_heads})
         validate_pipe_divisibility(model_cfg, cfg.mesh,
                                    cfg.batch_size // max(1, cfg.mesh.data),
@@ -262,7 +300,8 @@ def make_train_step(cfg: TrainConfig, model_cfg: CLIPConfig,
     are the means over the data ranks. With ``cfg.zero1`` or ``cfg.fsdp``
     the optimizer must have been built with ``make_optimizer(...,
     mesh=…)``; with ``mesh.model`` or ``mesh.pipe`` above 1 the model too
-    (``build_train_model(..., mesh=…)``)."""
+    (``build_train_model(..., mesh=…)``); with ``cfg.sequence_parallel``
+    the mesh is ``make_mesh(..., sequence_parallel=True, sp_ring=…)``."""
     check_parallel(cfg)
     tp_pp = mesh is not None and (mesh.model > 1 or mesh.pipe > 1)
     if (cfg.mesh.model, cfg.mesh.pipe) != ((mesh.model, mesh.pipe)
@@ -270,9 +309,16 @@ def make_train_step(cfg: TrainConfig, model_cfg: CLIPConfig,
         raise ValueError(f"config mesh model={cfg.mesh.model} "
                          f"pipe={cfg.mesh.pipe} but the step's mesh is "
                          f"{mesh}")
+    sp = sequence_parallel(cfg) and mesh is not None
+    if mesh is not None and mesh.model > 1 and (
+            mesh.sequence_parallel != sp
+            or (sp and cfg.sp_ring and "ring_next" not in mesh.groups)):
+        raise ValueError("sequence parallelism: build the mesh with "
+                         "make_mesh(cfg.mesh, sequence_parallel="
+                         "cfg.sequence_parallel, sp_ring=cfg.sp_ring)")
     if tp_pp and optimizer.layout is None:
-        raise ValueError("tensor or pipeline parallelism: build the "
-                         "optimizer with make_optimizer(cfg, ..., "
+        raise ValueError("tensor, pipeline or sequence parallelism: build "
+                         "the optimizer with make_optimizer(cfg, ..., "
                          "mesh=mesh)")
     if (mesh is not None and mesh.pipe > 1) != (model.pipeline is not None):
         raise ValueError("pipeline parallelism: build the model with "
@@ -294,6 +340,9 @@ def make_train_step(cfg: TrainConfig, model_cfg: CLIPConfig,
         from .gradcache import gradcache_grads, validate_gradcache
         validate_gradcache(cfg, mesh)
         grads = gradcache_grads
+    extra = {}
+    if sp:
+        extra["seq"] = SeqParallelSpec(mesh, ring=cfg.sp_ring)
     loss_mesh = mesh if cfg.global_negatives else None
     fsdp = layout is not None and layout.fsdp
     params = list(model.parameters())
@@ -301,6 +350,10 @@ def make_train_step(cfg: TrainConfig, model_cfg: CLIPConfig,
     first_stage = [p for n, p in model.named_parameters()
                    if before_pipeline(n)] \
         if mesh is not None and mesh.pipe > 1 else []
+    # Under sequence parallelism each model rank holds its tokens' part of
+    # these (the gradient rule of parallel/sequence.py).
+    pre_gather = [p for n, p in model.named_parameters()
+                  if before_gather(n)] if sp else []
 
     def train_step(batch) -> Dict[str, torch.Tensor]:
         batch = {k: torch.as_tensor(x).to(device, non_blocking=True)
@@ -308,7 +361,7 @@ def make_train_step(cfg: TrainConfig, model_cfg: CLIPConfig,
         if fsdp:
             layout.gather_params()
         metrics = grads(model, batch, cfg, model_cfg, dtype=dtype,
-                        pixel_bank=pixel_bank, mesh=loss_mesh)
+                        pixel_bank=pixel_bank, mesh=loss_mesh, **extra)
         if mesh is not None:
             # The DDP all-reduce (mean) of the gradients, or under FSDP
             # their reduce-scatter into the shards; then the losses'.
@@ -318,6 +371,9 @@ def make_train_step(cfg: TrainConfig, model_cfg: CLIPConfig,
             if first_stage:
                 C.all_reduce_mean_([p.grad for p in first_stage],
                                    mesh.group("pipe"), mean=False)
+            if pre_gather:
+                C.all_reduce_mean_([p.grad for p in pre_gather],
+                                   mesh.group("model"), mean=False)
             if fsdp:
                 layout.reduce_grads()
             else:
@@ -360,7 +416,7 @@ class Trainer:
         the weights at construction. ``device`` is the card unless the
         caller asks for the CPU; ``pixel_bank`` (uint8 ``[N, S, S, 3]``,
         numpy or torch) is placed on it once, whole on every rank.
-        ``mesh``: data, tensor and pipeline parallelism
+        ``mesh``: data, tensor, pipeline and sequence parallelism
         (``parallel/mesh.py``): each rank holds its part of the whole
         ``state_dict``, data rank 0's weights are broadcast over the data
         ranks, and every rank must call ``step``, ``train``,
@@ -369,8 +425,9 @@ class Trainer:
         check_parallel(cfg)
         if (cfg.mesh.model > 1 or cfg.mesh.pipe > 1) and mesh is None:
             raise ValueError(f"mesh {cfg.mesh.data}x{cfg.mesh.model}x"
-                             f"{cfg.mesh.pipe}: tensor and pipeline "
-                             "parallelism need the process group's mesh "
+                             f"{cfg.mesh.pipe}: tensor, pipeline and "
+                             "sequence parallelism need the process "
+                             "group's mesh "
                              "(parallel/mesh.py::make_mesh)")
         self.cfg = cfg
         self.model_cfg = cfg.model_config()

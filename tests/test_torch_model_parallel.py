@@ -1,6 +1,7 @@
-"""The port's tensor and pipeline parallelism (``clip_finegrained_alignment_
-tpu_torch/parallel/``, ``models/clip.py``'s TP layers and stages, the
-mesh path of ``train/engine.py``) at 2 and 4 gloo processes on the CPU
+"""The port's tensor, pipeline and sequence parallelism
+(``clip_finegrained_alignment_tpu_torch/parallel/``, ``models/clip.py``'s
+TP layers, stages and token blocks, the mesh path of
+``train/engine.py``) at 2 and 4 gloo processes on the CPU
 (``parallel/launch.py::spawn``, rank functions in
 ``tests/test_torch_parallel_workers.py``), held to the JAX package's mesh
 path on the virtual CPU devices and to the port's own single process,
@@ -181,7 +182,8 @@ def test_divisibility_and_microbatch_refusals():
 
 REFUSED = [
     (dict(mesh=MeshConfig(model=2), grad_cache=True, loss_type="sparc",
-          global_negatives=True, sequence_parallel=True), "A6c"),
+          global_negatives=True, sequence_parallel=True),
+     "grad_cache is not supported with sequence_parallel"),
     (dict(mesh=MeshConfig(pipe=2), grad_cache=True, loss_type="sparc",
           global_negatives=True), "grad_cache is not supported with "
      "pipeline parallelism"),
@@ -190,8 +192,8 @@ REFUSED = [
 
 @pytest.mark.parametrize("kw,message", REFUSED)
 def test_gradcache_refusals_follow_jax(kw, message):
-    """GradCache: pipeline parallelism refused with JAX's words (and
-    sequence parallelism first, as A6c); under TP alone it is accepted."""
+    """GradCache: sequence and pipeline parallelism refused with JAX's
+    words; under TP alone it is accepted."""
     from clip_finegrained_alignment_tpu_torch.parallel.mesh import Mesh
     from clip_finegrained_alignment_tpu_torch.train.gradcache import \
         validate_gradcache
@@ -217,7 +219,8 @@ def jax_mp_steps(kw, mesh_kw, seed, batch_seed, devices, steps):
     fields = ("batch_size", "gradient_accumulation_steps", "lr", "use_amp",
               "loss_type", "optimizer_type", "inverse_temperature",
               "global_negatives", "warmup_steps", "log_every", "zero1",
-              "fsdp", "pipeline_microbatches")
+              "fsdp", "pipeline_microbatches", "sequence_parallel",
+              "sp_ring")
     mcfg = JaxMeshConfig(**mesh_kw)
     jcfg = JaxTrainConfig(clip_model="tiny", remat=False, mesh=mcfg,
                           **{f: getattr(cfg, f) for f in fields})
@@ -244,6 +247,8 @@ LOSSES = {"sparc": SPARC, "count": COUNT, "gradcache": GRADCACHE,
           "quant": QUANT}
 TP2 = dict(data=1, model=2, pipe=1)
 PP2 = dict(data=1, model=1, pipe=2)
+SP = {"sequence_parallel": True}
+SP_RING = {"sequence_parallel": True, "sp_ring": True}
 # (name, mesh, base, layout fields, against JAX's mesh step too): each
 # layout's two steps, grouped by rank count so that one spawn runs a group
 # (with phase 11's gates on two ranks, the checkpoints on four).
@@ -260,7 +265,12 @@ GROUPS = {
         # int8 under PP: no contraction is split, so the first step is one
         # process's (the rows quantize alike in any microbatch); later
         # steps within the quantized tests' 5e-2.
-        ("pp_quant", PP2, "quant", {}, False)],
+        ("pp_quant", PP2, "quant", {}, False),
+        # Sequence parallelism (the model axis the sequence axis): GSPMD
+        # SP, the ring, and the count loss's [B·N, T] text forward.
+        ("sp", TP2, "sparc", SP, True),
+        ("sp_ring", TP2, "sparc", SP_RING, True),
+        ("sp_count", TP2, "count", SP, True)],
     "four_ranks": [
         ("tp_pp", dict(data=1, model=2, pipe=2), "sparc", {}, True),
         ("tp_zero1", dict(data=2, model=2, pipe=1), "sparc",
@@ -268,13 +278,33 @@ GROUPS = {
         ("tp_fsdp", dict(data=2, model=2, pipe=1), "sparc", {"fsdp": True},
          True),
         ("pp_fsdp", dict(data=2, model=1, pipe=2), "sparc", {"fsdp": True},
-         True)],
+         True),
+        # A ring of four (every rank's hops in two pair groups) and SP
+        # under ZeRO-1 and FSDP over two data ranks.
+        ("sp4_ring", dict(data=1, model=4, pipe=1), "sparc", SP_RING, True),
+        ("dp2sp2_zero1", dict(data=2, model=2, pipe=1), "sparc",
+         dict(SP, zero1=True), True),
+        ("dp2sp2_ring_fsdp", dict(data=2, model=2, pipe=1), "sparc",
+         dict(SP_RING, fsdp=True), True)],
 }
-GATE_CASES = [(None, ["tp2", "pp2"]), ("pipe_summed_post", ["pp2"]),
-              ("tp_sums_alone", ["tp2"]), ("norm_counts_tp", ["tp2"])]
+# (fault, modes, dtype). The sequence modes run in fp32: at the tiny
+# width (32) bf16 alone moves the ring's first AdamSPD update to a cosine
+# of 0.987 (tp2 0.992) against one process, where the ViT-B/16-wide study
+# behind SP_LIMITS reads 0.9999 in bf16; in fp32 the gates see the faults
+# alone.
+GATE_CASES = [(None, ["tp2", "pp2"], "bfloat16"),
+              (None, ["sp2", "sp2-ring"], "float32"),
+              ("pipe_summed_post", ["pp2"], "bfloat16"),
+              ("tp_sums_alone", ["tp2"], "bfloat16"),
+              ("norm_counts_tp", ["tp2"], "bfloat16"),
+              ("norm_counts_tp", ["sp2-ring"], "float32"),
+              ("gather_sums_cotangent", ["sp2", "sp2-ring"], "float32"),
+              ("post_gather_summed", ["sp2"], "float32")]
 CHECKPOINT_LAYOUTS = [("1x2x2", dict(data=1, model=2, pipe=2), {}),
                       ("2x2x1-fsdp", dict(data=2, model=2, pipe=1),
-                       {"fsdp": True})]
+                       {"fsdp": True}),
+                      ("2x2x1-sp-ring-fsdp", dict(data=2, model=2, pipe=1),
+                       dict(SP_RING, fsdp=True))]
 
 
 @functools.lru_cache(maxsize=None)
@@ -301,14 +331,17 @@ def _check_metrics(got, want, what, norm_rtol=1e-4):
 def _check_gates(ranks):
     """``chip_smoke.py`` phase 11's comparisons
     (``perf/model_parallel_check.py::rank_modes``) at tiny width, bf16, two
-    ranks: the port as it is within every ``MP_LIMITS`` gate of its
-    one-process oracle; each fault of trouble spots a and b
-    (``model_parallel_check.FAULTS``) outside at least one."""
-    limits = _smoke().MP_LIMITS
+    ranks: the port as it is within every ``MP_LIMITS`` gate (the sequence
+    modes: ``SP_LIMITS``) of its one-process oracle; each fault of the
+    trouble spots (``model_parallel_check.FAULTS``,
+    ``sequence_parallel_check.FAULTS``) outside at least one."""
+    smoke = _smoke()
     r0, r1 = (r["gates"] for r in ranks)
-    for (fault, _), res0, res1 in zip(GATE_CASES, r0, r1):
+    for (fault, _, _), res0, res1 in zip(GATE_CASES, r0, r1):
         for mode, res in res0.items():
             assert res1[mode]["metrics"] == res["metrics"], (fault, mode)
+            limits = smoke.SP_LIMITS if mode.startswith(("sp", "dp2sp")) \
+                else smoke.MP_LIMITS
             vs = res["vs_oracle"]
             held = {k: (vs[k] >= lim if k.startswith("min_")
                         else vs[k] <= lim) for k, lim in limits.items()}
@@ -363,18 +396,21 @@ def _check_checkpoints(ranks, root, w1_file):
 def test_layouts_match_jax_mesh_and_one_process(group, eight_devices,
                                                 tmp_path):
     """TP, PP, the count loss under PP, GradCache under TP, int8 under PP,
-    TP x PP, TP + ZeRO-1, TP + FSDP and PP + FSDP, two steps each (the
-    second reads AdamSPD's per-tensor sums of the first update, trouble
-    spot b): every rank's metrics equal JAX's mesh step and the port's one
-    process, the whole state every rank gathers is the same, and its
-    weights are JAX's within JAX's own tolerances. Each rank holds its TP
-    shards (H/tp heads) and its stage's layers only. The same ranks then
+    SP (GSPMD, ring, the count loss), TP x PP, TP + ZeRO-1, TP + FSDP,
+    PP + FSDP, a ring of four, SP + ZeRO-1 and ring SP + FSDP, two steps
+    each (the second reads AdamSPD's per-tensor sums of the first update,
+    trouble spot b): every rank's metrics equal JAX's mesh step and the
+    port's one process, the whole state every rank gathers is the same,
+    and its weights are JAX's within JAX's own tolerances. Each rank holds
+    its TP shards (H/tp heads) and its stage's layers only (SP: every
+    parameter whole, its tokens' block of the activations). The same
+    ranks then
     run phase 11's gates (two) or the checkpoints across layouts (four)."""
     cases = GROUPS[group]
     world = _world(cases[0][1])
     gate_args = checkpoint_args = None
     if world == 2:
-        gate_args = (GATE_CASES, "tiny", None, "bfloat16", 8, 2, 0, 3)
+        gate_args = (GATE_CASES, "tiny", None, 8, 2, 0, 3)
     else:
         w1_file = _one_process_checkpoint(str(tmp_path / "w1"))
         checkpoint_args = (CHECKPOINT_LAYOUTS, str(tmp_path / "ckpt"),
@@ -427,9 +463,9 @@ def test_layouts_match_jax_mesh_and_one_process(group, eight_devices,
             q = "vision_model.encoder.layers.{}.self_attn.q_proj.weight"
             layers = [j for j in range(2) if q.format(j) in shapes]
             assert layers == ([p] if mesh_kw["pipe"] == 2 else [0, 1]), name
+            tp = 1 if extra.get("sequence_parallel") else mesh_kw["model"]
             if not extra.get("fsdp"):   # FSDP keeps no whole copy
-                assert shapes[q.format(layers[0])] == (
-                    32 // mesh_kw["model"], 32), name
+                assert shapes[q.format(layers[0])] == (32 // tp, 32), name
         assert sorted(r["steps"][i]["coords"] for r in ranks) == sorted(
             (d, m, p) for d in range(mesh_kw["data"])
             for m in range(mesh_kw["model"])
@@ -460,13 +496,16 @@ def packed(tmp_path_factory):
 
 def test_cli_tp_pp_on_four_ranks_then_resume_in_one(packed, tmp_path,
                                                      monkeypatch):
-    """``cli/train.py --model-parallel 2 --pipeline-parallel 2
-    --global-negatives`` with the count loss on 4 gloo ranks (one data
-    rank: every rank reads the same rows); its ``--eval-every-epoch``
-    evaluates the model every rank gathers whole, so rank 0's accuracies
-    are one process's ``evaluate_batch`` of the initial and the saved
-    weights; then a ``--resume`` by one process restores its ``best/`` bit
-    for bit."""
+    """``cli/train.py --global-negatives --eval-every-epoch`` with the
+    count loss on 4 gloo ranks, three runs on the same ranks:
+    ``--model-parallel 2 --pipeline-parallel 2`` (one data rank: every
+    rank reads the same rows), ``--fsdp`` (four data ranks) and
+    ``--sequence-parallel 2 --sp-ring --fsdp`` (two data ranks of two
+    sequence ranks). Each one's evaluation runs on the model every rank
+    holds or gathers whole, so rank 0's accuracies are one process's
+    ``evaluate_batch`` of the initial and the saved weights on rank 0's
+    held-out batch; then a ``--resume`` by one process restores its
+    ``best/`` bit for bit."""
     import json
 
     from clip_finegrained_alignment_tpu_torch.eval.batch_eval import \
@@ -477,50 +516,59 @@ def test_cli_tp_pp_on_four_ranks_then_resume_in_one(packed, tmp_path,
             "--save-every", "1", "--lr", "1e-3", "--no-amp",
             "--checkpoint-dir", str(tmp_path), "--device", "cpu",
             "--packed", packed, "--device-data", "--global-negatives"]
-    metrics = str(tmp_path / "metrics.jsonl")
-    flags = ["--model-parallel", "2", "--pipeline-parallel", "2",
-             "--pipeline-microbatches", "2", "--eval-every-epoch",
-             "--metrics-file", metrics]
-    ranks = spawn(W.cli_main, 4, ("clip_finegrained_alignment_tpu_torch."
-                                  "cli.train", args + flags + ["--epochs",
-                                                               "1"]),
-                  timeout_s=SPAWN_S)
-    r0 = ranks[0]
-    assert r0["global_step"] == 32 // 16 and np.isfinite(r0["losses"]).all()
-    exp = tmp_path / "clip_finetune"
-    best, meta = CheckpointManager(str(exp)).restore("best")
-    assert meta["config"]["mesh"] == {"data": 1, "model": 2, "pipe": 2}
-    assert meta["config"]["pipeline_microbatches"] == 2
-    for r in ranks:
-        assert r["losses"] == r0["losses"]
-        assert_same_state(r["state"], W.numpy_state(best))
-    with open(metrics) as f:
-        evals = [(row["step"], row["count_eval_accuracy"])
-                 for row in map(json.loads, f)
-                 if "count_eval_accuracy" in row]
-    assert [s for s, _ in evals] == [0, r0["global_step"]]
-    for png in ("confusion_pretrain.png", "confusion_epoch_0.png"):
-        assert (exp / png).stat().st_size > 0
-    restored = {}
-    load = engine.Trainer.load_state_dict
+    runs = {"tp_pp": (["--model-parallel", "2", "--pipeline-parallel", "2",
+                       "--pipeline-microbatches", "2"],
+                      {"data": 1, "model": 2, "pipe": 2}),
+            "fsdp": (["--fsdp"], {"data": 4, "model": 1, "pipe": 1}),
+            "sp_ring_fsdp": (["--sequence-parallel", "2", "--sp-ring",
+                              "--fsdp"], {"data": 2, "model": 2, "pipe": 1})}
 
-    def spy(self, state):
-        load(self, state)
-        restored.update(W.numpy_state(self.state_dict()))
-    monkeypatch.setattr(engine.Trainer, "load_state_dict", spy)
-    out = cli_train.main(args + ["--resume", "--epochs", "2"])
-    assert out["resumed_at_step"] == r0["global_step"]
-    assert_same_state(restored, W.numpy_state(best))
-    assert out["trainer"].global_step == 2 * r0["global_step"]
-    # The held-out batch (the first of epoch 0, one data rank in both
-    # runs), evaluated by one process on the weights the ranks gathered.
-    pipe = out["pipeline"]
-    held = pipe.materialize(next(iter(pipe.epoch(0))))
-    cfg = out["trainer"].cfg.model_config()
-    initial = state_dict_from_jax(random_params(cfg, meta["config"]["seed"]),
-                                  cfg)
-    for (_, acc), weights in zip(evals, (initial, best["model"])):
-        assert evaluate_batch(weights, cfg, held, device="cpu")[0] == acc
+    def run_args(name):
+        return args + ["--experiment-name", name] + runs[name][0]
+    metrics = {name: str(tmp_path / f"{name}.jsonl") for name in runs}
+    argvs = [run_args(name) + ["--eval-every-epoch", "--metrics-file",
+                               metrics[name], "--epochs", "1"]
+             for name in runs]
+    ranks = spawn(W.cli_mains, 4, ("clip_finegrained_alignment_tpu_torch."
+                                   "cli.train", argvs), timeout_s=SPAWN_S)
+    load = engine.Trainer.load_state_dict
+    for i, (name, (_, mesh)) in enumerate(runs.items()):
+        r0 = ranks[0][i]
+        assert r0["global_step"] == 32 // 16, name
+        assert np.isfinite(r0["losses"]).all(), name
+        exp = tmp_path / name
+        best, meta = CheckpointManager(str(exp)).restore("best")
+        assert meta["config"]["mesh"] == mesh, name
+        for r in ranks:
+            assert r[i]["losses"] == r0["losses"], name
+            assert_same_state(r[i]["state"], W.numpy_state(best), name)
+        with open(metrics[name]) as f:
+            evals = [(row["step"], row["count_eval_accuracy"])
+                     for row in map(json.loads, f)
+                     if "count_eval_accuracy" in row]
+        assert [s for s, _ in evals] == [0, r0["global_step"]], name
+        for png in ("confusion_pretrain.png", "confusion_epoch_0.png"):
+            assert (exp / png).stat().st_size > 0, name
+        restored = {}
+
+        def spy(self, state):
+            load(self, state)
+            restored.update(W.numpy_state(self.state_dict()))
+        monkeypatch.setattr(engine.Trainer, "load_state_dict", spy)
+        out = cli_train.main(args + ["--experiment-name", name, "--resume",
+                                     "--epochs", "2"])
+        assert out["resumed_at_step"] == r0["global_step"], name
+        assert_same_state(restored, W.numpy_state(best), name)
+        assert out["trainer"].global_step == 2 * r0["global_step"], name
+        # Rank 0's held-out batch, evaluated by one process on the weights
+        # the ranks held or gathered.
+        cfg = out["trainer"].cfg.model_config()
+        initial = state_dict_from_jax(
+            random_params(cfg, meta["config"]["seed"]), cfg)
+        held = r0["first_batch"]
+        for (_, acc), weights in zip(evals, (initial, best["model"])):
+            assert evaluate_batch(weights, cfg, held,
+                                  device="cpu")[0] == acc, name
 
 
 def _smoke():

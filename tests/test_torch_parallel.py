@@ -143,7 +143,7 @@ def test_shard_dim_rule_matches_jax_specs(model, dp, eight_devices):
 
 # The cases keep the ids they had when tensor, pipeline and sequence
 # parallelism were all refused (ROADMAP A6b); they now hold JAX's
-# refusals, and sequence parallelism's (A6c).
+# refusals.
 REFUSALS = [
     (dict(fsdp=True), "global_negatives"),
     (dict(fsdp=True, global_negatives=True, zero1=True), "subsumes"),
@@ -153,9 +153,13 @@ REFUSALS = [
     pytest.param(dict(mesh=MeshConfig(data=1, pipe=2)),
                  r"pipeline parallelism \(mesh.pipe > 1\) requires "
                  "global_negatives", id="kw3-A6b"),
-    pytest.param(dict(sequence_parallel=True, global_negatives=True),
-                 "A6c", id="kw4-A6b"),
-    pytest.param(dict(sp_ring=True), "A6c", id="kw5-A6b"),
+    pytest.param(dict(sequence_parallel=True, global_negatives=True,
+                      mesh=MeshConfig(data=2)),
+                 r"sequence_parallel needs mesh.model > 1", id="kw4-A6b"),
+    pytest.param(dict(sequence_parallel=True, sp_ring=True,
+                      mesh=MeshConfig(data=1, model=2)),
+                 "sequence parallelism requires global_negatives=True",
+                 id="kw5-A6b"),
     pytest.param(dict(pipeline_microbatches=3, global_negatives=True,
                       mesh=MeshConfig(data=1, pipe=2)),
                  "batch_size 8 not divisible by pipeline_microbatches 3",

@@ -122,8 +122,9 @@ def test_evaluate_data_parallel_2_equals_1(tmp_path):
 
 
 # The first five keep the ids they had when the flags were all refused
-# (ROADMAP A6b); they now hold JAX's refusals, and sequence
-# parallelism's (A6c).
+# (ROADMAP A6b); they now hold JAX's refusals. The last held the refusal
+# of --fsdp with --eval-every-epoch, which now runs
+# (test_torch_model_parallel.py's CLI spawn).
 @pytest.mark.parametrize("extra,message", [
     pytest.param(["--model-parallel", "2"], "require --global-negatives",
                  id="extra0-A6b"),
@@ -133,12 +134,15 @@ def test_evaluate_data_parallel_2_equals_1(tmp_path):
                   "4", "--global-negatives"],
                  "must divide the world size (1 processes)",
                  id="extra2-A6b"),
-    pytest.param(["--sequence-parallel", "2"], "A6c", id="extra3-A6b"),
-    pytest.param(["--sp-ring"], "A6c", id="extra4-A6b"),
+    pytest.param(["--sequence-parallel", "2"], "require --global-negatives",
+                 id="extra3-A6b"),
+    pytest.param(["--sequence-parallel", "2", "--model-parallel", "2",
+                  "--global-negatives"], "cannot be combined with "
+                 "--model-parallel or --pipeline-parallel", id="extra4-A6b"),
     (["--fsdp"], "requires global_negatives"),
     (["--fsdp", "--global-negatives", "--zero1"], "subsumes"),
-    (["--grad-cache", "--global-negatives", "--fsdp",
-      "--eval-every-epoch"], "--fsdp keeps"),
+    (["--sequence-parallel", "2", "--sp-ring", "--global-negatives"],
+     "must divide the world size (1 processes)"),
 ])
 def test_train_refuses(packed, tmp_path, extra, message):
     with pytest.raises(SystemExit) as e:

@@ -92,9 +92,13 @@ def optimizer_bytes(opt) -> int:
                for t in st.values() if torch.is_tensor(t))
 
 
-def _mesh(mesh_kw=None):
+def _mesh(mesh_kw=None, cfg=None):
+    """The group's mesh; with ``cfg`` its sequence-parallel flags too."""
     return pmesh.make_mesh(MeshConfig(**mesh_kw) if mesh_kw else None,
-                           device=torch.device("cpu"))
+                           device=torch.device("cpu"),
+                           sequence_parallel=bool(
+                               cfg and cfg.sequence_parallel),
+                           sp_ring=bool(cfg and cfg.sp_ring))
 
 
 def anchors_off(seed: int) -> dict:
@@ -171,6 +175,8 @@ def checkpoint_cases(cfg_kw: dict, ckpt_root: str, w1_dir: str,
                            save_every=1,
                            mesh=MeshConfig(**mesh_kw) if mesh_kw
                            else MeshConfig(data=mesh.data), **extra)
+        if cfg.sequence_parallel:
+            mesh = _mesh(mesh_kw, cfg)
         d = os.path.join(ckpt_root, name)
         unbroken = Trainer(cfg, initial_state(5), device="cpu", mesh=mesh,
                            checkpoint_manager=CheckpointManager(
@@ -218,16 +224,30 @@ def gradcache_case(loss_type: str, seed: int):
 
 
 def cli_main(module: str, argv):
-    """``main(argv)`` of a port CLI on this rank (the group is up)."""
+    """``main(argv)`` of a port CLI on this rank (the group is up); of
+    the training CLI with ``--eval-every-epoch`` also the rank's first
+    batch of epoch 0 (what rank 0 holds out for the evaluation)."""
     import importlib
     os.environ["CFA_ALLOW_HASH_TOKENIZER"] = "1"
     result = importlib.import_module(module).main(argv)
     if module.endswith(".train"):
-        t = result["trainer"]
-        return {"losses": [h["avg_loss"] for h in result["history"]],
-                "global_step": t.global_step,
-                "state": numpy_state(t.state_dict())}
+        t, pipe = result["trainer"], result["pipeline"]
+        out = {"losses": [h["avg_loss"] for h in result["history"]],
+               "global_step": t.global_step,
+               "state": numpy_state(t.state_dict())}
+        if "--eval-every-epoch" in argv:
+            first = next(iter(pipe.epoch(0)))
+            if "pixel_index" in first:
+                first = pipe.materialize(first)
+            out["first_batch"] = {k: np.asarray(v) for k, v in first.items()}
+        return out
     return result
+
+
+def cli_mains(module: str, argvs):
+    """:func:`cli_main` for each of ``argvs`` in turn, on the same
+    ranks."""
+    return [cli_main(module, argv) for argv in argvs]
 
 
 def phase_10_modes(shard_sums_alone: bool, *args):
@@ -255,7 +275,7 @@ def mp_steps(cases, seed: int, batch_seed: int, steps: int = 1):
     out = []
     for mesh_kw, cfg_kw in cases:
         cfg = train_config(mesh=MeshConfig(**mesh_kw), **cfg_kw)
-        mesh = _mesh(mesh_kw)
+        mesh = _mesh(mesh_kw, cfg)
         batch = pmesh.shard_batch(make_batch(
             batch_seed, cfg.loss_type, cfg.gradient_accumulation_steps,
             cfg.batch_size), mesh, accum_axis=True)
@@ -271,23 +291,28 @@ def mp_steps(cases, seed: int, batch_seed: int, steps: int = 1):
     return out
 
 
-def phase_11_gate_cases(cases, *args):
-    """For each ``(fault, modes)`` of ``cases``:
-    ``perf/model_parallel_check.py::rank_modes(*args, modes, fault=fault)``
-    on this rank, the port put back as it was after each."""
+def phase_11_gate_cases(cases, model_name, layers, B, accum, seed, steps):
+    """For each ``(fault, modes, dtype)`` of ``cases``:
+    ``perf/model_parallel_check.py::rank_modes`` of those modes in that
+    dtype with ``fault`` on this rank, the port put back as it was after
+    each."""
+    from clip_finegrained_alignment_tpu_torch.parallel import sequence
     from clip_finegrained_alignment_tpu_torch.parallel.zero import \
         ShardLayout
     from clip_finegrained_alignment_tpu_torch.perf import \
         model_parallel_check as mpc
     from clip_finegrained_alignment_tpu_torch.train import engine
-    kept = (engine.before_pipeline, ShardLayout.reduce_sums,
+    kept = (engine.before_pipeline, engine.before_gather,
+            sequence.gather_tokens, ShardLayout.reduce_sums,
             ShardLayout.grad_norm)
     out = []
-    for fault, modes in cases:
+    for fault, modes, dtype in cases:
         try:
-            out.append(mpc.rank_modes(*args, modes, fault=fault))
+            out.append(mpc.rank_modes(model_name, layers, dtype, B, accum,
+                                      seed, steps, modes, fault=fault))
         finally:
-            (engine.before_pipeline, ShardLayout.reduce_sums,
+            (engine.before_pipeline, engine.before_gather,
+             sequence.gather_tokens, ShardLayout.reduce_sums,
              ShardLayout.grad_norm) = kept
     return out
 
