@@ -56,8 +56,10 @@ layer Megatron-style, ``--pipeline-parallel`` cuts both towers' layers
 into GPipe stages, each train microbatch split into
 ``--pipeline-microbatches`` (default 2 x the stages). ``--batch-size``
 must divide by the data degree; ranks that share a data coordinate read
-the same shard. ``--zero1`` and ``--fsdp`` compose with both.
-``--quant`` with ``--model-parallel`` exits (ROADMAP A6d).
+the same shard. ``--zero1`` and ``--fsdp`` compose with both, and so
+does ``--quant``, with the scales JAX's GSPMD step takes (``ops/quant.py``:
+a split contraction's absmax over the model ranks; the int8 wgrad's over
+the data ranks under ``--global-negatives``).
 
 Sequence parallelism (with ``--global-negatives``; not with
 ``--model-parallel`` or ``--pipeline-parallel``, as in JAX)::

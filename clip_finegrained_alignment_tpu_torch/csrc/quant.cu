@@ -21,6 +21,25 @@
 //   cfa_dequant       int32 [R, C] * (s_row[R] (x) s_col[C]) -> bf16|fp32,
 //                     then + bias in that type (bias optional).
 //
+// When a reduced dimension is split over ranks (a row-parallel layer's
+// K, a column-parallel layer's N, the example rows M of global negatives
+// or of sequence parallelism), the absmax must be the MAX over the ranks
+// that hold the parts, as JAX's GSPMD step takes it: the fused passes
+// split in two around that all-reduce (ops/quant.py), four more entries:
+//
+//   cfa_absmax_rows      [R, C] -> fp32 [R], max |x| of each row;
+//   cfa_absmax_cols      [R, C] -> fp32 [C], max |x| of each column
+//                        (col_absmax_kernel's partials, then their max);
+//   cfa_quant_rows_given [R, C] and a row absmax [R] -> int8 [R, C] and
+//                        the scales [R] (quant_rows_kernel, its first
+//                        read skipped);
+//   cfa_quant_cols_t_given  [R, C] and a column absmax [C] -> int8
+//                        [C, R_pad] and the scales [C] (quant_cols_t_kernel
+//                        with the absmax as its one chunk of partials).
+//
+// The scale is computed from the absmax as the fused passes compute it, so
+// the split path on one rank is the fused one bit for bit.
+//
 // Numerics are the plain versions' bit for bit (no fast-math in the build):
 // s = max(absmax, 1e-12) / 127 by IEEE division (a NaN absmax stays NaN,
 // as torch's clamp_min keeps it), q = rint(x / s) (half to even, as
@@ -96,16 +115,9 @@ __device__ __forceinline__ uint32_t pack4(int8_t a, int8_t b, int8_t c, int8_t d
 
 constexpr int kRowsPerBlock = 8;
 
+// max |x| over one row, the whole warp's (every lane holds it).
 template <typename T>
-__global__ void __launch_bounds__(256) quant_rows_kernel(const T* __restrict__ x,
-                                                         int8_t* __restrict__ q,
-                                                         float* __restrict__ s, int R,
-                                                         int C, bool vec) {
-  const int lane = threadIdx.x & 31;
-  const int r = blockIdx.x * kRowsPerBlock + (threadIdx.x >> 5);
-  if (r >= R) return;  // the whole warp
-  const T* row = x + (size_t)r * C;
-  int8_t* qrow = q + (size_t)r * C;
+__device__ __forceinline__ float row_absmax(const T* row, int lane, int C, bool vec) {
   float m = 0.0f;
   if (vec) {
     for (int c = lane * 8; c < C; c += 256) {
@@ -119,6 +131,34 @@ __global__ void __launch_bounds__(256) quant_rows_kernel(const T* __restrict__ x
   }
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) m = nan_max(m, __shfl_xor_sync(0xffffffffu, m, o));
+  return m;
+}
+
+// a[r] = max |x[r][:]|.
+template <typename T>
+__global__ void __launch_bounds__(256) absmax_rows_kernel(const T* __restrict__ x,
+                                                          float* __restrict__ a, int R, int C,
+                                                          bool vec) {
+  const int lane = threadIdx.x & 31;
+  const int r = blockIdx.x * kRowsPerBlock + (threadIdx.x >> 5);
+  if (r >= R) return;
+  const float m = row_absmax(x + (size_t)r * C, lane, C, vec);
+  if (lane == 0) a[r] = m;
+}
+
+// given: null (each row's absmax taken here) or the rows' absmax [R].
+template <typename T>
+__global__ void __launch_bounds__(256) quant_rows_kernel(const T* __restrict__ x,
+                                                         const float* __restrict__ given,
+                                                         int8_t* __restrict__ q,
+                                                         float* __restrict__ s, int R,
+                                                         int C, bool vec) {
+  const int lane = threadIdx.x & 31;
+  const int r = blockIdx.x * kRowsPerBlock + (threadIdx.x >> 5);
+  if (r >= R) return;  // the whole warp
+  const T* row = x + (size_t)r * C;
+  int8_t* qrow = q + (size_t)r * C;
+  const float m = given ? given[r] : row_absmax(row, lane, C, vec);
   const float sc = absmax_scale(m);
   if (lane == 0) s[r] = sc;
   if (vec) {
@@ -164,6 +204,17 @@ __global__ void __launch_bounds__(256) col_absmax_kernel(const T* __restrict__ x
     for (int j = 1; j < kRowLanes; ++j) m = nan_max(m, red[j][threadIdx.x]);
     partial[(size_t)blockIdx.y * C + c] = m;
   }
+}
+
+// a[c] = max over k of partial[k][c].
+__global__ void __launch_bounds__(256) reduce_partials_kernel(const float* __restrict__ partial,
+                                                              float* __restrict__ a, int C,
+                                                              int chunks) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= C) return;
+  float m = 0.0f;
+  for (int k = 0; k < chunks; ++k) m = nan_max(m, partial[(size_t)k * C + c]);
+  a[c] = m;
 }
 
 // qt[c][r] = quantize(x[r][c], s[c]) for r < R, 0 for R <= r < R_pad.
@@ -275,13 +326,13 @@ extern "C" int cfa_quant_rows(const void* x, void* q, void* s, int R, int C, int
   const dim3 grid((R + kRowsPerBlock - 1) / kRowsPerBlock);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    quant_rows_kernel<float><<<grid, 256, 0, st>>>(static_cast<const float*>(x),
+    quant_rows_kernel<float><<<grid, 256, 0, st>>>(static_cast<const float*>(x), nullptr,
                                                    static_cast<int8_t*>(q),
                                                    static_cast<float*>(s), R, C, vec);
   else if (dtype == 1)
     quant_rows_kernel<__nv_bfloat16><<<grid, 256, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(x), static_cast<int8_t*>(q), static_cast<float*>(s),
-        R, C, vec);
+        static_cast<const __nv_bfloat16*>(x), nullptr, static_cast<int8_t*>(q),
+        static_cast<float*>(s), R, C, vec);
   else
     return -2;
   return (int)cudaGetLastError();
@@ -334,6 +385,91 @@ extern "C" int cfa_dequant(const void* acc, const void* s_row, const void* s_col
     dequant_kernel<__nv_bfloat16><<<(unsigned)blocks, 256, 0, st>>>(
         a, sr, sc, static_cast<const __nv_bfloat16*>(bias), static_cast<__nv_bfloat16*>(y), R,
         C, vec);
+  else
+    return -2;
+  return (int)cudaGetLastError();
+}
+
+
+// ---------------------------------------------------------------------------
+// The split passes: reduce, then quantize with a given absmax.
+
+extern "C" int cfa_absmax_rows(const void* x, void* a, int R, int C, int dtype, void* stream) {
+  if (R < 1 || C < 1) return -1;
+  const bool vec = C % 8 == 0 && aligned(x, 16);
+  const dim3 grid((R + kRowsPerBlock - 1) / kRowsPerBlock);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    absmax_rows_kernel<float><<<grid, 256, 0, st>>>(static_cast<const float*>(x),
+                                                    static_cast<float*>(a), R, C, vec);
+  else if (dtype == 1)
+    absmax_rows_kernel<__nv_bfloat16><<<grid, 256, 0, st>>>(
+        static_cast<const __nv_bfloat16*>(x), static_cast<float*>(a), R, C, vec);
+  else
+    return -2;
+  return (int)cudaGetLastError();
+}
+
+// partial: fp32 scratch of ceil(R / chunk) x C (unused with one chunk).
+extern "C" int cfa_absmax_cols(const void* x, void* a, void* partial, int R, int C, int chunk,
+                               int dtype, void* stream) {
+  if (R < 1 || C < 1 || chunk < 1) return -1;
+  const int chunks = (R + chunk - 1) / chunk;
+  const dim3 block(kColTile, kRowLanes);
+  const dim3 grid((C + kColTile - 1) / kColTile, chunks);
+  if (grid.y > 65535) return -1;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* part = chunks == 1 ? static_cast<float*>(a) : static_cast<float*>(partial);
+  if (dtype == 0)
+    col_absmax_kernel<float><<<grid, block, 0, st>>>(static_cast<const float*>(x), part, R, C,
+                                                     chunk);
+  else if (dtype == 1)
+    col_absmax_kernel<__nv_bfloat16><<<grid, block, 0, st>>>(
+        static_cast<const __nv_bfloat16*>(x), part, R, C, chunk);
+  else
+    return -2;
+  if (chunks > 1)
+    reduce_partials_kernel<<<(C + 255) / 256, 256, 0, st>>>(part, static_cast<float*>(a), C,
+                                                            chunks);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int cfa_quant_rows_given(const void* x, const void* a, void* q, void* s, int R,
+                                    int C, int dtype, void* stream) {
+  if (R < 1 || C < 1) return -1;
+  const bool vec = C % 8 == 0 && aligned(x, 16) && aligned(q, 8);
+  const dim3 grid((R + kRowsPerBlock - 1) / kRowsPerBlock);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* given = static_cast<const float*>(a);
+  if (dtype == 0)
+    quant_rows_kernel<float><<<grid, 256, 0, st>>>(static_cast<const float*>(x), given,
+                                                   static_cast<int8_t*>(q),
+                                                   static_cast<float*>(s), R, C, vec);
+  else if (dtype == 1)
+    quant_rows_kernel<__nv_bfloat16><<<grid, 256, 0, st>>>(
+        static_cast<const __nv_bfloat16*>(x), given, static_cast<int8_t*>(q),
+        static_cast<float*>(s), R, C, vec);
+  else
+    return -2;
+  return (int)cudaGetLastError();
+}
+
+extern "C" int cfa_quant_cols_t_given(const void* x, const void* a, void* qt, void* s, int R,
+                                      int C, int R_pad, int dtype, void* stream) {
+  if (R < 1 || C < 1 || R_pad < R || R_pad % 8 != 0 || !aligned(qt, 8)) return -1;
+  const dim3 block(kColTile, kRowLanes);
+  const dim3 grid((C + kColTile - 1) / kColTile, (R_pad + kRowTile - 1) / kRowTile);
+  if (grid.y > 65535) return -1;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* given = static_cast<const float*>(a);
+  if (dtype == 0)
+    quant_cols_t_kernel<float><<<grid, block, 0, st>>>(
+        static_cast<const float*>(x), given, static_cast<int8_t*>(qt), static_cast<float*>(s),
+        R, C, R_pad, 1);
+  else if (dtype == 1)
+    quant_cols_t_kernel<__nv_bfloat16><<<grid, block, 0, st>>>(
+        static_cast<const __nv_bfloat16*>(x), given, static_cast<int8_t*>(qt),
+        static_cast<float*>(s), R, C, R_pad, 1);
   else
     return -2;
   return (int)cudaGetLastError();

@@ -23,7 +23,11 @@ package's numerics step by step, with explicit casts (no autocast):
   patch embedding go through ``ops/quant.py::quant_linear`` (dynamic
   int8, ``_linear_fn``); the loss-facing ``visual_projection`` and
   ``text_projection`` and the [S, S] attention stay exact, as in JAX
-  (``clip.py:209-218``).
+  (``clip.py:209-218``). A model built for global negatives
+  (``build_train_model(..., global_negatives=True)`` on a mesh) holds the
+  group over which a train microbatch's rows are split
+  (``parallel/mesh.py::Mesh.rows_group``): its int8 wgrads take their
+  scales over it, as JAX's GSPMD step does.
 
 :meth:`CLIPModel.cast_matmul_weights` casts every weight except the
 LayerNorms and ``logit_scale`` to the compute dtype once, at load; the
@@ -41,9 +45,14 @@ holds this rank's part, under the whole model's HF names.
   row-parallel (their weight's columns split; the bias whole, added once
   after the all-reduce). A rank runs H/tp heads at the same head dim,
   between Megatron's ``copy_to_model`` and ``reduce_from_model``
-  (``parallel/collectives.py``). ``quant`` is refused with TP
-  (``train/engine.py::check_parallel``, ROADMAP A6d): a shard would take
-  the absmax of its part of a split contraction, not the whole row's.
+  (``parallel/collectives.py``). Under ``quant`` the contraction a TP
+  layer splits takes its scales over the model group, as JAX's GSPMD
+  step does (``ops/quant.py``, :class:`~..ops.quant.Groups`): a
+  row-parallel layer's forward sums its int32 partial products over the
+  ranks and dequantizes once with the bias (in place of
+  ``reduce_from_model``); a column-parallel layer's dgrad sums its int32
+  partial dx, so its input skips ``copy_to_model``, whose backward would
+  sum dx a second time.
 * **PP** (``parallel/pipeline.py``): each tower's encoder holds layers
   ``[s·L/K, (s+1)·L/K)`` of stage s (an ``nn.ModuleDict`` keyed by the
   global layer index, so the names stay the whole model's) and runs them
@@ -68,7 +77,7 @@ from torch import nn
 
 from ..config import CLIPConfig, TextConfig, VisionConfig
 from ..ops.attention import flash_attention
-from ..ops.quant import quant_linear
+from ..ops.quant import LOCAL, Groups, quant_linear
 
 # Large negative additive bias (never -inf: no NaN in fully-masked rows).
 _NEG_INF = -1e9
@@ -110,19 +119,20 @@ def linear(x: torch.Tensor, weight: torch.Tensor,
     return y
 
 
-def _linear_fn(quant: str):
+def _linear_fn(quant: str, groups: Groups = LOCAL):
     """The projection GEMM for a ``TrainConfig.quant`` mode, with
     :func:`linear`'s signature: :func:`linear` itself for ``"none"``, the
-    dynamic int8 product (``ops/quant.py``) otherwise."""
+    dynamic int8 product (``ops/quant.py``) otherwise, its scales over
+    ``groups`` (:func:`_groups`)."""
     if quant == "none":
         return linear
     return lambda x, weight, bias, dtype: quant_linear(x, weight, bias,
-                                                       dtype, quant)
+                                                       dtype, quant, groups)
 
 
 def _apply(lin: nn.Linear, x: torch.Tensor, dtype,
-           quant: str = "none") -> torch.Tensor:
-    return _linear_fn(quant)(x, lin.weight, lin.bias, dtype)
+           quant: str = "none", groups: Groups = LOCAL) -> torch.Tensor:
+    return _linear_fn(quant, groups)(x, lin.weight, lin.bias, dtype)
 
 
 def patchify(pixel_values: torch.Tensor, patch_size: int) -> torch.Tensor:
@@ -151,21 +161,55 @@ class TP(NamedTuple):
     group: object
     size: int
 
+    @property
+    def quant_group(self):
+        """The group as ``ops/quant.py`` takes it (None there means no
+        group: the default group is named)."""
+        import torch.distributed as dist
+        return dist.group.WORLD if self.group is None else self.group
 
-def _column_input(x, tp: Optional[TP]):
+
+def _quantized(quant: str) -> bool:
+    """Whether the projections are quantized, and so take the scales of
+    the dimensions the ranks split (:func:`_groups`)."""
+    return quant != "none"
+
+
+def _groups(quant: str, tp: Optional[TP], rows, split: str = "") -> Groups:
+    """The groups a quantized product's scales reduce over
+    (``ops/quant.py::Groups``): ``rows``, the group holding the parts of
+    the microbatch's rows (the int8 wgrad's), and under TP the model group
+    for the contraction this layer splits (``split``: ``"k"``, the
+    forward's, for a row-parallel layer; ``"n"``, the dgrad's, for a
+    column-parallel one)."""
+    if not _quantized(quant):
+        return LOCAL
+    split = {split: tp.quant_group} if tp is not None and split else {}
+    return Groups(m=rows, **split)
+
+
+def _column_input(x, tp: Optional[TP], quant="none"):
     """A column-parallel layer's input: under TP, through
-    ``copy_to_model`` (its backward sums dx over the shards)."""
-    if tp is not None:
+    ``copy_to_model`` (its backward sums dx over the shards), unless the
+    layer is quantized: its dgrad sums the shards' dx itself."""
+    if tp is not None and not _quantized(quant):
         from ..parallel.collectives import copy_to_model
         x = copy_to_model(x, tp.group)
     return x
 
 
-def _row(lin: nn.Linear, x, dtype, quant, tp: Optional[TP]):
+def _column(lin: nn.Linear, x, dtype, quant, tp: Optional[TP], rows):
+    """A column-parallel layer: under TP and ``quant``, its dgrad's
+    contraction (the output features) is split over the model ranks."""
+    return _apply(lin, x, dtype, quant, _groups(quant, tp, rows, "n"))
+
+
+def _row(lin: nn.Linear, x, dtype, quant, tp: Optional[TP], rows):
     """A row-parallel layer: under TP the partial product summed over the
-    model ranks, then the whole bias, once."""
-    if tp is None:
-        return _apply(lin, x, dtype, quant)
+    model ranks, then the whole bias, once (quantized: the int32 partial
+    sums summed, one dequant with the bias)."""
+    if tp is None or _quantized(quant):
+        return _apply(lin, x, dtype, quant, _groups(quant, tp, rows, "k"))
     from ..parallel.collectives import reduce_from_model
     y = reduce_from_model(_linear_fn(quant)(x, lin.weight, None, dtype),
                           tp.group)
@@ -173,10 +217,11 @@ def _row(lin: nn.Linear, x, dtype, quant, tp: Optional[TP]):
 
 
 class Attention(nn.Module):
-    def __init__(self, d: int, num_heads: int, tp: Optional[TP] = None):
+    def __init__(self, d: int, num_heads: int, tp: Optional[TP] = None,
+                 rows=None):
         super().__init__()
         n = 1 if tp is None else tp.size
-        self.tp = tp
+        self.tp, self.rows = tp, rows
         self.num_heads = num_heads // n     # this rank's heads
         self.q_proj = nn.Linear(d, d // n)
         self.k_proj = nn.Linear(d, d // n)
@@ -186,46 +231,47 @@ class Attention(nn.Module):
     def forward(self, x, bias, dtype, quant="none", seq=None, seq_len=0):
         """``seq``: ``x`` is this rank's block of a ``seq_len``-token
         sequence and ``bias`` its rows' (``sequence.local_bias``)."""
-        x = _column_input(x, self.tp)
+        x = _column_input(x, self.tp, quant)
         B, S, _ = x.shape
         H = self.num_heads
         D = self.q_proj.weight.shape[0]     # this rank's H heads
         heads = (lambda y: y.view(B, S, H, D // H))
-        q = heads(_apply(self.q_proj, x, dtype, quant))
-        k = heads(_apply(self.k_proj, x, dtype, quant))
-        v = heads(_apply(self.v_proj, x, dtype, quant))
+        q, k, v = (heads(_column(lin, x, dtype, quant, self.tp, self.rows))
+                   for lin in (self.q_proj, self.k_proj, self.v_proj))
         if seq is None:
             out = flash_attention(q, k, v, bias, (D // H) ** -0.5)
         else:
             from ..parallel.sequence import attention
             out = attention(q, k, v, bias, (D // H) ** -0.5, seq_len, seq)
         return _row(self.out_proj, out.reshape(B, S, D), dtype, quant,
-                    self.tp)
+                    self.tp, self.rows)
 
 
 class MLP(nn.Module):
-    def __init__(self, d: int, d_ff: int, tp: Optional[TP] = None):
+    def __init__(self, d: int, d_ff: int, tp: Optional[TP] = None,
+                 rows=None):
         super().__init__()
         n = 1 if tp is None else tp.size
-        self.tp = tp
+        self.tp, self.rows = tp, rows
         self.fc1 = nn.Linear(d, d_ff // n)
         self.fc2 = nn.Linear(d_ff // n, d)
 
     def forward(self, x, dtype, quant="none"):
-        x = _column_input(x, self.tp)
-        h = quick_gelu(_apply(self.fc1, x, dtype, quant))
-        return _row(self.fc2, h, dtype, quant, self.tp)
+        x = _column_input(x, self.tp, quant)
+        h = quick_gelu(_column(self.fc1, x, dtype, quant, self.tp,
+                               self.rows))
+        return _row(self.fc2, h, dtype, quant, self.tp, self.rows)
 
 
 class EncoderLayer(nn.Module):
     """Pre-LN block: x + attn(ln1(x)), then + mlp(ln2(·))."""
 
     def __init__(self, d: int, d_ff: int, num_heads: int, eps: float,
-                 tp: Optional[TP] = None):
+                 tp: Optional[TP] = None, rows=None):
         super().__init__()
-        self.self_attn = Attention(d, num_heads, tp)
+        self.self_attn = Attention(d, num_heads, tp, rows)
         self.layer_norm1 = nn.LayerNorm(d, eps=eps)
-        self.mlp = MLP(d, d_ff, tp)
+        self.mlp = MLP(d, d_ff, tp, rows)
         self.layer_norm2 = nn.LayerNorm(d, eps=eps)
 
     def forward(self, x, bias, dtype, quant="none", seq=None, seq_len=0):
@@ -238,10 +284,11 @@ class Encoder(nn.Module):
     """The layer stack, in an ``nn.ModuleDict`` keyed by the global layer
     index (HF's names). ``tp``: tensor-parallel layers. ``pipeline``
     (``parallel/pipeline.py::GPipe``): only this stage's layers, run in
-    its schedule."""
+    its schedule. ``rows``: the group holding the parts of a microbatch's
+    rows (:func:`_groups`)."""
 
     def __init__(self, d, d_ff, num_heads, eps, num_layers,
-                 tp: Optional[TP] = None, pipeline=None):
+                 tp: Optional[TP] = None, pipeline=None, rows=None):
         super().__init__()
         self.pipeline = pipeline
         per, lo = num_layers, 0
@@ -249,7 +296,7 @@ class Encoder(nn.Module):
             per = num_layers // pipeline.stages
             lo = pipeline.stage * per
         self.layers = nn.ModuleDict(
-            {str(i): EncoderLayer(d, d_ff, num_heads, eps, tp)
+            {str(i): EncoderLayer(d, d_ff, num_heads, eps, tp, rows)
              for i in range(lo, lo + per)})
 
     def _run(self, x, bias, dtype, quant, seq=None, seq_len=0):
@@ -299,14 +346,15 @@ def _embeds(pipeline) -> bool:
 
 class VisionTransformer(nn.Module):
     def __init__(self, cfg: VisionConfig, tp: Optional[TP] = None,
-                 pipeline=None):
+                 pipeline=None, rows=None):
         super().__init__()
         self.cfg = cfg
+        self.rows = rows
         d, eps = cfg.hidden_size, cfg.layer_norm_eps
         self.embeddings = VisionEmbeddings(cfg)
         self.pre_layrnorm = nn.LayerNorm(d, eps=eps)  # HF's spelling
         self.encoder = Encoder(d, cfg.intermediate_size, cfg.num_heads, eps,
-                               cfg.num_layers, tp, pipeline)
+                               cfg.num_layers, tp, pipeline, rows)
         self.post_layernorm = nn.LayerNorm(d, eps=eps)
 
     def forward(self, pixel_values, dtype, quant="none",
@@ -317,8 +365,10 @@ class VisionTransformer(nn.Module):
         x = None
         if _embeds(self.encoder.pipeline):
             x = patchify(pixel_values.to(dtype), self.cfg.patch_size)
-            x = _linear_fn(quant)(x, patch_kernel(e.patch_embedding.weight),
-                                  None, dtype)
+            # Whole on every model rank; its rows are split as the
+            # encoder's are (under SP its cotangent is this rank's block).
+            x = _linear_fn(quant, _groups(quant, None, self.rows))(
+                x, patch_kernel(e.patch_embedding.weight), None, dtype)
             cls = e.class_embedding.to(dtype).expand(x.shape[0], 1, -1)
             x = torch.cat([cls, x], dim=1)
             x = x + e.position_embedding.weight.to(dtype)[None]
@@ -355,13 +405,13 @@ def text_attention_bias(seq_len: int, attention_mask: Optional[torch.Tensor],
 
 class TextTransformer(nn.Module):
     def __init__(self, cfg: TextConfig, tp: Optional[TP] = None,
-                 pipeline=None):
+                 pipeline=None, rows=None):
         super().__init__()
         self.cfg = cfg
         d, eps = cfg.hidden_size, cfg.layer_norm_eps
         self.embeddings = TextEmbeddings(cfg)
         self.encoder = Encoder(d, cfg.intermediate_size, cfg.num_heads, eps,
-                               cfg.num_layers, tp, pipeline)
+                               cfg.num_layers, tp, pipeline, rows)
         self.final_layer_norm = nn.LayerNorm(d, eps=eps)
 
     def forward(self, input_ids, dtype, attention_mask=None,
@@ -401,14 +451,16 @@ class CLIPOutput(NamedTuple):
 
 class CLIPModel(nn.Module):
     def __init__(self, cfg: CLIPConfig, tp: Optional[TP] = None,
-                 pipeline=None):
+                 pipeline=None, rows=None):
         """``tp``, ``pipeline``: this rank's tensor-parallel share and
-        pipeline schedule (:func:`build_train_model` with a mesh)."""
+        pipeline schedule; ``rows``: the group holding the parts of a
+        train microbatch's rows (:func:`build_train_model` with a mesh)."""
         super().__init__()
         self.cfg = cfg
         self.pipeline = pipeline
-        self.vision_model = VisionTransformer(cfg.vision, tp, pipeline)
-        self.text_model = TextTransformer(cfg.text, tp, pipeline)
+        self.rows = rows
+        self.vision_model = VisionTransformer(cfg.vision, tp, pipeline, rows)
+        self.text_model = TextTransformer(cfg.text, tp, pipeline, rows)
         self.visual_projection = nn.Linear(cfg.vision.hidden_size,
                                            cfg.projection_dim, bias=False)
         self.text_projection = nn.Linear(cfg.text.hidden_size,
@@ -483,13 +535,14 @@ def sparc_embeddings(model: CLIPModel, out: CLIPOutput, *,
 
 
 def _load(cfg: CLIPConfig, state_dict, dev, tp: Optional[TP] = None,
-          pipeline=None, mesh=None, copy: bool = False) -> CLIPModel:
+          pipeline=None, mesh=None, copy: bool = False,
+          rows=None) -> CLIPModel:
     """A :class:`CLIPModel` (this rank's part under ``tp`` / ``pipeline``)
     built on the meta device and given ``state_dict``'s tensors, on
     ``dev`` in fp32; with ``copy``, copies of this rank's parts of them
     (:func:`local_state`)."""
     with torch.device("meta"):
-        model = CLIPModel(cfg, tp, pipeline)
+        model = CLIPModel(cfg, tp, pipeline, rows)
     if copy:
         state_dict = local_state(model, state_dict, mesh)
     model.load_state_dict(state_dict, strict=True, assign=True)
@@ -497,8 +550,8 @@ def _load(cfg: CLIPConfig, state_dict, dev, tp: Optional[TP] = None,
 
 
 def build_train_model(cfg: CLIPConfig, state_dict, *,
-                      device="cuda", mesh=None,
-                      num_micro: int = 0) -> CLIPModel:
+                      device="cuda", mesh=None, num_micro: int = 0,
+                      global_negatives: bool = False) -> CLIPModel:
     """A trainable :class:`CLIPModel` holding a copy of ``state_dict``
     (HF names, ``strict=True``) on ``device``: fp32 master parameters that
     require grad, never cast (the forward casts per call). The optimizer
@@ -508,15 +561,21 @@ def build_train_model(cfg: CLIPConfig, state_dict, *,
     the whole ``state_dict`` is cut down to this rank's tensor-parallel
     shards and pipeline stage (:func:`local_state`); ``num_micro``: the
     pipeline's microbatches an encoder call
-    (``parallel/pipeline.py::default_num_micro``)."""
-    tp = pipeline = None
+    (``parallel/pipeline.py::default_num_micro``). ``global_negatives``
+    (on a mesh): the step is one program over the mesh's ranks, so the
+    int8 wgrads take their scales over every rank that holds a part of a
+    microbatch's rows (``parallel/mesh.py::Mesh.rows_group``); without
+    it each rank's rows are its own (local negatives)."""
+    tp = pipeline = rows = None
     if mesh is not None and mesh.tensor_parallel:
         tp = TP(mesh.group("model"), mesh.model)
     if mesh is not None and mesh.pipe > 1:
         from ..parallel.pipeline import GPipe, default_num_micro
         pipeline = GPipe(mesh, default_num_micro(mesh.pipe, num_micro))
+    if mesh is not None and global_negatives:
+        rows = mesh.rows_group()
     model = _load(cfg, state_dict, resolve_device(device), tp, pipeline,
-                  mesh, copy=True)
+                  mesh, copy=True, rows=rows)
     return model.requires_grad_(True).train()
 
 

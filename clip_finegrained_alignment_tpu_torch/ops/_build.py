@@ -37,12 +37,17 @@ SOURCES = {
     "flash_fwd": "flash_fwd.cu",
     "flash_bwd_dq": "flash_bwd_dq.cu",
     "flash_bwd_dkdv": "flash_bwd_dkdv.cu",
-    # ops/quant.py's three entries: one library each, built from one
+    # ops/quant.py's seven entries: one library each, built from one
     # source (a few seconds apiece, in parallel), so each kernel name keeps
-    # its own library and launch count.
+    # its own library and launch count. The last four are the split passes
+    # of a dimension split over ranks.
     "quant_rows": "quant.cu",
     "quant_cols_t": "quant.cu",
     "dequant": "quant.cu",
+    "absmax_rows": "quant.cu",
+    "absmax_cols": "quant.cu",
+    "quant_rows_given": "quant.cu",
+    "quant_cols_t_given": "quant.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

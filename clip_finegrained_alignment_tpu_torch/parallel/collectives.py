@@ -25,6 +25,10 @@ insert them). Each takes the process group of its mesh axis
 * :func:`broadcast_from`: one rank's tensor to the others of a group: the
   pipeline's stage-to-stage hop (a two-rank group) and the last stage's
   outputs to every stage.
+* The int8 products' two (``ops/quant.py``, a dimension split over a
+  group): :func:`all_reduce_absmax`, the elementwise MAX of fp32 absmax
+  vectors, and :func:`all_reduce_sum_`, the exact sum of int32 partial
+  sums.
 
 Route: each backend takes one, the same calls for both: ``all_reduce``
 (SUM, MAX), ``all_gather_into_tensor``, ``reduce_scatter_tensor``,
@@ -235,6 +239,38 @@ def reduce_from_model(x: torch.Tensor, group) -> torch.Tensor:
     """The sum over the model ranks of a row-parallel layer's partial
     products; identity backward."""
     return _ReduceFromModel.apply(x, group)
+
+
+# ---------------------------------------------------------------------------
+# Int8 products over a split dimension (ops/quant.py)
+# ---------------------------------------------------------------------------
+
+def all_reduce_absmax(vectors: Sequence[torch.Tensor],
+                      group) -> List[torch.Tensor]:
+    """The elementwise MAX over the group of each fp32 vector of absolute
+    values (absmax: ≥ 0, or a NaN with its sign clear, as ``fabsf`` and
+    ``abs`` leave it), for all of them in one all-reduce. It runs on their
+    bits as int32: a non-negative float's bits order as the float does and
+    a NaN's lie above +inf's, so a NaN on any rank wins on every rank, as
+    the fused passes' ``nan_max`` keeps it, where gloo's and NCCL's float
+    MAX promise nothing for NaN."""
+    _world(group)
+    flat = torch.cat([v.reshape(-1).float() for v in vectors])
+    bits = flat.view(torch.int32)
+    dist.all_reduce(bits, op=dist.ReduceOp.MAX, group=group)
+    out, offset = [], 0
+    for v in vectors:
+        out.append(flat[offset:offset + v.numel()].view(v.shape))
+        offset += v.numel()
+    return out
+
+
+def all_reduce_sum_(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` (int32 sums, contiguous) replaced by its sum over the group:
+    exact, in any order."""
+    _world(group)
+    dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
+    return x
 
 
 # ---------------------------------------------------------------------------

@@ -29,9 +29,6 @@ import torch
 
 from ..config import MeshConfig
 
-A6D = ("int8 under tensor parallelism is not ported yet (ROADMAP A6d): a "
-       "shard would quantize its part of a split contraction with its own "
-       "absmax, where the whole row's is wanted")
 AXES = ("data", "model", "pipe")
 
 
@@ -146,6 +143,25 @@ class Mesh:
     def backend(self) -> str:
         import torch.distributed as dist
         return dist.get_backend()
+
+    def rows_group(self):
+        """Under global negatives, the group whose ranks hold the parts of
+        one train microbatch's rows (M = B·S of a projection, the int8
+        wgrad's contraction, ``ops/quant.py::Groups.m``): the data ranks,
+        and under sequence parallelism the data × model ranks (each model
+        rank its token block), which is every rank, as SP runs no
+        pipeline; never the pipe ranks (JAX's GPipe ``shard_map``
+        quantizes each pipeline microbatch on its own). None when this
+        rank holds every row."""
+        import torch.distributed as dist
+        if self.sequence_parallel and self.model > 1:
+            if self.pipe > 1:
+                raise ValueError("sequence parallelism runs no pipeline")
+            return dist.group.WORLD
+        if self.data == 1:
+            return None
+        group = self.group("data")
+        return dist.group.WORLD if group is None else group
 
     def gather(self, x: torch.Tensor) -> torch.Tensor:
         """Every data rank's rows of ``x`` on dim 0, the backward summing

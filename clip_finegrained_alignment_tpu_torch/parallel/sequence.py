@@ -40,6 +40,11 @@ their gather's backward sums the ranks' cotangents
 (``collectives.all_gather_with_grad``), as the ring's hop carries each
 cotangent back to the rank that sent the block.
 
+Under ``quant="int8"`` the int8 wgrad's example rows are every rank's
+token blocks: its scales take the MAX over the data × model ranks
+(``mesh.py::Mesh.rows_group``), the patch embedding's too, whose input is
+whole on every model rank but whose cotangent is this rank's block.
+
 The ring's hop (:class:`_Hop`) is a ``torch.autograd.Function``: forward
 the block goes to ring rank ``i + 1``, backward its cotangent to ``i − 1``
 (JAX's transposed ``ppermute``), each a ``broadcast`` in the two-rank

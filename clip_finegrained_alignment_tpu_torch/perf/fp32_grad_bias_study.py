@@ -95,11 +95,24 @@ TILES = 4096
 BIAS_SHAPE = (2, 197, 12, 64)   # ViT-B/16 vision: B, S, H, Dh
 
 
+# A float64's bits less the 29 low mantissa bits fp32 does not hold.
+_FP32_BITS = ~((1 << 29) - 1)
+
+
 def round_toward_zero(x: torch.Tensor) -> torch.Tensor:
-    """float64 ``x`` rounded to fp32 toward zero."""
-    y = x.float()
-    over = y.double().abs() > x.abs()
-    return torch.where(over, torch.nextafter(y, torch.zeros_like(y)), y)
+    """float64 ``x`` rounded to fp32 toward zero: the mantissa cut to
+    fp32's 23 bits, which the cast to fp32 then takes exactly wherever
+    ``x`` lies in fp32's normal range; the rest (subnormal, beyond fp32's
+    largest) is stepped toward zero from the cast's nearest value."""
+    cut = (x.contiguous().view(torch.int64) & _FP32_BITS).view(torch.float64)
+    y = cut.float()
+    odd = y.double() != cut
+    if odd.any():
+        z = x[odd].float()
+        over = z.double().abs() > x[odd].abs()
+        y[odd] = torch.where(over, torch.nextafter(z, torch.zeros_like(z)),
+                             z)
+    return y
 
 
 def classify(d: torch.Tensor, exact: torch.Tensor) -> dict:

@@ -74,6 +74,14 @@ def kernel_bytes(name: str, R: int, C: int, item: int = 2) -> int:
         return R * C * item + C * q.round_up(R) + 4 * C
     if name == "dequant":                   # int32 sums + scales -> y, bias
         return R * C * (4 + item) + 4 * (R + C) + item * C
+    if name == "absmax_rows":               # the split passes (absmax in,
+        return R * C * item + 4 * R         # scales out)
+    if name == "absmax_cols":
+        return R * C * item + 4 * C
+    if name == "quant_rows_given":
+        return R * C * (item + 1) + 8 * R
+    if name == "quant_cols_t_given":
+        return R * C * item + C * q.round_up(R) + 8 * C
     raise ValueError(name)
 
 

@@ -9,13 +9,22 @@ one-process oracle stepping the whole global batch
 * ``tp2``: 1 x 2 x 1, Megatron TP (H/2 heads a rank);
 * ``pp2``: 1 x 1 x 2, GPipe with ``MICRO`` microbatches;
 * ``tp2pp2``: 1 x 2 x 2, TP inside each stage;
-* ``dp2tp2``: 2 x 2 x 1 with FSDP over the data ranks.
+* ``dp2tp2``: 2 x 2 x 1 with FSDP over the data ranks;
+* ``tp2-int8`` and ``dp2tp2-int8``: ``tp2`` and ``dp2tp2`` with
+  ``quant="int8"`` (every projection int8, the scales JAX's GSPMD step
+  takes: ``ops/quant.py``), held to a one-process oracle that runs
+  ``int8`` too, from the same weights; ``dp2-int8``, two data ranks of
+  global negatives with ZeRO-1 in int8 (the int8 wgrad's scales over
+  both ranks' rows, ROADMAP C7).
 
 Three steps each: every step's loss and gradient norm, the first step's
 per-tensor gradient cosines and relative errors, and the per-tensor
 cosine and relative error of the parameters' whole update and of the
 first step's update (``data_parallel_check.compare``, plus
-``max_grad_rel``). Against the oracle, bf16 moves every gradient a
+``max_grad_rel`` and, for the int8 modes, the quantized tests' element
+readings of the first step: ``first_loss_rel``, ``first_grad_norm_rel``
+and ``first_update_off_share``, the share of the first update's elements
+more than 2e-3 of their tensor's largest update away from the oracle's). Against the oracle, bf16 moves every gradient a
 little (a rank's GEMMs are other shapes than one process's), and
 AdamSPD's first update turns that into whole steps of the learning rate;
 so the first update is also held to a replay (``replay_first_update_rel``):
@@ -31,11 +40,16 @@ first step and its peak memory.
 pipeline over the stages (they are already equal there), ``tp_sums_alone``
 lets AdamSPD read a tensor-parallel shard's sums alone, and
 ``norm_counts_tp`` counts a tensor whole on every model rank tp times in
-the gradient norm. :func:`inject` puts one into this process's port.
+the gradient norm, and ``quant_shard_scales`` takes every int8 scale from
+this rank's part alone (a TP layer's split contraction, the int8 wgrad's
+rows under global negatives and SP), as the port did before the scales
+took their groups. :func:`inject` puts one into this process's port.
 
 The sequence-parallel modes and faults (``sp2``, ``sp2-ring``,
 ``dp2sp2-ring``) are ``sequence_parallel_check.py``'s; :func:`rank_modes`
 and :func:`inject` take them too (:func:`mode_spec`, :func:`all_faults`).
+
+The int8 modes are the sequence-parallel study's ``sp2-int8`` too.
 
 ``chip_smoke.py`` phase 11 runs the modes on the card at ViT-B/16 full
 width, ranks sharing one GPU over gloo. On the CPU, at fewer layers (an
@@ -62,7 +76,38 @@ MICRO = 4
 MODES = {"tp2": ({"data": 1, "model": 2, "pipe": 1}, {}),
          "pp2": ({"data": 1, "model": 1, "pipe": 2}, {}),
          "tp2pp2": ({"data": 1, "model": 2, "pipe": 2}, {}),
-         "dp2tp2": ({"data": 2, "model": 2, "pipe": 1}, {"fsdp": True})}
+         "dp2tp2": ({"data": 2, "model": 2, "pipe": 1}, {"fsdp": True}),
+         "tp2-int8": ({"data": 1, "model": 2, "pipe": 1}, {"quant": "int8"}),
+         "dp2-int8": ({"data": 2, "model": 1, "pipe": 1},
+                      {"zero1": True, "quant": "int8"}),
+         "dp2tp2-int8": ({"data": 2, "model": 2, "pipe": 1},
+                         {"fsdp": True, "quant": "int8"})}
+# The element readings of a quantized first step (tests/test_torch_train.py's
+# quantized steps): an update element is off when it lies more than this
+# share of its tensor's largest update from the oracle's.
+OFF_SHARE_OF_MAX = 2e-3
+
+
+def tp_sum_bytes(cfg, rows: int, accum: int, quant: str = "none") -> dict:
+    """What one rank of ``1 x 2 x 1`` tensor parallelism hands gloo's
+    all-reduces in one train step of ``accum`` microbatches of ``rows``
+    rows, by the model's shapes (the all-reduces' operands, each once):
+    in bf16 the activations' partial sums, 2 bytes an element, two a
+    layer forward (``reduce_from_model``) and two backward
+    (``copy_to_model``); in ``int8`` / ``switchback`` int32 sums, 4 bytes
+    an element, the row-parallel forwards (out, fc2) and the
+    column-parallel dgrads (q, k, v, fc1: none reach ``copy_to_model``),
+    and the scale vectors' MAX (fp32: x's and W's, g's and W's)."""
+    sums = maxes = 0
+    for tower, S in ((cfg.vision, cfg.vision.seq_len),
+                     (cfg.text, cfg.text.max_position_embeddings)):
+        M, D = rows * S, tower.hidden_size
+        if quant == "none":
+            sums += tower.num_layers * 4 * M * D * 2
+        else:
+            sums += tower.num_layers * 6 * M * D * 4
+            maxes += tower.num_layers * 6 * (M + D) * 4
+    return {"sum_bytes": sums * accum, "max_bytes": maxes * accum}
 
 
 def mode_spec(mode: str):
@@ -72,6 +117,11 @@ def mode_spec(mode: str):
         return MODES[mode]
     from .sequence_parallel_check import MODES as SP_MODES
     return SP_MODES[mode]
+
+
+def quant_of(mode: str) -> str:
+    """The mode's ``TrainConfig.quant`` (its oracle runs the same)."""
+    return mode_spec(mode)[1].get("quant", "none")
 
 
 def ranks_of(mode: str) -> int:
@@ -126,9 +176,18 @@ def _norm_counts_tp():
     ShardLayout.grad_norm = grad_norm
 
 
+def _quant_shard_scales():
+    from ..models import clip
+    # TP layers as without quant (copy_to_model, reduce_from_model) around
+    # products that quantize this rank's part with its own scales, and
+    # the int8 wgrad over this rank's rows alone.
+    clip._quantized = lambda quant: False
+
+
 FAULTS = {"pipe_summed_post": _pipe_summed_post,
           "tp_sums_alone": _tp_sums_alone,
-          "norm_counts_tp": _norm_counts_tp}
+          "norm_counts_tp": _norm_counts_tp,
+          "quant_shard_scales": _quant_shard_scales}
 
 
 def all_faults() -> dict:
@@ -179,12 +238,40 @@ def whole_params(opt) -> Dict[str, "torch.Tensor"]:
             for n, t in zip(layout.whole, out)}
 
 
+def first_update_off_share(run: dict, ref: dict, initial,
+                           device=None) -> float:
+    """The share of the first update's elements (over every tensor that
+    moved in the oracle) more than :data:`OFF_SHARE_OF_MAX` of their
+    tensor's largest oracle update away from the oracle's."""
+    import torch
+    off = total = 0
+    for n, want in ref["first_params"].items():
+        init = initial[n].to(device, torch.float64)
+        upd = want.to(device, torch.float64) - init
+        if not upd.any():
+            continue
+        got = run["first_params"][n].to(device, torch.float64) - init
+        off += int(((got - upd).abs()
+                    > OFF_SHARE_OF_MAX * upd.abs().max()).sum())
+        total += upd.numel()
+    return off / total
+
+
 def compare(run: dict, ref: dict, initial, device=None) -> dict:
     """``data_parallel_check.compare`` and the largest per-tensor
     relative error of the first step's gradients, ``max_grad_rel`` (a
-    gradient counted twice keeps its cosine)."""
+    gradient counted twice keeps its cosine); the first step's loss and
+    norm relative differences and :func:`first_update_off_share`."""
     import torch
     out = dpc.compare(run, ref, initial, device)
+    first, want = run["metrics"][0], ref["metrics"][0]
+    out.update(
+        first_loss_rel=abs(first["total_loss"] - want["total_loss"])
+        / abs(want["total_loss"]),
+        first_grad_norm_rel=abs(first["grad_norm"] - want["grad_norm"])
+        / want["grad_norm"],
+        first_update_off_share=first_update_off_share(run, ref, initial,
+                                                      device))
     rel = {}
     for n, want in ref["grads"].items():
         if n.endswith("self_attn.k_proj.bias") or not want.any():
@@ -226,22 +313,29 @@ def replay_first_update(tcfg, initial, anchors, grads, first,
     return worst
 
 
+def oracle_config(B: int, accum: int, dtype: str, quant: str = "none"):
+    """The one-process oracle's config: global negatives, ``quant``."""
+    import dataclasses
+    return dataclasses.replace(dpc.train_config("global", B, accum, dtype),
+                               quant=quant)
+
+
 def prepare(model_name: str, layers: Optional[int], dtype: str, B: int,
             accum: int, seed: int, steps: int, device=None,
-            path: Optional[str] = None) -> dict:
+            path: Optional[str] = None, quant: str = "none") -> dict:
     """The weights, AdamSPD's anchors and the one-process oracle of
-    :func:`rank_modes` (the oracle's tensors on ``device``); with ``path``
-    also written there (CPU tensors) for ranks to load in place of
-    computing them again."""
+    :func:`rank_modes` for the modes of ``quant`` (the oracle's tensors on
+    ``device``); with ``path`` also written there (CPU tensors) for ranks
+    to load in place of computing them again."""
     import torch
     from ..models.convert import random_params, state_dict_from_jax
     cfg = dpc.model_config(model_name, layers)
     sd = state_dict_from_jax(random_params(cfg, seed), cfg)
     anchors = dpc.anchors_off(sd, seed)
-    ref = dpc.oracle(cfg, dpc.train_config("global", B, accum, dtype), sd,
+    ref = dpc.oracle(cfg, oracle_config(B, accum, dtype, quant), sd,
                      {k: v.to(device) for k, v in anchors.items()},
                      dpc.global_batch(cfg, accum, B, seed), steps, 1, device)
-    out = {"sd": sd, "anchors": anchors, "ref": ref}
+    out = {"sd": sd, "anchors": anchors, "ref": ref, "quant": quant}
     if path is not None:
         torch.save(out, path)
     return out
@@ -250,12 +344,13 @@ def prepare(model_name: str, layers: Optional[int], dtype: str, B: int,
 def rank_modes(model_name: str, layers: Optional[int], dtype: str, B: int,
                accum: int, seed: int, steps: int, modes: List[str],
                fault: Optional[str] = None,
-               prepared: Optional[str] = None) -> dict:
+               prepared: Optional[List[str]] = None) -> dict:
     """On every rank (the group is up, its size each mode's rank count):
     each mode's ``steps`` on this rank's rows of the global batch
-    ``[accum, B, …]``; on rank 0 also the oracle and the comparisons.
-    ``prepared``: a file of :func:`prepare` for these arguments, read in
-    place of computing the weights, anchors and oracle. Returns per mode:
+    ``[accum, B, …]``; on rank 0 also the oracles (one a ``quant`` mode,
+    :func:`quant_of`) and the comparisons. ``prepared``: files of
+    :func:`prepare` for these arguments (one a ``quant`` mode), read in
+    place of computing the weights, anchors and oracles. Returns per mode:
     metrics, first-step launches, step ms, peak memory, host seconds, and
     on rank 0 ``vs_oracle``."""
     import torch
@@ -271,24 +366,30 @@ def rank_modes(model_name: str, layers: Optional[int], dtype: str, B: int,
     device = torch.device("cuda", torch.cuda.current_device()) \
         if torch.cuda.is_available() else torch.device("cpu")
     cfg = dpc.model_config(model_name, layers)
+    quants = sorted({quant_of(mode) for mode in modes})
+    refs = {}
     if prepared is not None:
-        ready = torch.load(prepared, map_location="cpu", weights_only=True,
-                           mmap=True)
-    elif rank == 0:
-        ready = prepare(model_name, layers, dtype, B, accum, seed, steps,
-                        device)
+        for path in prepared:
+            ready = torch.load(path, map_location="cpu", weights_only=True,
+                               mmap=True)
+            refs[ready.get("quant", "none")] = ready.pop("ref")
     else:
         from ..models.convert import random_params, state_dict_from_jax
         sd = state_dict_from_jax(random_params(cfg, seed), cfg)
         ready = {"sd": sd, "anchors": dpc.anchors_off(sd, seed)}
+        if rank == 0:
+            for quant in quants:
+                refs[quant] = prepare(model_name, layers, dtype, B, accum,
+                                      seed, steps, device,
+                                      quant=quant)["ref"]
     sd = ready["sd"]
     anchors = {k: v.to(device) for k, v in ready["anchors"].items()}
     batch = dpc.global_batch(cfg, accum, B, seed)
-    ref, initial = None, None
+    initial = None
     if rank == 0:   # the comparisons run on the device
-        ref = {k: v if k == "metrics" else {n: t.to(device)
-                                             for n, t in v.items()}
-               for k, v in ready["ref"].items()}
+        refs = {q: {k: v if k == "metrics" else {n: t.to(device)
+                                                 for n, t in v.items()}
+                    for k, v in refs[q].items()} for q in quants}
         initial = {k: v.to(device, torch.float32) for k, v in sd.items()}
     setup_s = time.perf_counter() - t_start
     out = {}
@@ -302,7 +403,8 @@ def rank_modes(model_name: str, layers: Optional[int], dtype: str, B: int,
                  for k, x in pmesh.shard_batch(batch, mesh,
                                                accum_axis=True).items()}
         model = m.build_train_model(cfg, sd, device=device, mesh=mesh,
-                                    num_micro=tcfg.pipeline_microbatches)
+                                    num_micro=tcfg.pipeline_microbatches,
+                                    global_negatives=tcfg.global_negatives)
         opt = make_optimizer(tcfg, model.named_parameters(),
                              anchors=anchors, mesh=mesh)
         step = make_train_step(tcfg, cfg, model, opt, mesh=mesh)
@@ -330,10 +432,10 @@ def rank_modes(model_name: str, layers: Optional[int], dtype: str, B: int,
                "mesh": dict(mode_spec(mode)[0]), "rank": rank}
         t_cmp = time.perf_counter()
         if rank == 0:
-            res["vs_oracle"] = compare(run, ref, initial, device)
+            res["vs_oracle"] = compare(run, refs[quant_of(mode)], initial,
+                                       device)
             res["vs_oracle"]["replay_first_update_rel"] = \
-                replay_first_update(dpc.train_config("global", B, accum,
-                                                     dtype),
+                replay_first_update(oracle_config(B, accum, dtype),
                                     initial, anchors, grads, first, device)
         del model, opt, step, run
         if device.type == "cuda":

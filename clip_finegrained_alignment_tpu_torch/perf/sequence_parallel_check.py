@@ -12,7 +12,9 @@ and rank 0 holds every mode to the one-process oracle
 * ``sp2``: 1 x 2, GSPMD SP (each rank's queries against K and V gathered
   over the two ranks);
 * ``sp2-ring``: 1 x 2, ring attention;
-* ``dp2sp2-ring``: 2 x 2, ring attention, FSDP over the data ranks.
+* ``dp2sp2-ring``: 2 x 2, ring attention, FSDP over the data ranks;
+* ``sp2-int8``: ``sp2`` with ``quant="int8"``, its int8 wgrad's scales
+  over both ranks' token blocks, held to a one-process ``int8`` oracle.
 
 :data:`FAULTS` are the faults the gates are for (``parallel/sequence.py``,
 the gradient rule): ``gather_sums_cotangent`` lets a tower's gather sum
@@ -57,7 +59,9 @@ MODES = {"sp2": ({"data": 1, "model": 2, "pipe": 1},
                       {"sequence_parallel": True, "sp_ring": True}),
          "dp2sp2-ring": ({"data": 2, "model": 2, "pipe": 1},
                          {"sequence_parallel": True, "sp_ring": True,
-                          "fsdp": True})}
+                          "fsdp": True}),
+         "sp2-int8": ({"data": 1, "model": 2, "pipe": 1},
+                      {"sequence_parallel": True, "quant": "int8"})}
 
 
 # ---------------------------------------------------------------------------
@@ -86,9 +90,15 @@ def _norm_counts_tp():
     mpc.FAULTS["norm_counts_tp"]()
 
 
+def _quant_shard_scales():
+    from . import model_parallel_check as mpc
+    mpc.FAULTS["quant_shard_scales"]()
+
+
 FAULTS = {"gather_sums_cotangent": _gather_sums_cotangent,
           "post_gather_summed": _post_gather_summed,
-          "norm_counts_tp": _norm_counts_tp}
+          "norm_counts_tp": _norm_counts_tp,
+          "quant_shard_scales": _quant_shard_scales}
 
 
 # ---------------------------------------------------------------------------

@@ -54,8 +54,7 @@ alone) are summed over the pipe group; every other whole parameter's
 gradient is already the same on every model rank and stage and is not
 reduced there. Then the data reduction above, over the data group. The
 norm and AdamSPD's sums count every tensor once
-(``parallel/zero.py::ShardLayout.reduce_rows``). ``quant`` under tensor
-parallelism is refused (ROADMAP A6d).
+(``parallel/zero.py::ShardLayout.reduce_rows``).
 
 Sequence parallelism (``cfg.sequence_parallel`` on a mesh with ``model``
 above 1, global negatives only, no pipeline, as in JAX;
@@ -78,7 +77,14 @@ backward kernels) and, under SPARC, the local term through
 plain versions. With ``cfg.quant`` ``switchback`` or ``int8`` both
 towers' encoder projections and the patch embedding, in every forward
 the step runs (the count losses' extra text forwards too), take the
-dynamic int8 GEMMs of ``ops/quant.py``.
+dynamic int8 GEMMs of ``ops/quant.py``. Every scale is the one JAX's
+GSPMD step takes: under tensor parallelism the TP layers take theirs over
+the model group; under global negatives the int8 wgrad's scales reduce
+over the microbatch's rows on every data rank, and under sequence
+parallelism over every rank's token block too: the model holds those
+groups (``models/clip.py::build_train_model(..., mesh=,
+global_negatives=True)``, ``parallel/mesh.py::Mesh.rows_group``). Local
+negatives take none (JAX's per-rank ``shard_map``).
 
 Deliberate differences from the JAX package: with no state dict the
 ``Trainer`` starts from ``models/convert.py::random_params(cfg, seed)``
@@ -104,7 +110,7 @@ from ..models import convert
 from ..objectives import losses as L
 from ..optim.factory import ClippedOptimizer, make_optimizer
 from ..parallel import collectives as C
-from ..parallel.mesh import A6D, Mesh, replicate, shard_batch_from_local
+from ..parallel.mesh import Mesh, replicate, shard_batch_from_local
 from ..parallel.sequence import SeqParallelSpec
 from ..parallel.sharding_rules import before_gather, before_pipeline
 
@@ -228,8 +234,7 @@ def check_parallel(cfg: TrainConfig) -> None:
     words where it refuses them too (tensor, pipeline or sequence
     parallelism without global negatives, sequence parallelism without a
     model axis or with a pipeline, FSDP without global negatives, FSDP
-    with ZeRO-1, shapes the model or pipe axis does not divide), and
-    ``quant`` under tensor parallelism (A6d)."""
+    with ZeRO-1, shapes the model or pipe axis does not divide)."""
     if cfg.mesh.pipe > 1 and not cfg.global_negatives:
         raise ValueError("pipeline parallelism (mesh.pipe > 1) requires "
                          "global_negatives=True: the DDP-parity shard_map "
@@ -260,9 +265,6 @@ def check_parallel(cfg: TrainConfig) -> None:
     if cfg.fsdp and cfg.zero1:
         raise ValueError("fsdp subsumes zero1 (optimizer state inherits the "
                          "data-sharded param layout); enable only one")
-    if tp and cfg.quant != "none":
-        raise ValueError(f"quant={cfg.quant!r} with tensor parallelism "
-                         f"(mesh.model > 1): {A6D}")
     if tp or cfg.mesh.pipe > 1:
         from ..parallel.pipeline import validate_pipe_divisibility
         from ..parallel.sharding_rules import validate_tp_divisibility
@@ -299,9 +301,11 @@ def make_train_step(cfg: TrainConfig, model_cfg: CLIPConfig,
     ``[accum, B/D, …]`` (``parallel/mesh.py::shard_batch``), the metrics
     are the means over the data ranks. With ``cfg.zero1`` or ``cfg.fsdp``
     the optimizer must have been built with ``make_optimizer(...,
-    mesh=…)``; with ``mesh.model`` or ``mesh.pipe`` above 1 the model too
-    (``build_train_model(..., mesh=…)``); with ``cfg.sequence_parallel``
-    the mesh is ``make_mesh(..., sequence_parallel=True, sp_ring=…)``."""
+    mesh=…)``; with ``mesh.model`` or ``mesh.pipe`` above 1, or with
+    ``int8`` under global negatives, the model too
+    (``build_train_model(..., mesh=…, global_negatives=…)``); with
+    ``cfg.sequence_parallel`` the mesh is ``make_mesh(...,
+    sequence_parallel=True, sp_ring=…)``."""
     check_parallel(cfg)
     tp_pp = mesh is not None and (mesh.model > 1 or mesh.pipe > 1)
     if (cfg.mesh.model, cfg.mesh.pipe) != ((mesh.model, mesh.pipe)
@@ -323,6 +327,12 @@ def make_train_step(cfg: TrainConfig, model_cfg: CLIPConfig,
     if (mesh is not None and mesh.pipe > 1) != (model.pipeline is not None):
         raise ValueError("pipeline parallelism: build the model with "
                          "build_train_model(..., mesh=mesh)")
+    if cfg.quant == "int8" and (model.rows is not None) != (
+            mesh is not None and cfg.global_negatives
+            and mesh.rows_group() is not None):
+        raise ValueError("int8 on a mesh: build the model with "
+                         "build_train_model(..., mesh=mesh, "
+                         "global_negatives=cfg.global_negatives)")
     dtype = compute_dtype(cfg)
     device = next(model.parameters()).device
     if pixel_bank is not None and pixel_bank.device != device:
@@ -438,7 +448,8 @@ class Trainer:
                 self.model_cfg)
         self.model = m.build_train_model(
             self.model_cfg, state_dict, device=device, mesh=mesh,
-            num_micro=cfg.pipeline_microbatches)
+            num_micro=cfg.pipeline_microbatches,
+            global_negatives=cfg.global_negatives)
         self.device = next(self.model.parameters()).device
         if mesh is not None:
             replicate(self.model.state_dict(), mesh)

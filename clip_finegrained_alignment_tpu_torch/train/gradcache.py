@@ -21,9 +21,12 @@ loss over the whole pool without holding every sample's tower activations:
    no 1/accum scaling: the chunks are parts of one loss.
 
 Both forwards take ``cfg.quant``'s projection GEMMs, as the JAX chunk
-forward does. The result is the gradient of the full-pool loss (``tests/
-test_torch_gradcache.py`` holds it to one direct ``[1, accum·B]`` step),
-at one extra forward a chunk. Phase 1 runs the attention forward without
+forward does, with the scales JAX's GSPMD ``gradcache.py:107`` takes
+(under TP the model group's, and phase 3's int8 wgrad's over every data
+rank's rows of the chunk: the groups the model holds,
+``models/clip.py::build_train_model``). The result is the gradient of
+the full-pool loss (``tests/test_torch_gradcache.py`` holds it to one
+direct ``[1, accum·B]`` step), at one extra forward a chunk. Phase 1 runs the attention forward without
 its log-sum-exp (no grad), phase 3 with it (under grad): the same kernel
 and the same output either way.
 

@@ -22,6 +22,7 @@ refusal of views the 16-byte loads cannot take.
 """
 
 import contextlib
+import functools
 import importlib.util
 from pathlib import Path
 
@@ -53,6 +54,19 @@ smoke = importlib.util.module_from_spec(_spec)
 _spec.loader.exec_module(smoke)
 
 NEG = -1e9
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """Every test here on one intra-op thread: the emulations are long,
+    and a test worker beside others that takes every core for each op
+    spends most of its time waiting on its own threads."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 # The emulated kernel against the Pallas kernel: a tenth of the card's
 # fp32 tolerance, KERNEL_TOL["float32"] = 1e-4.
 EMULATION_TOL = 1e-5
@@ -83,22 +97,34 @@ def _core_sums(eq, pairs, by_step=False):
     result rounded toward zero, as ``perf/fp32_grad_bias_study.py`` finds
     the H100 rounds it. ``by_step``: each step's pairs summed so into a
     zeroed accumulator, which is added to the running fp32 sum rounded to
-    nearest (``csrc/attention_tf32.cuh::mma_row_rn``)."""
+    nearest (``csrc/attention_tf32.cuh::mma_row_rn``). Every step's
+    products come from one float64 einsum a pair (the contracted index
+    split into steps of 8, zero-padded: exact zeros add nothing); the
+    loop over the steps only adds and rounds."""
     ins, out = eq.split("->")
     ia, ib = ins.split(",")
     (kdim,) = (set(ia) & set(ib)) - set(out)
+    step = next(c for c in "jnoprtuwxyz" if c not in eq)
     xa, xb = ia.index(kdim), ib.index(kdim)
     K = pairs[0][0].shape[xa]
+    steps = -(-K // 8)
+
+    def split(t, dim):
+        t = t.double()
+        pad = [0, 0] * (t.dim() - 1 - dim) + [0, steps * 8 - K]
+        t = F.pad(t, pad)
+        return t.reshape(t.shape[:dim] + (steps, 8) + t.shape[dim + 1:])
+    eq_steps = (f"{ia.replace(kdim, step + kdim)},"
+                f"{ib.replace(kdim, step + kdim)}->{step}{out}")
+    parts = [torch.einsum(eq_steps, split(x, xa), split(y, xb))
+             for x, y in pairs]
     acc = total = None
-    for j in range(0, K, 8):
-        n = min(8, K - j)
+    for j in range(steps):
         if by_step:
             acc = None
-        for x, y in pairs:
-            part = torch.einsum(eq, x.narrow(xa, j, n).double(),
-                                y.narrow(xb, j, n).double())
+        for part in parts:
             acc = bias_study.round_toward_zero(
-                part if acc is None else acc.double() + part)
+                part[j] if acc is None else acc.double() + part[j])
         if by_step:
             total = acc if total is None else total + acc
     return total if by_step else acc
@@ -261,15 +287,23 @@ def test_emulated_backward_matches_pallas(name):
                for g, w in zip(plain_tf32, want)) > 1.0
 
 
+@functools.lru_cache(maxsize=None)
+def _vit_b16_state():
+    cfg = CLIPConfig.vit_b16()
+    return convert.state_dict_from_jax(convert.random_params(cfg, 0), cfg)
+
+
+@functools.lru_cache(maxsize=None)
 def _microbatch_grads(products=None, sums="nearest"):
     """``chip_smoke.microbatch_grads`` of one ViT-B/16 fp32 microbatch on
     the CPU (``TRAIN_CHECK_PAIRS`` pairs, SPARC), every layer's attention
     forward and backward emulated with ``products`` and ``sums`` (None:
-    the plain path)."""
+    the plain path); each once a test process (the two tests below share
+    the plain one)."""
     cfg = CLIPConfig.vit_b16()
     tcfg = TrainConfig(loss_type="sparc", optimizer_type="adamspd",
                        inverse_temperature=0.07, use_amp=False)
-    sd = convert.state_dict_from_jax(convert.random_params(cfg, 0), cfg)
+    sd = _vit_b16_state()
     batch = smoke.train_batch(cfg, 1, smoke.TRAIN_CHECK_PAIRS, 0)
     model = tm.build_train_model(cfg, sd, device="cpu")
     with pytest.MonkeyPatch.context() as mp:

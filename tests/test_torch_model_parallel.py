@@ -11,7 +11,12 @@ tower (``pipe`` = 2 cuts each tower in two).
 Tolerances are those of the matching JAX tests (``tests/test_pipeline.py``,
 ``tests/test_tensor_parallel.py``): losses rtol 1e-5, ``grad_norm`` rtol
 1e-4, parameters after the steps rtol 3e-4 / atol 3e-5, fp32. Bit-exact
-where the program is the same: checkpoints across layouts.
+where the program is the same: checkpoints across layouts. The int8
+layouts (``quant="int8"``) are held to the quantized tests' element
+tolerances (``tests/test_torch_train.py``): the first step's loss rtol
+2e-5 and norm 1e-4, at most 1 % of the first update's elements off by
+more than 2e-3 of their tensor's largest update; the second step's loss
+and norm within 5e-2.
 """
 
 import functools
@@ -214,13 +219,14 @@ def test_gradcache_refusals_follow_jax(kw, message):
 def jax_mp_steps(kw, mesh_kw, seed, batch_seed, devices, steps):
     """``steps`` steps of the JAX package's Trainer on the mesh
     ``mesh_kw`` (its own TP, PP, composed, ZeRO-1 and FSDP layouts) →
-    (metrics per step, the updated weights under HF names)."""
+    (metrics per step, the updated weights under HF names, the weights
+    after the first step)."""
     cfg = W.train_config(**kw)
     fields = ("batch_size", "gradient_accumulation_steps", "lr", "use_amp",
               "loss_type", "optimizer_type", "inverse_temperature",
               "global_negatives", "warmup_steps", "log_every", "zero1",
               "fsdp", "pipeline_microbatches", "sequence_parallel",
-              "sp_ring")
+              "sp_ring", "quant")
     mcfg = JaxMeshConfig(**mesh_kw)
     jcfg = JaxTrainConfig(clip_model="tiny", remat=False, mesh=mcfg,
                           **{f: getattr(cfg, f) for f in fields})
@@ -231,11 +237,17 @@ def jax_mp_steps(kw, mesh_kw, seed, batch_seed, devices, steps):
     batch = W.make_batch(batch_seed, cfg.loss_type,
                          cfg.gradient_accumulation_steps, cfg.batch_size)
     flat = {k: x.reshape((-1,) + x.shape[2:]) for k, x in batch.items()}
-    metrics = [{k: float(v) for k, v in t.step(flat).items()}
-               for _ in range(steps)]
-    p = jax.tree.map(np.asarray, t.params)
-    return metrics, {k: v.numpy()
-                     for k, v in state_dict_from_jax(p, W.CFG).items()}
+
+    def hf():
+        p = jax.tree.map(np.asarray, t.params)
+        return {k: v.numpy()
+                for k, v in state_dict_from_jax(p, W.CFG).items()}
+    metrics, first = [], None
+    for s in range(steps):
+        metrics.append({k: float(v) for k, v in t.step(flat).items()})
+        if s == 0:
+            first = hf()
+    return metrics, hf(), first
 
 
 SPARC = dict(loss_type="sparc", optimizer_type="adamspd",
@@ -243,15 +255,19 @@ SPARC = dict(loss_type="sparc", optimizer_type="adamspd",
 COUNT = dict(loss_type="count", global_negatives=True)
 GRADCACHE = dict(SPARC, grad_cache=True)
 QUANT = dict(SPARC, quant="switchback")
+INT8 = dict(SPARC, quant="int8")
 LOSSES = {"sparc": SPARC, "count": COUNT, "gradcache": GRADCACHE,
-          "quant": QUANT}
+          "quant": QUANT, "int8": INT8,
+          "gradcache_int8": dict(GRADCACHE, quant="int8")}
 TP2 = dict(data=1, model=2, pipe=1)
 PP2 = dict(data=1, model=1, pipe=2)
+DP2 = dict(data=2, model=1, pipe=1)
 SP = {"sequence_parallel": True}
 SP_RING = {"sequence_parallel": True, "sp_ring": True}
 # (name, mesh, base, layout fields, against JAX's mesh step too): each
-# layout's two steps, grouped by rank count so that one spawn runs a group
-# (with phase 11's gates on two ranks, the checkpoints on four).
+# layout's two steps, grouped so that one spawn runs a group (with phase
+# 11's gates on two ranks, the checkpoints on four); the two-rank layouts
+# in two groups of about one length, which xdist runs side by side.
 GROUPS = {
     "two_ranks": [
         ("tp", TP2, "sparc", {}, True),
@@ -262,15 +278,31 @@ GROUPS = {
         # GradCache under TP: one process's GradCache step, the same loss
         # over the pool (held to JAX's in test_torch_gradcache.py).
         ("tp_gradcache", TP2, "gradcache", {}, False),
-        # int8 under PP: no contraction is split, so the first step is one
-        # process's (the rows quantize alike in any microbatch); later
-        # steps within the quantized tests' 5e-2.
+        # switchback under PP: no contraction is split and its wgrad is
+        # exact, so the first step is one process's; later steps within
+        # the quantized tests' 5e-2.
         ("pp_quant", PP2, "quant", {}, False),
+        # int8 under TP: the split contractions' scales over the model
+        # ranks, the int32 sums summed (JAX's GSPMD step).
+        ("tp_int8", TP2, "int8", {}, True),
+        # int8 under PP: each GPipe microbatch's wgrad quantized alone, as
+        # JAX's shard_map over pipe does, so not one process's step.
+        ("pp_int8", PP2, "int8", {}, "only"),
+        # GradCache under TP with int8: one process's GradCache int8 step.
+        ("tp_gradcache_int8", TP2, "gradcache_int8", {}, False)],
+    "two_ranks_sp": [
+        # int8 with global negatives on two data ranks: the wgrad's scales
+        # over both ranks' rows (ROADMAP C7; its gates below show the old
+        # path failing). Here for the two groups' balance.
+        ("dp2_int8", DP2, "int8", {}, False),
         # Sequence parallelism (the model axis the sequence axis): GSPMD
         # SP, the ring, and the count loss's [B·N, T] text forward.
         ("sp", TP2, "sparc", SP, True),
         ("sp_ring", TP2, "sparc", SP_RING, True),
-        ("sp_count", TP2, "count", SP, True)],
+        ("sp_count", TP2, "count", SP, True),
+        # int8 under SP: the wgrad's scales over both ranks' token blocks
+        # (the patch embedding's too: its cotangent is this rank's block).
+        ("sp_int8", TP2, "int8", SP, True)],
     "four_ranks": [
         ("tp_pp", dict(data=1, model=2, pipe=2), "sparc", {}, True),
         ("tp_zero1", dict(data=2, model=2, pipe=1), "sparc",
@@ -285,21 +317,34 @@ GROUPS = {
         ("dp2sp2_zero1", dict(data=2, model=2, pipe=1), "sparc",
          dict(SP, zero1=True), True),
         ("dp2sp2_ring_fsdp", dict(data=2, model=2, pipe=1), "sparc",
-         dict(SP_RING, fsdp=True), True)],
+         dict(SP_RING, fsdp=True), True),
+        # int8 over data x model with FSDP: the model group's scales and
+        # the data group's wgrad scales at once.
+        ("dp2tp2_int8_fsdp", dict(data=2, model=2, pipe=1), "int8",
+         {"fsdp": True}, False)],
 }
-# (fault, modes, dtype). The sequence modes run in fp32: at the tiny
-# width (32) bf16 alone moves the ring's first AdamSPD update to a cosine
-# of 0.987 (tp2 0.992) against one process, where the ViT-B/16-wide study
-# behind SP_LIMITS reads 0.9999 in bf16; in fp32 the gates see the faults
-# alone.
-GATE_CASES = [(None, ["tp2", "pp2"], "bfloat16"),
-              (None, ["sp2", "sp2-ring"], "float32"),
-              ("pipe_summed_post", ["pp2"], "bfloat16"),
-              ("tp_sums_alone", ["tp2"], "bfloat16"),
-              ("norm_counts_tp", ["tp2"], "bfloat16"),
-              ("norm_counts_tp", ["sp2-ring"], "float32"),
-              ("gather_sums_cotangent", ["sp2", "sp2-ring"], "float32"),
-              ("post_gather_summed", ["sp2"], "float32")]
+# Each two-rank group's (fault, modes, dtype). The sequence modes run in
+# fp32: at the tiny width (32) bf16 alone moves the ring's first AdamSPD
+# update to a cosine of 0.987 (tp2 0.992) against one process, where the
+# ViT-B/16-wide study behind SP_LIMITS reads 0.9999 in bf16; in fp32 the
+# gates see the faults alone. The int8 modes are held to INT8_LIMITS, and
+# the fault of every scale taken locally must fail them; dp2-int8 (ROADMAP
+# C7) in fp32, as there bf16 alone moves 6.6 % of the first update's
+# elements at the tiny width (the fault 16.4 %), in fp32 0.002 % (15.7 %).
+GATE_CASES = {
+    "two_ranks": [(None, ["tp2", "pp2", "tp2-int8"], "bfloat16"),
+                  ("pipe_summed_post", ["pp2"], "bfloat16"),
+                  ("tp_sums_alone", ["tp2"], "bfloat16"),
+                  ("norm_counts_tp", ["tp2"], "bfloat16"),
+                  ("quant_shard_scales", ["tp2-int8"], "bfloat16")],
+    "two_ranks_sp": [(None, ["sp2", "sp2-ring", "sp2-int8", "dp2-int8"],
+                      "float32"),
+                     ("norm_counts_tp", ["sp2-ring"], "float32"),
+                     ("gather_sums_cotangent", ["sp2", "sp2-ring"],
+                      "float32"),
+                     ("post_gather_summed", ["sp2"], "float32"),
+                     ("quant_shard_scales", ["sp2-int8", "dp2-int8"],
+                      "float32")]}
 CHECKPOINT_LAYOUTS = [("1x2x2", dict(data=1, model=2, pipe=2), {}),
                       ("2x2x1-fsdp", dict(data=2, model=2, pipe=1),
                        {"fsdp": True}),
@@ -310,11 +355,49 @@ CHECKPOINT_LAYOUTS = [("1x2x2", dict(data=1, model=2, pipe=2), {}),
 @functools.lru_cache(maxsize=None)
 def _one_process(base: str):
     """The port's one process, two steps: every layout's oracle (once a
-    test process). GradCache's has no mesh to gather over."""
+    test process), and the weights after its first step. GradCache's has
+    no mesh to gather over."""
     kw = dict(LOSSES[base])
     if kw.get("grad_cache"):
         kw["global_negatives"] = False
-    return one_process_step(kw, 31, 32, steps=2)
+    cfg = W.train_config(**kw)
+    t = engine.Trainer(cfg, W.initial_state(31), device="cpu")
+    batch = W.make_batch(32, cfg.loss_type)
+    metrics, first = [], None
+    for s in range(2):
+        metrics.append({k: float(v) for k, v in t.train_step(batch).items()})
+        if s == 0:
+            first = W.numpy_state(t.model_state())
+    return metrics, W.numpy_state(t.state_dict()), first
+
+
+def _off_share(got_first, want_first):
+    """The share of the first update's elements more than 2e-3 of their
+    tensor's largest update (+ 1e-6) from ``want_first``'s."""
+    initial = W.numpy_state(W.initial_state(31))
+    off = total = 0
+    for k, w in want_first.items():
+        upd, got_upd = w - initial[k], got_first[k] - initial[k]
+        off += int((np.abs(got_upd - upd)
+                    > 2e-3 * np.abs(upd).max() + 1e-6).sum())
+        total += upd.size
+    return off / total
+
+
+def _check_int8(got, got_first, want, want_first, what, floor=0.0):
+    """The quantized tests' element tolerances (module docstring); the
+    off share over ``floor``, the share at which the two packages' one
+    process part already."""
+    for k in want[0]:
+        np.testing.assert_allclose(
+            got[0][k], want[0][k], rtol=1e-4 if k == "grad_norm" else 2e-5,
+            atol=1e-6, err_msg=f"{what}: step 0 {k}")
+    for g, w in zip(got[1:], want[1:]):
+        for k in ("total_loss", "grad_norm"):
+            np.testing.assert_allclose(g[k], w[k], rtol=5e-2,
+                                       err_msg=f"{what}: {k}")
+    share = _off_share(got_first, want_first)
+    assert share <= floor + 1e-2, (what, share, floor)
 
 
 def _world(mesh_kw):
@@ -328,20 +411,20 @@ def _check_metrics(got, want, what, norm_rtol=1e-4):
             err_msg=f"{what}: {k}")
 
 
-def _check_gates(ranks):
+def _check_gates(ranks, cases):
     """``chip_smoke.py`` phase 11's comparisons
-    (``perf/model_parallel_check.py::rank_modes``) at tiny width, bf16, two
+    (``perf/model_parallel_check.py::rank_modes``) at tiny width, two
     ranks: the port as it is within every ``MP_LIMITS`` gate (the sequence
-    modes: ``SP_LIMITS``) of its one-process oracle; each fault of the
-    trouble spots (``model_parallel_check.FAULTS``,
-    ``sequence_parallel_check.FAULTS``) outside at least one."""
+    modes: ``SP_LIMITS``; the int8 modes: ``INT8_LIMITS``) of its
+    one-process oracle; each fault of the trouble spots
+    (``model_parallel_check.FAULTS``, ``sequence_parallel_check.FAULTS``)
+    outside at least one."""
     smoke = _smoke()
     r0, r1 = (r["gates"] for r in ranks)
-    for (fault, _, _), res0, res1 in zip(GATE_CASES, r0, r1):
+    for (fault, _, dtype), res0, res1 in zip(cases, r0, r1):
         for mode, res in res0.items():
             assert res1[mode]["metrics"] == res["metrics"], (fault, mode)
-            limits = smoke.SP_LIMITS if mode.startswith(("sp", "dp2sp")) \
-                else smoke.MP_LIMITS
+            limits = smoke.phase_11_limits(mode, dtype)
             vs = res["vs_oracle"]
             held = {k: (vs[k] >= lim if k.startswith("min_")
                         else vs[k] <= lim) for k, lim in limits.items()}
@@ -395,13 +478,17 @@ def _check_checkpoints(ranks, root, w1_file):
 @pytest.mark.parametrize("group", list(GROUPS))
 def test_layouts_match_jax_mesh_and_one_process(group, eight_devices,
                                                 tmp_path):
-    """TP, PP, the count loss under PP, GradCache under TP, int8 under PP,
-    SP (GSPMD, ring, the count loss), TP x PP, TP + ZeRO-1, TP + FSDP,
-    PP + FSDP, a ring of four, SP + ZeRO-1 and ring SP + FSDP, two steps
-    each (the second reads AdamSPD's per-tensor sums of the first update,
-    trouble spot b): every rank's metrics equal JAX's mesh step and the
-    port's one process, the whole state every rank gathers is the same,
-    and its weights are JAX's within JAX's own tolerances. Each rank holds
+    """TP, PP, the count loss under PP, GradCache under TP, switchback
+    under PP, int8 under TP, PP, GradCache under TP, two data ranks and
+    SP, SP (GSPMD, ring, the count loss), TP x PP, TP + ZeRO-1, TP +
+    FSDP, PP + FSDP, a ring of four, SP + ZeRO-1, ring SP + FSDP and int8
+    over data x model with FSDP, two steps each (the second reads
+    AdamSPD's per-tensor sums of the first update, trouble spot b): every
+    rank's metrics equal JAX's mesh step and the port's one process, the
+    whole state every rank gathers is the same, and its weights are JAX's
+    within JAX's own tolerances (int8: the element tolerances of the
+    module docstring, against one process where GSPMD's semantics are one
+    process's, against JAX's mesh step where given). Each rank holds
     its TP shards (H/tp heads) and its stage's layers only (SP: every
     parameter whole, its tokens' block of the activations). The same
     ranks then
@@ -410,15 +497,20 @@ def test_layouts_match_jax_mesh_and_one_process(group, eight_devices,
     world = _world(cases[0][1])
     gate_args = checkpoint_args = None
     if world == 2:
-        gate_args = (GATE_CASES, "tiny", None, 8, 2, 0, 3)
+        gate_args = (GATE_CASES[group], "tiny", None, 8, 2, 0, 3)
     else:
         w1_file = _one_process_checkpoint(str(tmp_path / "w1"))
         checkpoint_args = (CHECKPOINT_LAYOUTS, str(tmp_path / "ckpt"),
                            str(tmp_path / "w1"))
-    # JAX's mesh steps compile in a thread while the ranks run.
+    # JAX's mesh steps compile in a thread while the ranks run; with int8
+    # layouts also JAX's one device in int8.
     jax_out = {}
 
     def jax_steps():
+        if any(base == "int8" and vs_jax for _, _, base, _, vs_jax in cases):
+            jax_out["one device"] = jax_mp_steps(
+                INT8, dict(data=1, model=1, pipe=1), 31, 32, eight_devices,
+                2)
         for name, mesh_kw, base, extra, vs_jax in cases:
             if vs_jax:
                 jax_out[name] = jax_mp_steps({**LOSSES[base], **extra},
@@ -435,10 +527,27 @@ def test_layouts_match_jax_mesh_and_one_process(group, eight_devices,
         thread.join()
     for i, (name, mesh_kw, base, extra, vs_jax) in enumerate(cases):
         assert name in jax_out or not vs_jax, name
-        one, one_state = _one_process(base)
+        one, one_state, one_first = _one_process(base)
         for r in ranks:
             res = r["steps"][i]
-            if base == "quant":
+            if "int8" in base:
+                if vs_jax != "only":
+                    _check_int8(res["metrics"], res["first"], one,
+                                one_first, f"{name} vs one process")
+                if vs_jax:
+                    # With AdamSPD's anchors on the weights the first
+                    # update is Adam's g / |g|, so an element whose
+                    # gradient is near zero moves a whole step on rounding
+                    # alone: the port's one process and JAX's one device
+                    # part at ~1.5 % of the elements here (the JAX mesh
+                    # steps from JAX's one device at 0.5-0.8 %), and a
+                    # shard's scales at 15-45 %.
+                    jax_metrics, _, jax_first = jax_out[name]
+                    floor = _off_share(one_first, jax_out["one device"][2])
+                    _check_int8(res["metrics"], res["first"], jax_metrics,
+                                jax_first, f"{name} vs JAX", floor)
+                assert np.isfinite(list(res["metrics"][-1].values())).all()
+            elif base == "quant":
                 _check_metrics(res["metrics"][0], one[0], name)
                 for got, want in zip(res["metrics"][1:], one[1:]):
                     for k in ("total_loss", "grad_norm"):
@@ -450,8 +559,8 @@ def test_layouts_match_jax_mesh_and_one_process(group, eight_devices,
                     _check_metrics(got, want_one, f"{name} vs one process")
                 assert_params_close(res["state"]["model"],
                                     one_state["model"], **JAX_PARAMS)
-            if vs_jax:
-                jax_metrics, jax_params = jax_out[name]
+            if vs_jax and "int8" not in base:
+                jax_metrics, jax_params, _ = jax_out[name]
                 for got, want_jax in zip(res["metrics"], jax_metrics):
                     _check_metrics(got, want_jax, f"{name} vs JAX")
                 assert_params_close(res["state"]["model"], jax_params,
@@ -471,7 +580,7 @@ def test_layouts_match_jax_mesh_and_one_process(group, eight_devices,
             for m in range(mesh_kw["model"])
             for p in range(mesh_kw["pipe"])), name
     if world == 2:
-        _check_gates(ranks)
+        _check_gates(ranks, GATE_CASES[group])
     else:
         _check_checkpoints(ranks, tmp_path / "ckpt", w1_file)
 

@@ -164,9 +164,6 @@ REFUSALS = [
                       mesh=MeshConfig(data=1, pipe=2)),
                  "batch_size 8 not divisible by pipeline_microbatches 3",
                  id="kw6-A6b"),
-    # int8 under TP would take a shard's absmax of a split contraction.
-    pytest.param(dict(mesh=MeshConfig(data=1, model=2), quant="switchback",
-                      global_negatives=True), "A6d", id="kw7-A6d"),
 ]
 
 
@@ -233,11 +230,22 @@ def test_gradcache_refuses_local_negatives_on_a_mesh():
 
 def test_local_negatives_match_jax_parity_mode(eight_devices):
     """DDP semantics: each rank's loss on its own rows, the mean of the
-    gradients. clip + AdamW and sparc + AdamSPD, one step each."""
+    gradients. clip + AdamW and sparc + AdamSPD, one step each. With
+    ``quant="int8"`` each rank's scales are its own rows' (JAX's per-rank
+    ``shard_map``): the step runs no int8 collective and no split pass,
+    and reads bit for bit as through the projections before the scales
+    took groups."""
     cases = [dict(loss_type="clip", optimizer_type="adamw"),
              dict(loss_type="sparc", optimizer_type="adamspd")]
-    ranks = spawn(W.run_steps, 2, (cases[0], 1, 2, 1, (cases[0], cases[1])),
-                  timeout_s=SPAWN_S)
+    ranks = spawn(W.local_negatives_cases, 2,
+                  (cases[0], 1, 2, (cases[0], cases[1]),
+                   dict(cases[1], quant="int8")), timeout_s=SPAWN_S)
+    for r in ranks:
+        assert r["calls"] == []
+        assert r["int8"]["metrics"] == r["int8_before"]["metrics"]
+        assert_same_state(r["int8"]["state"], r["int8_before"]["state"])
+        assert np.isfinite(list(r["int8"]["metrics"][0].values())).all()
+    ranks = [r["modes"] for r in ranks]
     for i, kw in enumerate(cases):
         jm_, jp = jax_mesh_step(kw, 1, 2, eight_devices)
         for r in ranks:

@@ -266,12 +266,57 @@ def phase_10_modes(shard_sums_alone: bool, *args):
     return dpc.rank_modes(*args)
 
 
+def local_negatives_cases(cfg_kw: dict, seed: int, batch_seed: int,
+                          modes, int8_kw: dict):
+    """:func:`run_steps` of ``modes`` (one step each), then one step of
+    local negatives with ``quant="int8"`` (``int8_kw``) twice: as the port
+    runs it, counting the int8 products' collectives and split passes it
+    makes, and through the projections as they were before the scales took
+    groups (``quant_linear`` with the bare mode). Returns the run_steps
+    results, both int8 runs and that count."""
+    from clip_finegrained_alignment_tpu_torch.ops import quant as tq
+    from clip_finegrained_alignment_tpu_torch.parallel import collectives
+    out = run_steps(cfg_kw, seed, batch_seed, 1, modes)
+    calls = []
+
+    def spy(fn):
+        def run(*a, **kw):
+            calls.append(fn.__name__)
+            return fn(*a, **kw)
+        return run
+    kept = {n: getattr(tq, n) for n in tq.SPLIT_KERNELS}
+    kept_c = (collectives.all_reduce_absmax, collectives.all_reduce_sum_)
+    try:
+        for n in tq.SPLIT_KERNELS:
+            setattr(tq, n, spy(kept[n]))
+        collectives.all_reduce_absmax = spy(kept_c[0])
+        collectives.all_reduce_sum_ = spy(kept_c[1])
+        now = run_steps(int8_kw, seed, batch_seed, 1)[0]
+    finally:
+        for n in tq.SPLIT_KERNELS:
+            setattr(tq, n, kept[n])
+        (collectives.all_reduce_absmax,
+         collectives.all_reduce_sum_) = kept_c
+    linear_fn = tm._linear_fn
+
+    def before(quant, groups=None):
+        if quant == "none":
+            return tm.linear
+        return lambda x, w, b, dtype: tq.quant_linear(x, w, b, dtype, quant)
+    try:
+        tm._linear_fn = before
+        then = run_steps(int8_kw, seed, batch_seed, 1)[0]
+    finally:
+        tm._linear_fn = linear_fn
+    return {"modes": out, "int8": now, "int8_before": then, "calls": calls}
+
+
 def mp_steps(cases, seed: int, batch_seed: int, steps: int = 1):
     """For each ``(mesh_kw, cfg_kw)`` of ``cases`` (one rank count): the
     Trainer on that ``data × model × pipe`` mesh of this group, ``steps``
     steps on this rank's rows of one global batch: per step its metrics,
-    then the whole state it gathers, this rank's coordinates and its
-    parameters' shapes."""
+    the whole model after the first step, then the whole state it
+    gathers, this rank's coordinates and its parameters' shapes."""
     out = []
     for mesh_kw, cfg_kw in cases:
         cfg = train_config(mesh=MeshConfig(**mesh_kw), **cfg_kw)
@@ -280,9 +325,13 @@ def mp_steps(cases, seed: int, batch_seed: int, steps: int = 1):
             batch_seed, cfg.loss_type, cfg.gradient_accumulation_steps,
             cfg.batch_size), mesh, accum_axis=True)
         t = Trainer(cfg, initial_state(seed), device="cpu", mesh=mesh)
-        metrics = [{k: float(v) for k, v in t.train_step(batch).items()}
-                   for _ in range(steps)]
-        out.append({"metrics": metrics,
+        metrics, first = [], None
+        for s in range(steps):
+            metrics.append({k: float(v)
+                            for k, v in t.train_step(batch).items()})
+            if s == 0:
+                first = numpy_state(t.model_state())
+        out.append({"metrics": metrics, "first": first,
                     "state": numpy_state(t.state_dict()),
                     "coords": (mesh.data_rank, mesh.model_rank,
                                mesh.pipe_rank),
@@ -304,7 +353,7 @@ def phase_11_gate_cases(cases, model_name, layers, B, accum, seed, steps):
     from clip_finegrained_alignment_tpu_torch.train import engine
     kept = (engine.before_pipeline, engine.before_gather,
             sequence.gather_tokens, ShardLayout.reduce_sums,
-            ShardLayout.grad_norm)
+            ShardLayout.grad_norm, tm._quantized)
     out = []
     for fault, modes, dtype in cases:
         try:
@@ -313,7 +362,7 @@ def phase_11_gate_cases(cases, model_name, layers, B, accum, seed, steps):
         finally:
             (engine.before_pipeline, engine.before_gather,
              sequence.gather_tokens, ShardLayout.reduce_sums,
-             ShardLayout.grad_norm) = kept
+             ShardLayout.grad_norm, tm._quantized) = kept
     return out
 
 

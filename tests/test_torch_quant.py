@@ -280,6 +280,9 @@ def _cuda_branch(monkeypatch):
                         counted(tq.COLS_KERNEL, tq.quant_cols_t_reference))
     monkeypatch.setattr(tq, "_launch_dequant",
                         counted(tq.DEQUANT_KERNEL, tq.dequant_reference))
+    for name in tq.SPLIT_KERNELS:
+        monkeypatch.setattr(tq, f"_launch_{name}",
+                            counted(name, getattr(tq, f"{name}_reference")))
 
 
 QUANT_KERNELS = (tq.ROWS_KERNEL, tq.COLS_KERNEL, tq.DEQUANT_KERNEL)
@@ -405,6 +408,301 @@ def test_launchers_hand_the_c_entries_their_operands(monkeypatch):
     with pytest.raises(ValueError):
         tq._launch_dequant(acc.float(), s, sc, None, torch.float32)
     assert _counts() == (1, 1, 1)
+
+
+def test_split_launchers_hand_the_c_entries_their_operands(monkeypatch):
+    """The split passes' launchers: the absmax entries write an fp32
+    vector (the column one with ceil(R / COL_CHUNK) partial rows, none for
+    one chunk), the quantize entries take the absmax and write what the
+    fused ones write; each counts one launch and refuses an absmax of the
+    wrong length or type before building anything."""
+    calls = {}
+
+    class Entry:
+        argtypes = restype = None
+
+        def __init__(self, name):
+            self.name = name
+
+        def __call__(self, *args):
+            calls[self.name] = args
+            return 0
+
+    lib = type("Lib", (), {f"cfa_{n}": Entry(n)
+                           for n in tq.SPLIT_KERNELS})()
+    monkeypatch.setattr(_build, "load", lambda name: lib)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d: type("Stream", (), {"cuda_stream": 7})())
+    _build.reset_launch_counts()
+    x = torch.randn(300, 40).to(torch.bfloat16)
+    a = tq._launch_absmax_rows(x)
+    assert calls["absmax_rows"] == (x.data_ptr(), a.data_ptr(), 300, 40, 1,
+                                    7)
+    assert a.shape == (300,) and a.dtype == torch.float32
+    ac = tq._launch_absmax_cols(x.float())
+    args = calls["absmax_cols"]
+    assert args[1] == ac.data_ptr() and args[2] is not None
+    assert args[3:] == (300, 40, tq.COL_CHUNK, 0, 7) and ac.shape == (40,)
+    tq._launch_absmax_cols(x[:tq.COL_CHUNK])
+    assert calls["absmax_cols"][2] is None     # one chunk: no partials
+    q, sc = tq._launch_quant_rows_given(x, a)
+    assert calls["quant_rows_given"] == (x.data_ptr(), a.data_ptr(),
+                                         q.data_ptr(), sc.data_ptr(), 300,
+                                         40, 1, 7)
+    assert q.shape == (300, 40) and sc.shape == (300,)
+    qt, sc = tq._launch_quant_cols_t_given(x, ac)
+    args = calls["quant_cols_t_given"]
+    assert args[:4] == (x.data_ptr(), ac.data_ptr(), qt.data_ptr(),
+                        sc.data_ptr())
+    assert args[4:] == (300, 40, 304, 1, 7) and qt.shape == (40, 304)
+    counts = _build.launch_counts()
+    assert [counts[n] for n in tq.SPLIT_KERNELS] == [1, 2, 1, 1]
+    for name in tq.SPLIT_KERNELS:
+        entry = getattr(lib, f"cfa_{name}")
+        assert len(entry.argtypes) == len(calls[name]), name
+    for bad in (a[:40].double(), a):       # wrong type; wrong length
+        with pytest.raises(ValueError, match="absmax"):
+            tq._launch_quant_cols_t_given(x, bad)
+    with pytest.raises(ValueError, match="absmax"):
+        tq._launch_quant_rows_given(x, ac)
+    assert [counts[n] for n in tq.SPLIT_KERNELS] == [1, 2, 1, 1]
+
+
+# ---------------------------------------------------------------------------
+# A dimension split over ranks: the split passes and the groups
+# ---------------------------------------------------------------------------
+
+def _nasty(seed, R, C, dtype):
+    """[R, C] of ``dtype``: normal values, a zero row and a zero column,
+    a row holding a NaN and a column holding an inf."""
+    x = torch.from_numpy(np.random.default_rng(seed).normal(
+        size=(R, C)).astype(np.float32) * 3).to(dtype)
+    x[R // 2] = 0
+    x[:, C // 3] = 0
+    x[R // 3, 1] = float("nan")
+    x[R - 1, C - 1] = float("inf")
+    return x
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("R,C", [(394, 768), (37, 24), (300, 13), (1, 8)])
+def test_split_passes_equal_the_fused_ones(R, C, dtype):
+    """Reduce, then quantize with the absmax given: bit for bit the fused
+    pass (int8 values and scales; NaN and inf rows and columns as the
+    fused pass leaves them), and the absmax vectors are those the fused
+    passes' scales come from."""
+    x = _nasty(R + C, R, C, dtype)
+    ar, ac = tq.absmax_rows(x), tq.absmax_cols(x)
+    for (q1, s1), (q2, s2) in (
+            (tq.quant_rows(x), tq.quant_rows_given(x, ar)),
+            (tq.quant_cols_t(x), tq.quant_cols_t_given(x, ac))):
+        assert torch.equal(q1, q2)
+        assert torch.equal(s1, s2) or (
+            torch.equal(s1.isnan(), s2.isnan())
+            and torch.equal(s1.nan_to_num(), s2.nan_to_num()))
+    want = torch.maximum(ar, torch.full_like(ar, tq.SCALE_FLOOR))
+    got = tq.quant_rows(x)[1] * tq.QMAX
+    assert torch.allclose(got, want, rtol=1e-6, equal_nan=True)
+
+
+class _ThreadGroup:
+    """A process group of ``n`` threads in one process (``rank`` set per
+    thread) for :class:`_ThreadDist`."""
+
+    def __init__(self, n):
+        import threading
+        self.n = n
+        self.barrier = threading.Barrier(n)
+        self.slots = [None] * n
+        self.local = threading.local()
+        self.calls = []
+
+
+class _ThreadDist:
+    """The few ``torch.distributed`` calls ``parallel/collectives.py``
+    makes for the int8 products, over a :class:`_ThreadGroup`: all_reduce
+    SUM and MAX, elementwise over the threads' tensors of one dtype."""
+
+    class ReduceOp:
+        SUM, MAX = "sum", "max"
+
+    @staticmethod
+    def get_backend(group=None):
+        return "gloo"
+
+    @staticmethod
+    def get_world_size(group=None):
+        return group.n
+
+    @staticmethod
+    def all_reduce(t, op, group):
+        rank = group.local.rank
+        group.slots[rank] = t.clone()
+        if rank == 0:
+            group.calls.append((op, t.dtype, tuple(t.shape)))
+        group.barrier.wait()
+        stack = torch.stack(group.slots)
+        out = stack.amax(0) if op == "max" else stack.sum(0)
+        group.barrier.wait()
+        t.copy_(out)
+
+
+def _on_threads(monkeypatch, n, fn):
+    """``fn(rank, group)`` on n threads sharing one :class:`_ThreadGroup`;
+    their results by rank."""
+    import threading
+    from clip_finegrained_alignment_tpu_torch.parallel import collectives
+    monkeypatch.setattr(collectives, "dist", _ThreadDist)
+    group, out, errors = _ThreadGroup(n), [None] * n, []
+
+    def run(rank):
+        group.local.rank = rank
+        try:
+            out[rank] = fn(rank, group)
+        except BaseException as e:       # re-raised below
+            errors.append(e)
+            group.barrier.abort()
+    threads = [threading.Thread(target=run, args=(r,)) for r in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    return out, group
+
+
+def _linear_grads(x, w, b, g, dtype, mode, groups=tq.LOCAL):
+    x, w = (t.clone().requires_grad_() for t in (x, w))
+    b = None if b is None else b.clone().requires_grad_()
+    y = tq.quant_linear(x, w, b, dtype, mode, groups)
+    y.backward(g)
+    return y.detach(), x.grad, w.grad, None if b is None else b.grad
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_split_products_with_global_scales_are_the_whole_one(dtype,
+                                                             monkeypatch):
+    """A product split in two over a group of two threads
+    (``parallel/collectives.py`` on a stand-in for ``torch.distributed``),
+    as tensor parallelism splits it: the row-parallel forward (K split;
+    both operands' absmax MAXed, the int32 sums summed, the bias added
+    once) and the column-parallel dgrad (N split) equal the one-process
+    product bit for bit, with one MAX all-reduce (both operands' absmax
+    in one int32 vector) and one int32 SUM each; the int8 wgrad over rows
+    split in two (global negatives) takes the whole rows' scales, so the
+    ranks' dW sum to the whole dW within fp32 rounding. With every scale
+    local, none of the three holds."""
+    M, K, N = 64, 48, 40
+    rng = np.random.default_rng(0)
+    x, w, g = (torch.from_numpy(rng.normal(size=s).astype(np.float32))
+               for s in ((M, K), (N, K), (M, N)))
+    b = torch.from_numpy(rng.normal(size=N).astype(np.float32))
+    g = g.to(dtype)
+    y, dx, dw, db = _linear_grads(x, w, b, g, dtype, "int8")
+
+    def row_parallel(local):
+        def run(rank, group):
+            part = slice(rank * K // 2, (rank + 1) * K // 2)
+            return _linear_grads(x[:, part], w[:, part], b, g, dtype,
+                                 "int8", tq.Groups(k=None if local
+                                                   else group))
+        return _on_threads(monkeypatch, 2, run)
+
+    (r0, r1), group = row_parallel(False)
+    assert torch.equal(r0[0], y) and torch.equal(r1[0], y)
+    assert torch.equal(torch.cat([r0[1], r1[1]], 1), dx)
+    assert group.calls[:2] == [("max", torch.int32, (M + N,)),
+                               ("sum", torch.int32, (M, N))]
+    (l0, l1), _ = row_parallel(True)
+    assert not torch.equal((l0[0].float() + l1[0].float() - b).to(dtype), y)
+
+    def column_parallel(local):
+        def run(rank, group):
+            part = slice(rank * N // 2, (rank + 1) * N // 2)
+            return _linear_grads(x, w[part], b[part], g[:, part], dtype,
+                                 "int8", tq.Groups(n=None if local
+                                                   else group))
+        return _on_threads(monkeypatch, 2, run)
+
+    (c0, c1), group = column_parallel(False)
+    assert torch.equal(torch.cat([c0[0], c1[0]], 1), y)
+    assert torch.equal(c0[1], dx) and torch.equal(c1[1], dx)
+    assert torch.equal(torch.cat([c0[2], c1[2]]), dw)
+    assert group.calls == [("max", torch.int32, (M + K,)),
+                           ("sum", torch.int32, (M, K))]
+    (k0, k1), _ = column_parallel(True)
+    assert not torch.equal((k0[1].float() + k1[1].float()).to(dtype), dx)
+
+    def rows_split(local):
+        def run(rank, group):
+            part = slice(rank * M // 2, (rank + 1) * M // 2)
+            return _linear_grads(x[part], w, b, g[part], dtype, "int8",
+                                 tq.Groups(m=None if local else group))
+        return _on_threads(monkeypatch, 2, run)
+
+    (m0, m1), group = rows_split(False)
+    assert group.calls == [("max", torch.int32, (N + K,))]
+    ag, ax = (tq.absmax_cols(t.to(dtype)) for t in (g, x))
+    for rank, (m_dw, n_dw) in enumerate(zip(
+            (m0[2], m1[2]), (r[2] for r in rows_split(True)[0]))):
+        part = slice(rank * M // 2, (rank + 1) * M // 2)
+        gqt, sg = tq.quant_cols_t_given(g[part], ag)
+        xqt, sx = tq.quant_cols_t_given(x[part].to(dtype), ax)
+        want = tq.dequant(tq.int_mm(gqt, xqt.t()), sg, sx, None,
+                          dtype).float()
+        assert torch.equal(m_dw, want), rank
+        assert not torch.equal(n_dw, want), rank
+    if dtype == torch.float32:
+        assert (m0[2] + m1[2] - dw).abs().max() <= 1e-6 * dw.abs().max()
+
+
+def test_absmax_all_reduce_keeps_a_nan_and_every_value(monkeypatch):
+    """``all_reduce_absmax``'s MAX on the bits: a NaN on any rank is a NaN
+    on every rank, +inf beats every finite value, and finite values come
+    back bit for bit as the larger one."""
+    from clip_finegrained_alignment_tpu_torch.parallel.collectives import \
+        all_reduce_absmax
+    a = [torch.tensor([0.0, 1.5, float("nan"), 3.0, float("inf"), 1e-30]),
+         torch.tensor([2.0, 1.25, 5.0, float("nan"), 7.0, 2e-30])]
+    b = [torch.tensor([1.0, 2.0]), torch.tensor([3.0, 0.5])]
+    out, _ = _on_threads(monkeypatch, 2,
+                         lambda r, grp: all_reduce_absmax([a[r], b[r]], grp))
+    for got_a, got_b in out:
+        assert got_a[:2].tolist() == [2.0, 1.5]
+        assert got_a[2].isnan() and got_a[3].isnan()
+        assert got_a[4] == float("inf")
+        assert got_a[5] == torch.tensor(2e-30)
+        assert got_b.tolist() == [3.0, 2.0]
+
+
+def test_split_path_launches_the_split_passes(monkeypatch):
+    """On the CUDA branch a split dimension takes the split passes in
+    place of the fused ones: a row-parallel int8 linear's forward two
+    absmax_rows and two quant_rows_given, its dgrad (local) the fused
+    passes, its int8 wgrad over split rows two absmax_cols and two
+    quant_cols_t_given; one dequant each product."""
+    _cuda_branch(monkeypatch)
+    x, w, g = _operands(5, 40, 32, 24)
+
+    def run(rank, group):
+        _build.reset_launch_counts()
+        tq.quant_linear(torch.from_numpy(x).requires_grad_(),
+                        torch.from_numpy(w.T.copy()).requires_grad_(),
+                        None, torch.float32, "int8",
+                        tq.Groups(k=group, m=group)).backward(
+            torch.from_numpy(g))
+        return _build.launch_counts()
+    counts, _ = _on_threads(monkeypatch, 1, run)
+    c = counts[0]
+    assert [c[n] for n in tq.SPLIT_KERNELS] == [2, 2, 2, 2]
+    assert _counts_of(c) == (1, 1, 3)
+
+
+def _counts_of(c):
+    return tuple(c[n] for n in QUANT_KERNELS)
 
 
 def test_microbenchmark_runs_on_the_cpu(capsys):
