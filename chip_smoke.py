@@ -65,7 +65,8 @@ Phases, each of which fails the script (non-zero exit, no "ok" line):
    unit-norm rows, the forward kernel's launch count must equal the encoder
    layers the bucket forwards ran, and the served embeddings must match
    the port run in fp32 on the CPU;
-5. device rates of ``CLIPInference`` at bucket 64 and the HTTP p50;
+5. device rates of ``CLIPInference`` at bucket 64
+   (``perf/serve_bench.py``'s lines) and the HTTP p50;
 6. the train main path: SPARC + AdamSPD train steps on ViT-B/16 at full
    width (random weights from the same seed), microbatch 32 x accum 8,
    inverse temperature 0.07, as ``bench.py`` runs the JAX package. One step
@@ -231,14 +232,32 @@ Phases, each of which fails the script (non-zero exit, no "ok" line):
    heads, B/4 rows) against their plain versions, bf16 and fp32, with
    their times.
 
+Phase "tools" (after 6c) runs the port's measuring tools (``perf/``), each
+line finite and naming the card: ``perf/bench.py`` at ViT-B/32 128 x 4 and
+with the count loss (ViT-B/16 32 x 8), ``TOOLS_STEPS`` steps each, their
+launches exact (the warm-up and the steps: every microbatch's layers,
+forward and backward, and the SPARC pooling); ``perf/serve_http_bench.py``
+at 8 clients x 5 requests (#1 alone launched, every request answered, the
+batches filled); ``perf/sparc_microbench.py`` at B=32 and 256 (exact
+launches). Its ViT-B/16 SPARC 32 x 8 line is phase 6's timed steps
+(``perf/bench.py``'s ``time_steps`` and ``result_line``), its
+``serve_bench`` lines phase 5's device rates, and its ``profile_step`` and
+``trace_report`` phase 6's profile: one step in ``perf/profile_step.py``'s
+window, its Chrome trace written, timed and read back by
+``perf/trace_report.py`` (the file's device time must equal the live
+rows'). Phase 3 holds #1 and #2 (bf16) and #3 and #4 at those models'
+train microbatches too (``TOOLS_ATTENTION_SHAPES``, ``SPARC_SHAPES``:
+ViT-B/32 at B=128, ViT-L/14 at B=32 with P=257, D=768).
+
 The last lines are the kernels' JSON line (``launches_by_path`` has
 ``serve``, ``train``, ``long``, ``train_cli`` (runs A-D), ``eval``,
 ``gradcache`` (phase 6b's counted steps), ``train_cli_gradcache`` (run E),
 ``train_cli_interop`` (run F), ``eval_openai``, ``train_quant`` (phase
 6c's counted steps), ``train_cli_quant`` (run G), ``data_parallel``
 (phase 10: both ranks' counted steps, run H, its resume and both
-evaluations) and ``model_parallel`` (phase 11: every rank's counted
-steps, runs I, J and K and the resumes); the forward kernel's
+evaluations), ``model_parallel`` (phase 11: every rank's counted
+steps, runs I, J and K and the resumes) and ``tools`` (the tools phase's
+runs); the forward kernel's
 entry also carries its ``fp32_eval`` rows, #1 and #2 their
 ``model_parallel_shapes`` rows, the backward its
 ``fp32_train`` rows, the SPARC kernels' their ``gradcache_pool`` row at
@@ -267,6 +286,14 @@ import tempfile
 import threading
 import time
 from http.client import HTTPConnection
+
+# The port's own timers and the card's name line (the measuring tools'
+# shared helpers); without the package beside this script, it stops here.
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from clip_finegrained_alignment_tpu_torch.perf._measure import (  # noqa: E402
+    cuda_time_ms, gpu_line, graph_ms)
+from clip_finegrained_alignment_tpu_torch.perf.bench import \
+    bench_batch  # noqa: E402
 
 # Peak rates of one H100 SXM (NVIDIA data sheet, dense, at 700 W).
 HBM_BYTES_PER_S = 3.35e12
@@ -310,6 +337,8 @@ SPARC_MAX_NEAR_SHARE = 0.01
 # (relative: a zero row's is 1e12) against the plain version's.
 SPARC_RESIDUAL_TOL = 1e-5
 TRAIN_B, TRAIN_ACCUM = 32, 8
+# Steps each perf/bench.py run of the tools phase times (phase 6's too).
+TOOLS_STEPS = 3
 # Train step, one microbatch of 4 pairs: the card in bf16 against the port
 # in fp32 on the CPU, same weights and batch. The first readings on an
 # H100 (PERF.md): loss relative difference 3.3e-7, gradient norm 4.2e-4,
@@ -659,14 +688,6 @@ def log(*args) -> None:
     print(*args, flush=True)
 
 
-def gpu_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
-
-
 def kernel_name(mangled: str) -> str:
     """``attention_fwd_mma<64>`` from the mangled name of a kernel in an
     anonymous namespace of ``csrc/<file>.cu``."""
@@ -732,57 +753,6 @@ def sass_count(lib, *words) -> dict:
     return out
 
 
-def cuda_time_ms(fn, reps: int = 20, warmup: int = 3,
-                 windows: int = 5) -> float:
-    """Median over ``windows`` of the mean time of ``reps`` back-to-back
-    calls, from CUDA events, after ``warmup`` calls."""
-    import torch
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(windows):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end) / reps)
-    return statistics.median(times)
-
-
-def graph_ms(fn, reps: int = 20, windows: int = 5) -> float:
-    """The card's time per call of ``fn`` without the host's launch cost:
-    ``reps`` back-to-back calls captured in one CUDA graph, the median over
-    ``windows`` replays (CUDA events) divided by ``reps``. Where the host
-    takes longer to launch a call than the card to run it,
-    :func:`cuda_time_ms` measures the host; this measures the kernels."""
-    import torch
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):       # warm-up off the default stream
-        for _ in range(3):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(reps):
-            fn()
-    graph.replay()
-    times = []
-    for _ in range(windows):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        graph.replay()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end) / reps)
-    del graph
-    return statistics.median(times)
-
-
 # ---------------------------------------------------------------------------
 # Phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
@@ -812,6 +782,14 @@ MP_ATTENTION_SHAPES = [  # (what, B, S, H, Dh, causal)
     ("tp2 text (causal)", 32, 77, 4, 64, True),
     ("pp microbatch ViT-B/16 vision", 8, 197, 12, 64, False),
     ("pp microbatch text (causal)", 8, 77, 8, 64, True),
+]
+# #1 and #2 at the train microbatches of the tools phase's other models
+# (perf/bench.py's regime, bf16): ViT-B/32 at 128 and ViT-L/14 at 32.
+TOOLS_ATTENTION_SHAPES = [  # (what, B, S, H, Dh, causal)
+    ("ViT-B/32 vision (train)", 128, 50, 12, 64, False),
+    ("ViT-B/32 text (train, causal)", 128, 77, 8, 64, True),
+    ("ViT-L/14 vision (train)", 32, 257, 16, 64, False),
+    ("ViT-L/14 text (train, causal)", 32, 77, 12, 64, True),
 ]
 
 
@@ -974,20 +952,21 @@ def check_attention(results: dict) -> dict:
                 and r["B"] == BUCKET and r["dtype"] == "bfloat16")
 
 
-def check_attention_mp(results: dict) -> list:
-    """#1 and #2 at phase 11's shapes (``MP_ATTENTION_SHAPES``), bf16 and
-    fp32: the forward's output and lse and the backward's dq, dk, dv (fed
-    the forward kernel's lse) against the plain versions, with the
-    forward's and the backward's times beside the plain versions', the
-    library's and their bounds."""
+def check_attention_at(results: dict, key: str, shapes, dtypes,
+                       seed: int) -> list:
+    """#1 and #2 at ``shapes`` (what, B, S, H, Dh, causal) in ``dtypes``:
+    the forward's output and lse and the backward's dq, dk, dv (fed the
+    forward kernel's lse) against the plain versions, with the forward's
+    and the backward's times beside the plain versions', the library's and
+    their bounds; the rows go to ``results[key]``."""
     import torch
     import torch.nn.functional as F
     from clip_finegrained_alignment_tpu_torch.ops import attention as ta
 
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     rows = []
-    for what, B, S, H, D, causal in MP_ATTENTION_SHAPES:
-        for dtype in (torch.bfloat16, torch.float32):
+    for what, B, S, H, D, causal in shapes:
+        for dtype in (getattr(torch, d) for d in dtypes):
             dname = str(dtype).split(".")[-1]
             q, k, v, do = (torch.randn(B, S, H, D, device="cuda",
                                        generator=gen).to(dtype)
@@ -1034,7 +1013,7 @@ def check_attention_mp(results: dict) -> list:
                            **fused_attention_bound_ms(
                                B, S, H, D, dname, causal, tensors=7,
                                products=5)}}
-            log("attention model-parallel shape", json.dumps(row))
+            log(f"attention {key.replace('_', ' ')} shape", json.dumps(row))
             check(err <= KERNEL_TOL[dname] and lse_over <= 1.0
                   and bool(torch.isfinite(out).all()),
                   f"attention {what} {dname}: forward err {err}, lse "
@@ -1043,7 +1022,7 @@ def check_attention_mp(results: dict) -> list:
                   and all(bool(torch.isfinite(a).all()) for a in got),
                   f"attention backward {what} {dname}: {excess}")
             rows.append(row)
-    results["attention_model_parallel"] = rows
+    results[key] = rows
     return rows
 
 
@@ -1250,31 +1229,39 @@ def sparc_near_rows(v, l, mask, tau):
     return near & (mask > 0)
 
 
+SPARC_SHAPES = [  # (what, B, P, D, edge batch)
+    ("ViT-B/16", TRAIN_B, 197, 512, False),
+    ("ViT-B/32", TRAIN_B, 50, 512, False),
+    ("ViT-B/16 edge batch", 4, 197, 512, True),
+    # The tools phase's train microbatches (perf/bench.py's regime).
+    ("ViT-B/32 (train, B=128)", 128, 50, 512, False),
+    ("ViT-L/14 (train)", TRAIN_B, 257, 768, False),
+]
+
+
 def check_sparc(results: dict) -> tuple:
     """Both SPARC kernels at the train shapes and on an edge batch."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
     rows = {"fwd": [], "bwd": []}
-    for what, B, P, edge in (("ViT-B/16", TRAIN_B, 197, False),
-                             ("ViT-B/32", TRAIN_B, 50, False),
-                             ("ViT-B/16 edge batch", 4, 197, True)):
-        fwd, bwd = sparc_case(gen, what, B, P, edge, timed=not edge)
+    for what, B, P, D, edge in SPARC_SHAPES:
+        fwd, bwd = sparc_case(gen, what, B, P, edge, timed=not edge, D=D)
         rows["fwd"].append(fwd)
         rows["bwd"].append(bwd)
     results["sparc"] = rows
     return rows["fwd"][0], rows["bwd"][0]
 
 
-def sparc_case(gen, what, B, P, edge=False, timed=True) -> tuple:
-    """Both SPARC kernels at [B, T=77, P, D=512] against their plain
+def sparc_case(gen, what, B, P, edge=False, timed=True, D=512) -> tuple:
+    """Both SPARC kernels at [B, T=77, P, D] against their plain
     versions (SPARC_TOL, SPARC_RESIDUAL_TOL), the forward's saved sim, rl,
     rv fed to the backward; with ``timed`` their ms, graph ms, plain ms and
     bounds. Returns the forward's and the backward's rows."""
     import torch
     from clip_finegrained_alignment_tpu_torch.ops import sparc_kernel as sk
 
-    T, D, tau = 77, 512, 0.5
+    T, tau = 77, 0.5
     v, l, mask, g = sparc_inputs(gen, B, T, P, D, edge)
     near = sparc_near_rows(v, l, mask, tau)
     keep_row = ~near[:, :, None]
@@ -1702,29 +1689,28 @@ def serve_main_path(results: dict) -> dict:
 # ---------------------------------------------------------------------------
 
 def measure_rates(clip, port, cfg, images) -> dict:
+    """The device rates of the server's ``CLIPInference`` at its bucket
+    (``perf/serve_bench.py``'s lines and inputs), the host-clock rate, a
+    bucket forward's device time by kernel and the HTTP p50."""
     import numpy as np
     import torch
-    from clip_finegrained_alignment_tpu_torch.utils import flops
+    from clip_finegrained_alignment_tpu_torch.perf import serve_bench
 
     inf = clip.inference
-    rng = np.random.default_rng(SEED + 1)
-    S, T = cfg.vision.image_size, cfg.text.max_position_embeddings
-    pix = torch.from_numpy(rng.integers(0, 256, size=(BUCKET, S, S, 3))
-                           .astype(np.uint8)).cuda()
-    ids_np = np.asarray(clip.tok([f"caption number {i}" for i in
-                                  range(BUCKET)], T), np.int32)
-    ids = torch.from_numpy(ids_np).cuda()
-    img_ms = cuda_time_ms(lambda: inf.embed_images_device(pix), reps=10)
-    txt_ms = cuda_time_ms(lambda: inf.embed_texts_device(ids), reps=10)
+    S = cfg.vision.image_size
+    pix, ids = (torch.from_numpy(x).cuda()
+                for x in serve_bench.inputs(cfg, BUCKET, SEED + 1))
+    lines, _ = serve_bench.measure(inf, pix, ids, 20, "vitb16")
+    img_ms, txt_ms = (line["ms_per_batch"] for line in lines)
     out = {
+        "serve_bench": lines,
         "image_batch_ms": img_ms, "text_batch_ms": txt_ms,
         "images_per_s": BUCKET / img_ms * 1e3,
         "texts_per_s": BUCKET / txt_ms * 1e3,
-        "image_model_flops_per_s":
-            BUCKET * flops.image_forward_flops(cfg) / img_ms * 1e3,
-        "text_model_flops_per_s":
-            BUCKET * flops.text_forward_flops(cfg) / txt_ms * 1e3,
+        "image_model_flops_per_s": lines[0]["model_tflops_per_s"] * 1e12,
+        "text_model_flops_per_s": lines[1]["model_tflops_per_s"] * 1e12,
     }
+    rng = np.random.default_rng(SEED + 1)
     # Host clock, upload and download included, through CLIPInference.
     host_pix = rng.integers(0, 256, size=(BUCKET, S, S, 3)).astype(np.uint8)
     inf.embed_images(host_pix)
@@ -1763,37 +1749,48 @@ def measure_rates(clip, port, cfg, images) -> dict:
 
 def kernel_table(run) -> dict:
     """Device time by kernel over one call of ``run`` (``torch.profiler``):
-    the total and the top rows; empty where the profiler reports no device
-    time. Read from the trace's raw records
-    (``perf/trace_read.py::device_rows``: kernels only, ``key_averages()``
-    takes ~20 s for a train step's trace)."""
+    :func:`profile_table` of its trace."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-
-    from clip_finegrained_alignment_tpu_torch.perf.trace_read import \
-        device_rows
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         run()
         torch.cuda.synchronize()
+    return profile_table(prof)
+
+
+def profile_table(prof, steps: int = 1) -> dict:
+    """A finished profiler's device time a step: the total, the top rows
+    by name, ``perf/trace_report.py``'s classes, and the port's own
+    kernels by class wherever they rank, with the launches the trace holds
+    (set beside the launch counters, they show whether the trace kept
+    every record); empty where the profiler reports no device time. Read
+    from the trace's raw records (``perf/trace_read.py::device_rows``:
+    ``key_averages()`` takes ~20 s for a train step's trace)."""
+    from clip_finegrained_alignment_tpu_torch.perf.trace_read import \
+        device_rows
+    from clip_finegrained_alignment_tpu_torch.perf.trace_report import (
+        PORT_KERNEL, class_table)
+
     rows = device_rows(prof)
     total = sum(r[0] for r in rows)
-    # The port's own kernels by name, wherever they rank, with the
-    # launches the trace holds (set beside the launch counters, they show
-    # whether the trace kept every record).
-    port, calls = {}, {}
-    for us, k, c in rows:
-        m = re.search(r"::((?:attention|sparc|flash)_\w+)", k)
-        if m:
-            port[m.group(1)] = port.get(m.group(1), 0.0) + us / 1e3
-            calls[m.group(1)] = calls.get(m.group(1), 0) + c
-    return {"device_ms": total / 1e3, "kernel_calls": sum(r[2] for r in rows),
-            "top": [{"kernel": k[:90], "ms": us / 1e3, "calls": c,
+    table = class_table(rows, steps)
+    port = [c for c in table["classes"]
+            if PORT_KERNEL.search("::" + c["class"])]
+    return {"device_ms": total / 1e3 / steps,
+            "kernel_calls": sum(r[2] for r in rows) // steps,
+            "top": [{"kernel": k[:90], "ms": us / 1e3 / steps,
+                     "calls": c // steps,
                      "share": us / total if total else None}
                     for us, k, c in rows[:12]],
-            "port_kernels_ms": port, "port_kernels_calls": calls}
+            "classes": [{k: c[k] for k in ("class", "ms_per_step",
+                                           "launches_per_step")}
+                        for c in table["classes"][:16]],
+            "port_kernels_ms": {c["class"]: c["ms_per_step"] for c in port},
+            "port_kernels_calls": {c["class"]: c["launches_per_step"]
+                                   for c in port}}
 
 
 def profile_forward(inf, pix, ids) -> dict:
@@ -1811,21 +1808,6 @@ def profile_forward(inf, pix, ids) -> dict:
 # ---------------------------------------------------------------------------
 # Phase 6: the train main path
 # ---------------------------------------------------------------------------
-
-def train_batch(cfg, accum, B, seed):
-    """``bench.py``'s batch: normal pixels [accum, B, S, S, 3] fp32 and
-    random ids with EOS last, made with numpy from ``seed``."""
-    import numpy as np
-    rng = np.random.default_rng(seed)
-    v, t = cfg.vision, cfg.text
-    ids = rng.integers(1, t.vocab_size - 2,
-                       size=(accum, B, t.max_position_embeddings)
-                       ).astype(np.int32)
-    ids[..., -1] = t.eos_token_id
-    pix = rng.normal(size=(accum, B, v.image_size, v.image_size, 3)
-                     ).astype(np.float32)
-    return {"pixel_values": pix, "input_ids": ids}
-
 
 def grad_triplet(model, losses) -> tuple:
     """(loss, gradient norm in float64, {name: fp32 CPU gradient}) of what
@@ -1928,6 +1910,9 @@ def train_main_path(results: dict) -> dict:
         make_optimizer
     from clip_finegrained_alignment_tpu_torch.train.engine import (
         accumulate_grads, make_train_step)
+    from clip_finegrained_alignment_tpu_torch.perf import (bench,
+                                                           profile_step,
+                                                           trace_report)
     from clip_finegrained_alignment_tpu_torch.utils import flops
 
     cfg = CLIPConfig.vit_b16()
@@ -1936,7 +1921,7 @@ def train_main_path(results: dict) -> dict:
                        batch_size=TRAIN_B,
                        gradient_accumulation_steps=TRAIN_ACCUM, use_amp=True)
     sd = convert.state_dict_from_jax(convert.random_params(cfg, SEED), cfg)
-    host_batch = train_batch(cfg, TRAIN_ACCUM, TRAIN_B, SEED)
+    host_batch = bench_batch(cfg, TRAIN_ACCUM, TRAIN_B, "sparc", SEED)
     out = {"config": {"model": "ViT-B/16", "loss": "sparc",
                       "optimizer": "adamspd", "microbatch": TRAIN_B,
                       "accum": TRAIN_ACCUM, "inverse_temperature": 0.07,
@@ -1978,21 +1963,18 @@ def train_main_path(results: dict) -> dict:
         check(not torch.equal(first[n], params[n].detach()),
               f"train steps left {n} unchanged")
 
-    # Timed steps: CUDA events around each, the metrics read after it.
+    # Timed steps: perf/bench.py's (three chained steps on the host clock,
+    # to the device's last result), its JSON line the tools phase's B/16.
     torch.cuda.reset_peak_memory_stats()
-    times = []
-    for i in range(3):
-        t0 = torch.cuda.Event(enable_timing=True)
-        t1 = torch.cuda.Event(enable_timing=True)
-        t0.record()
-        m = step(batch)
-        t1.record()
-        torch.cuda.synchronize()
-        times.append(t0.elapsed_time(t1))
-        steps.append({k: x.item() for k, x in m.items()})
-        check(all(map(math.isfinite, steps[-1].values())),
-              f"train step {len(steps) - 1}: non-finite metrics")
-    step_ms = statistics.median(times)
+    seconds, last = bench.time_steps(step, batch, TOOLS_STEPS, "chain",
+                                     torch.device("cuda"))
+    bench_line = bench.result_line(
+        "ViT-B/16", "sparc", cfg, TRAIN_B * TRAIN_ACCUM, TOOLS_STEPS,
+        seconds, torch.device("cuda"),
+        peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    log("bench:", json.dumps(bench_line))
+    steps.append(last)
+    step_ms = bench_line["step_ms"]
     # One more step, split: forward + backward of the microbatches, then
     # the norm, clip and AdamSPD update (device events and host clock).
     marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
@@ -2015,15 +1997,39 @@ def train_main_path(results: dict) -> dict:
         "launches": launches, "expected_launches": expected,
         "losses": [s["total_loss"] for s in steps],
         "grad_norms": [s["grad_norm"] for s in steps],
-        "step_ms_each": times, "step_ms": step_ms,
-        "pairs_per_s": pairs / step_ms * 1e3,
+        "bench": bench_line, "step_ms": step_ms,
+        "pairs_per_s": bench_line["value"],
         "model_flops_per_step": flops_per_step,
-        "mfu_vs_989T_bf16": flops_per_step / (step_ms / 1e3) / PEAK_FLOPS[
-            "bfloat16"],
-        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "mfu_vs_989T_bf16": bench_line["mfu"],
+        "peak_memory_gb": bench_line["peak_memory_gb"],
         "split_step": split,
     })
-    out["profile"] = kernel_table(lambda: step(batch))
+    # One step traced by perf/profile_step.py's window, its Chrome trace
+    # written and read back by perf/trace_report.py (the tools phase's
+    # profile_step line).
+    trace_dir = tempfile.mkdtemp(prefix="cfa_profile_step_")
+    try:
+        timings = {}
+        prof = profile_step.window(step, batch, 1, torch.device("cuda"),
+                                   trace_dir, timings)
+        out["profile"] = profile_table(prof)
+        path = os.path.join(trace_dir, "trace.json")
+        t0 = time.perf_counter()
+        from_file = trace_report.class_table(trace_report.chrome_rows(path))
+        out["profile_step"] = {
+            "trace_bytes": os.path.getsize(path), **timings,
+            "read_file_s": time.perf_counter() - t0,
+            "device_ms_per_step": out["profile"]["device_ms"],
+            "file_device_ms_per_step": from_file["device_ms_per_step"],
+            "classes": out["profile"]["classes"], "gpu": gpu_line()}
+    finally:
+        shutil.rmtree(trace_dir, ignore_errors=True)
+    live, read = out["profile"]["device_ms"], from_file["device_ms_per_step"]
+    check(live > 0 and abs(read - live) <= 1e-4 * live,
+          f"the trace file's device time {read} ms != the profiler's {live}")
+    log(trace_report.format_table({"steps": 1, "device_ms_per_step":
+                                   out["profile"]["device_ms"],
+                                   "classes": out["profile"]["classes"]}))
     out["busy_share"] = out["profile"]["device_ms"] / step_ms
     out["gpu"] = gpu_line()
     log("train:", json.dumps({k: v for k, v in out.items()
@@ -2098,7 +2104,7 @@ def gradcache_path(results: dict) -> dict:
     model = tm.build_train_model(cfg, sd, device="cuda")
     opt = make_optimizer(plain_cfg, model.named_parameters())
     batch = {k: torch.from_numpy(x).cuda() for k, x in
-             train_batch(cfg, TRAIN_ACCUM, TRAIN_B, SEED).items()}
+             bench_batch(cfg, TRAIN_ACCUM, TRAIN_B, "sparc", SEED).items()}
     out["seconds"] = {}
     t_lap = [time.time()]
 
@@ -2206,8 +2212,8 @@ def gradcache_path(results: dict) -> dict:
     # shapes the steps above warmed).
     big_cfg = dataclasses.replace(gc_cfg,
                                   gradient_accumulation_steps=GC_LARGE_ACCUM)
-    big = {k: torch.from_numpy(x).cuda() for k, x in
-           train_batch(cfg, GC_LARGE_ACCUM, TRAIN_B, SEED + 1).items()}
+    big = {k: torch.from_numpy(x).cuda() for k, x in bench_batch(
+        cfg, GC_LARGE_ACCUM, TRAIN_B, "sparc", SEED + 1).items()}
     step = make_train_step(big_cfg, cfg, model, opt)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2267,7 +2273,7 @@ def gradcache_path(results: dict) -> dict:
     # step, from the same weights and batch.
     a, b = GC_F32_SHAPE
     f32 = {k: torch.from_numpy(x).cuda() for k, x in
-           train_batch(cfg, a, b, SEED + 2).items()}
+           bench_batch(cfg, a, b, "sparc", SEED + 2).items()}
     f32_cfg = dataclasses.replace(gc_cfg, use_amp=False, batch_size=b,
                                   gradient_accumulation_steps=a)
     del model, batch
@@ -2396,7 +2402,7 @@ def quant_train_path(results: dict) -> dict:
                        inverse_temperature=0.07, batch_size=TRAIN_B,
                        gradient_accumulation_steps=TRAIN_ACCUM, use_amp=True)
     sd = convert.state_dict_from_jax(convert.random_params(cfg, SEED), cfg)
-    host_batch = train_batch(cfg, TRAIN_ACCUM, TRAIN_B, SEED)
+    host_batch = bench_batch(cfg, TRAIN_ACCUM, TRAIN_B, "sparc", SEED)
     batch = {k: torch.from_numpy(x).cuda() for k, x in host_batch.items()}
     out = {"gpu": gpu_line(), "config": {
         "model": "ViT-B/16", "loss": "sparc", "optimizer": "adamspd",
@@ -2521,6 +2527,118 @@ def quant_train_path(results: dict) -> dict:
     results["quant_train"] = out
     return {"launches": {n: sum(launches[m][n] for m in QUANT_MODES)
                          for n in launches["none"]}}
+
+
+# ---------------------------------------------------------------------------
+# Phase "tools": the measuring tools (perf/)
+# ---------------------------------------------------------------------------
+
+def expected_bench_launches(cfg, loss: str, accum: int, steps: int) -> dict:
+    """``perf/bench.py``'s run: the warm-up and ``steps`` steps, each
+    microbatch a forward and a backward of every encoder layer (the count
+    loss's counterfactual captions one more text tower) and, under SPARC,
+    one pooling forward and backward."""
+    from clip_finegrained_alignment_tpu_torch.ops import _build
+    layers = cfg.vision.num_layers + cfg.text.num_layers * (
+        2 if loss == "count" else 1)
+    calls = (1 + steps) * accum
+    want = {name: 0 for name in _build.SOURCES}
+    want.update(attention_fwd=calls * layers, attention_bwd=calls * layers)
+    if loss == "sparc":
+        want.update(sparc_fwd=calls, sparc_bwd=calls)
+    return want
+
+
+def tools_path(results: dict) -> dict:
+    """The port's measuring tools on the card, each line finite and naming
+    the card: ``perf/bench.py`` at ViT-B/32 128 × 4 and with the count
+    loss (ViT-B/16 32 × 8), TOOLS_STEPS steps each (ViT-B/16 SPARC 32 × 8
+    is phase 6's line); ``perf/serve_http_bench.py`` at 8 clients × 5
+    requests; ``perf/sparc_microbench.py`` at B=32 and 256
+    (``perf/serve_bench.py`` at bucket 64 is phase 5's, ``profile_step``
+    and ``trace_report`` phase 6's). Each tool's launches counted on its
+    own: the bench runs' and the microbenchmark's exact, the HTTP bench's
+    #1 alone."""
+    import torch
+    from clip_finegrained_alignment_tpu_torch.config import CLIPConfig
+    from clip_finegrained_alignment_tpu_torch.ops import _build
+    from clip_finegrained_alignment_tpu_torch.perf import (bench,
+                                                           serve_http_bench,
+                                                           sparc_microbench)
+
+    card = gpu_line()
+    t0 = time.time()
+    out = {"bench": [results["train"]["bench"]],
+           "serve_bench": results["rates"]["serve_bench"],
+           "profile_step": results["train"]["profile_step"], "launches": {},
+           "seconds_by_run": {}}
+    total = {name: 0 for name in _build.SOURCES}
+
+    def counted(name, fn, want=None):
+        _build.reset_launch_counts()
+        t = time.time()
+        res = fn()
+        out["seconds_by_run"][name] = time.time() - t
+        got = _build.launch_counts()
+        out["launches"][name] = got
+        for k, n in got.items():
+            total[k] += n
+        if want is not None:
+            check(got == want, f"tools {name}: launches {got} != {want}")
+        return res
+
+    for model, loss in (("ViT-B/32", "sparc"), ("ViT-B/16", "count")):
+        B, accum = bench.regime(model, loss)
+        line = counted(f"bench {model} {loss}", lambda: bench.run(
+            model, loss, steps=TOOLS_STEPS, device="cuda"),
+            expected_bench_launches(CLIPConfig.from_name(model), loss,
+                                    accum, TOOLS_STEPS))
+        log("bench:", json.dumps(line))
+        out["bench"].append(line)
+        torch.cuda.empty_cache()
+    http = counted("serve_http_bench", lambda: serve_http_bench.run(
+        8, 5, "ViT-B/32", "cuda"))
+    got = out["launches"]["serve_http_bench"]
+    check(got["attention_fwd"] > 0
+          and not any(n for k, n in got.items() if k != "attention_fwd"),
+          f"tools serve_http_bench: launches {got}, #1 alone expected")
+    out["serve_http_bench"] = http
+    iters = 50
+    micro = {"sparc_fwd": 2 * (1 + iters) + 1, "sparc_bwd": 1 + iters}
+    out["sparc_microbench"] = [
+        line for B in (TRAIN_B, 256)
+        for line in counted(f"sparc_microbench B={B}",
+                            lambda B=B: sparc_microbench.run(B, iters,
+                                                             "cuda"),
+                            {name: micro.get(name, 0)
+                             for name in _build.SOURCES})]
+    torch.cuda.empty_cache()
+
+    def numbers(x):
+        if isinstance(x, dict):
+            return [v for y in x.values() for v in numbers(y)]
+        if isinstance(x, list):
+            return [v for y in x for v in numbers(y)]
+        return [x] if isinstance(x, (int, float)) \
+            and not isinstance(x, bool) else []
+    lines = (out["bench"] + out["serve_bench"] + out["sparc_microbench"]
+             + [http, out["profile_step"]])
+    for line in lines:
+        check(all(map(math.isfinite, numbers(line))),
+              f"tools: a number is not finite in {line}")
+        check(line["gpu"] == card, f"tools: {line} does not name the card")
+    for line in out["bench"]:
+        check(line["value"] > 0 and 0 < line["mfu"] < 1,
+              f"tools: bench line {line}")
+    for name in ("text", "image", "image_raw"):
+        check(http[name]["n"] == 40 and http[name]["mean_batch_fill"] >= 1,
+              f"tools: serve_http_bench {name}: {http[name]}")
+    out["seconds"] = time.time() - t0
+    log("tools:", json.dumps({k: out[k] for k in ("launches",
+                                                  "seconds_by_run",
+                                                  "seconds")}))
+    results["tools"] = out
+    return {"launches": total}
 
 
 # ---------------------------------------------------------------------------
@@ -4157,12 +4275,6 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
               "False); nothing was run", file=sys.stderr)
         return 1
-    here = os.path.dirname(os.path.abspath(__file__))
-    if not os.path.isdir(os.path.join(here, "clip_finegrained_alignment_tpu_torch")):
-        print("chip_smoke: the port package is not beside this script; "
-              "nothing was run", file=sys.stderr)
-        return 1
-    sys.path.insert(0, here)
     from clip_finegrained_alignment_tpu_torch.ops import _build
 
     # A reference states and sets both: PyTorch's fp32 matmuls and
@@ -4241,7 +4353,12 @@ def main(argv=None) -> int:
     fwd = check_attention(results)
     bwd = check_attention_backward(results)
     check_attention_masked_rows(results)
-    attention_mp = check_attention_mp(results)
+    attention_mp = check_attention_at(results, "attention_model_parallel",
+                                      MP_ATTENTION_SHAPES,
+                                      ("bfloat16", "float32"), SEED + 11)
+    attention_tools = check_attention_at(results, "attention_tools",
+                                         TOOLS_ATTENTION_SHAPES,
+                                         ("bfloat16",), SEED + 12)
     sparc_fwd, sparc_bwd = check_sparc(results)
     quant = check_quant(results)
     lap("3 kernels")
@@ -4253,6 +4370,8 @@ def main(argv=None) -> int:
     lap("6b gradcache")
     quant_train = quant_train_path(results)
     lap("6c int8 train")
+    tools = tools_path(results)
+    lap("tools")
     flash_fwd, flash_dq, flash_dkdv = check_long_attention(results)
     long = long_main_path(results)
     lap("7 long")
@@ -4326,7 +4445,8 @@ def main(argv=None) -> int:
                "train_quant": quant_train["launches"],
                "train_cli_quant": train_cli["launches_quant"],
                "data_parallel": data_parallel["launches"],
-               "model_parallel": model_parallel["launches"]}
+               "model_parallel": model_parallel["launches"],
+               "tools": tools["launches"]}
     # The int8 passes replace no Pallas kernel: what XLA fuses in the JAX
     # package's int8 path (_absmax_quant, int8_matmul's epilogue).
     qref = ref + "quant.py:"

@@ -40,6 +40,8 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from ._measure import synchronize
+
 # The learning rate, and the scale of AdamSPD's anchors' offset from the
 # weights (:func:`anchors_off`).
 LR = 1e-5
@@ -100,12 +102,6 @@ def anchors_off(sd: dict, seed: int, scale: float = LR) -> dict:
     return {k: v + torch.from_numpy(rng.normal(
         scale=scale, size=tuple(v.shape)).astype(np.float32)).to(v.dtype)
         for k, v in sd.items()}
-
-
-def _sync(device):
-    import torch
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
 
 
 def _whole_grads(model, opt) -> Dict[str, "torch.Tensor"]:
@@ -365,11 +361,11 @@ def rank_modes(model_name: str, layers: Optional[int], dtype: str, B: int,
         if device.type == "cuda":
             torch.cuda.reset_peak_memory_stats(device)
         for s in range(steps):
-            _sync(device)
+            synchronize(device)
             _build.reset_launch_counts()
             t0 = time.perf_counter()
             got = step(local)
-            _sync(device)
+            synchronize(device)
             ms.append((time.perf_counter() - t0) * 1e3)
             if s == 0:
                 launches = _build.launch_counts()

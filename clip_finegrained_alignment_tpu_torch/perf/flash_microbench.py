@@ -24,36 +24,17 @@ cpu`` runs the plain versions and is for the tests only.
 from __future__ import annotations
 
 import argparse
-import time
-from typing import Callable, List, Optional
+from typing import List, Optional
 
 import numpy as np
 import torch
 
 from ..ops.attention import flash_attention
 from ..ops.flash_attention import blockwise_flash_attention
+from ._measure import time_ms
 
 H, D = 12, 64
 BLOCK = 256
-
-
-def _time_ms(run: Callable[[], object], steps: int,
-             device: torch.device) -> float:
-    run()                                   # warm-up: build, allocator
-    if device.type != "cuda":
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            run()
-        return (time.perf_counter() - t0) / steps * 1e3
-    with torch.cuda.device(device):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(steps):
-            run()
-        end.record()
-        end.synchronize()
-    return start.elapsed_time(end) / steps
 
 
 def main(argv: Optional[List[str]] = None) -> List[str]:
@@ -92,7 +73,7 @@ def main(argv: Optional[List[str]] = None) -> List[str]:
                 fn(*grads_of).float().sum(), grads_of),
         }
         for label, run in runs.items():
-            ms = _time_ms(run, args.steps, device)
+            ms = time_ms(run, device, reps=args.steps)
             line = f"S={S} B={B} {name} {label}: {ms:.3f} ms/call"
             print(line, flush=True)
             lines.append(line)

@@ -281,7 +281,7 @@ def microbatch_reading(lib4, baseline=None) -> dict:
                        inverse_temperature=0.07, use_amp=False)
     sd = convert.state_dict_from_jax(convert.random_params(cfg, smoke.SEED),
                                      cfg)
-    batch = smoke.train_batch(cfg, smoke.TRAIN_ACCUM, smoke.TRAIN_B,
+    batch = smoke.bench_batch(cfg, smoke.TRAIN_ACCUM, smoke.TRAIN_B, "sparc",
                               smoke.SEED)
 
     def grads(device, *patches):

@@ -35,34 +35,15 @@ from __future__ import annotations
 
 import argparse
 import json
-import time
-from typing import Callable, Dict, List, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
 from ..ops import quant as q
+from ._measure import time_ms
 
 HBM_BYTES_PER_S = 3.35e12
-
-
-def _time_ms(run: Callable[[], object], reps: int,
-             device: torch.device) -> float:
-    run()                                   # warm-up: build, allocator
-    if device.type != "cuda":
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            run()
-        return (time.perf_counter() - t0) / reps * 1e3
-    with torch.cuda.device(device):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            run()
-        end.record()
-        end.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def kernel_bytes(name: str, R: int, C: int, item: int = 2) -> int:
@@ -149,7 +130,7 @@ def main(argv: Optional[List[str]] = None) -> Dict:
     print(f"int8_microbench M={M} D={D} F={F} reps={args.reps} "
           f"device={out['device']}", flush=True)
     for name, (run, mult) in variants.items():
-        ms = _time_ms(run, args.reps, device)
+        ms = time_ms(run, device, reps=args.reps)
         row = {"ms": ms, "tflops_equiv": flops * mult / (ms / 1e3) / 1e12}
         out["gemm_set"][name] = row
         print(f"{name:16s} {ms:8.4f} ms/set  {row['tflops_equiv']:7.1f} "
@@ -170,7 +151,7 @@ def main(argv: Optional[List[str]] = None) -> Dict:
                       b=bias: q.dequant(a, sr, sc, b, torch.bfloat16)))
     for name, operand, run in cases:
         R, C = operand.shape
-        ms = _time_ms(run, args.reps, device)
+        ms = time_ms(run, device, reps=args.reps)
         nbytes = kernel_bytes(name, R, C)
         row = {"kernel": name, "R": R, "C": C, "ms": ms, "bytes": nbytes,
                "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3}

@@ -69,6 +69,7 @@ import time
 from typing import Dict, List, Optional
 
 from . import data_parallel_check as dpc
+from ._measure import synchronize
 
 # GPipe microbatches of a train microbatch (phase 11: B = 32 rows, 8 a
 # pipeline microbatch).
@@ -412,11 +413,11 @@ def rank_modes(model_name: str, layers: Optional[int], dtype: str, B: int,
         if device.type == "cuda":
             torch.cuda.reset_peak_memory_stats(device)
         for s in range(steps):
-            dpc._sync(device)
+            synchronize(device)
             _build.reset_launch_counts()
             t0 = time.perf_counter()
             got = step(local)
-            dpc._sync(device)
+            synchronize(device)
             ms.append((time.perf_counter() - t0) * 1e3)
             if s == 0:
                 launches = _build.launch_counts()

@@ -52,6 +52,7 @@ import time
 from typing import Optional
 
 from . import data_parallel_check as dpc
+from ._measure import synchronize
 
 MODES = {"sp2": ({"data": 1, "model": 2, "pipe": 1},
                  {"sequence_parallel": True}),
@@ -144,14 +145,14 @@ def memory_rank(model_name: str, layers: Optional[int], dtype: str, B: int,
     dt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
     ms, loss, launches = [], None, None
     for r in range(reps + 1):
-        dpc._sync(device)
+        synchronize(device)
         if r == 0:
             _build.reset_launch_counts()
         t0 = time.perf_counter()
         loss, _ = compute_loss(model, batch, tcfg, cfg, dtype=dt, mesh=mesh,
                                seq=seq)
         loss.backward()
-        dpc._sync(device)
+        synchronize(device)
         if r == 0:
             launches = _build.launch_counts()
             if device.type == "cuda":

@@ -304,7 +304,7 @@ def _microbatch_grads(products=None, sums="nearest"):
     tcfg = TrainConfig(loss_type="sparc", optimizer_type="adamspd",
                        inverse_temperature=0.07, use_amp=False)
     sd = _vit_b16_state()
-    batch = smoke.train_batch(cfg, 1, smoke.TRAIN_CHECK_PAIRS, 0)
+    batch = smoke.bench_batch(cfg, 1, smoke.TRAIN_CHECK_PAIRS, "sparc", 0)
     model = tm.build_train_model(cfg, sd, device="cpu")
     with pytest.MonkeyPatch.context() as mp:
         if products:

@@ -495,7 +495,9 @@ def test_layouts_match_jax_mesh_and_one_process(group, eight_devices,
     run phase 11's gates (two) or the checkpoints across layouts (four)."""
     cases = GROUPS[group]
     world = _world(cases[0][1])
-    gate_args = checkpoint_args = None
+    gate_args = checkpoint_args = pp_report_args = None
+    if group == "two_ranks":
+        pp_report_args = PP_REPORT_ARGS
     if world == 2:
         gate_args = (GATE_CASES[group], "tiny", None, 8, 2, 0, 3)
     else:
@@ -522,7 +524,8 @@ def test_layouts_match_jax_mesh_and_one_process(group, eight_devices,
         ranks = spawn(W.mp_group, world,
                       (([(mesh_kw, {**LOSSES[base], **extra})
                          for _, mesh_kw, base, extra, _ in cases], 31, 32,
-                        2), gate_args, checkpoint_args), timeout_s=SPAWN_S)
+                        2), gate_args, checkpoint_args, pp_report_args),
+                      timeout_s=SPAWN_S)
     finally:
         thread.join()
     for i, (name, mesh_kw, base, extra, vs_jax) in enumerate(cases):
@@ -583,6 +586,39 @@ def test_layouts_match_jax_mesh_and_one_process(group, eight_devices,
         _check_gates(ranks, GATE_CASES[group])
     else:
         _check_checkpoints(ranks, tmp_path / "ckpt", w1_file)
+    if pp_report_args:
+        _check_pp_report([r["pp_report"] for r in ranks])
+
+
+# perf/pp_activation_report.py::rank_report at the tiny width in fp32:
+# M 2 and 4 at B = 8, B 4 and 8 at b = 2, the unpipelined step at B = 8.
+PP_REPORT_ARGS = ("cpu", "tiny", None, "float32", 8, (2, 4), ((4, 2), (8, 4)),
+                  0)
+
+
+def _check_pp_report(ranks):
+    """Both stages report every swept (B, M), memory not measured on the
+    CPU; at one B every pipelined step's loss is the unpipelined step's,
+    the same on both stages."""
+    _, _, _, _, fixed_B, micro, sweep, _ = PP_REPORT_ARGS
+    runs = [(fixed_B, M) for M in micro] + list(sweep)
+    for stage, rows in enumerate(ranks):
+        piped = [r for r in rows if r["label"] != "unpipelined"]
+        assert [(r["B"], r["M"]) for r in piped] == runs
+        assert {r["stage"] for r in piped} == {stage}
+        for r in rows:
+            assert r["peak_memory_gb"] is None and r["step_gb"] is None
+            assert np.isfinite(r["loss"])
+    (single,) = [r for r in ranks[0] if r["label"] == "unpipelined"]
+    assert single["B"] == fixed_B
+    assert not any(r["label"] == "unpipelined" for r in ranks[1])
+    for rows in ranks:
+        for r in rows:
+            if r["B"] == fixed_B:
+                np.testing.assert_allclose(r["loss"], single["loss"],
+                                           rtol=1e-5)
+    for a, b in zip(ranks[0], ranks[1]):
+        assert a["loss"] == b["loss"]
 
 
 @pytest.fixture(scope="module")

@@ -375,12 +375,19 @@ def checkpoint_layouts(layouts, ckpt_root: str, w1_dir: str):
             for name, mesh_kw, extra in layouts}
 
 
-def mp_group(steps_args, gate_args=None, checkpoint_args=None):
+def mp_group(steps_args, gate_args=None, checkpoint_args=None,
+             pp_report_args=None):
     """One spawn's work in ``test_torch_model_parallel.py``:
     :func:`mp_steps` ``(*steps_args)``, then, where given,
-    :func:`phase_11_gate_cases` ``(*gate_args)`` and
-    :func:`checkpoint_layouts` ``(*checkpoint_args)`` on the same ranks."""
+    :func:`phase_11_gate_cases` ``(*gate_args)``,
+    :func:`checkpoint_layouts` ``(*checkpoint_args)`` and
+    ``perf/pp_activation_report.py::rank_report`` ``(*pp_report_args)`` on
+    the same ranks."""
+    from clip_finegrained_alignment_tpu_torch.perf import \
+        pp_activation_report
     return {"steps": mp_steps(*steps_args),
             "gates": gate_args and phase_11_gate_cases(*gate_args),
             "checkpoints": checkpoint_args
-            and checkpoint_layouts(*checkpoint_args)}
+            and checkpoint_layouts(*checkpoint_args),
+            "pp_report": pp_report_args
+            and pp_activation_report.rank_report(*pp_report_args)}
