@@ -247,7 +247,25 @@ window, its Chrome trace written, timed and read back by
 ``perf/trace_report.py`` (the file's device time must equal the live
 rows'). Phase 3 holds #1 and #2 (bf16) and #3 and #4 at those models'
 train microbatches too (``TOOLS_ATTENTION_SHAPES``, ``SPARC_SHAPES``:
-ViT-B/32 at B=128, ViT-L/14 at B=32 with P=257, D=768).
+ViT-B/32 at B=128, ViT-L/14 at B=32 with P=257, D=768), and at ViT-L/14@336's
+vision tower (``L336_ATTENTION_SHAPES``: [32, 577, 16, 64], Sp = 584, #1
+and #2 in bf16 at its train microbatch and in fp32 at evaluation's batch;
+#3 and #4 at B=32, P=577, D=768).
+
+Phase "drills" (after 11) runs the port's hardware drills (``perf/``) at
+full width on phase 8's 512 samples and its pack, each drill's ``main``
+in this process, each run's launches counted on its own and exact:
+``perf/e2e_learn_to_count.py`` (ViT-B/32, the count loss, 32 x 4 for
+``DRILL_L2C_EPOCHS`` epochs: every loss finite and the best accuracy at
+least ``DRILL_MIN_GAIN`` over the step-0 anchor; the CountBench fixture
+of ``DRILL_CB_SAMPLES`` with random and trained weights);
+``perf/preempt_rehearsal.py`` (ViT-B/32 SPARC 32 x 1 in a child process
+that a real SIGTERM stops after step ``DRILL_WAIT_STEPS``: exit 0,
+``preempt/`` committed, the resume step-exact and its final weights equal
+to an unbroken run's bit for bit); ``perf/gradcache_rehearsal.py``
+(``plain_a16`` against ``gc_a16``, one step each: the losses differ) and
+``perf/packed_rehearsal.py`` (32 x 8, one epoch, the pixel bank on the
+card). It logs each run's seconds.
 
 The last lines are the kernels' JSON line (``launches_by_path`` has
 ``serve``, ``train``, ``long``, ``train_cli`` (runs A-D), ``eval``,
@@ -256,8 +274,8 @@ The last lines are the kernels' JSON line (``launches_by_path`` has
 6c's counted steps), ``train_cli_quant`` (run G), ``data_parallel``
 (phase 10: both ranks' counted steps, run H, its resume and both
 evaluations), ``model_parallel`` (phase 11: every rank's counted
-steps, runs I, J and K and the resumes) and ``tools`` (the tools phase's
-runs); the forward kernel's
+steps, runs I, J and K and the resumes), ``tools`` (the tools phase's
+runs) and ``drills`` (the drills phase's runs); the forward kernel's
 entry also carries its ``fp32_eval`` rows, #1 and #2 their
 ``model_parallel_shapes`` rows, the backward its
 ``fp32_train`` rows, the SPARC kernels' their ``gradcache_pool`` row at
@@ -329,7 +347,13 @@ BWD_TOL = {"bfloat16": (1e-2, 1e-3), "float32": (1e-4, 1e-5)}
 # (two distinct masked similarities within 1e-6) lies within fp32 rounding
 # can flip between the two sides and change that row's weights by a whole
 # entry; such rows (and, for dv, their batch elements) are left out of the
-# comparison, counted, and may be at most 1 % of the rows.
+# comparison with the plain version, counted, and held instead against the
+# plain version fed the kernel's own saved sim, rl and rv: the kernel takes
+# z, the threshold and the min/max with the plain version's IEEE
+# operations, so from the same sim both make the same decisions, and every
+# row is held to SPARC_TOL (the sim itself to SPARC_RESIDUAL_TOL). The
+# CPU's emulation of the kernels' products holds the near rows to at most
+# 1 % of the rows at ViT-B/16's widths.
 SPARC_TOL = 1e-4
 SPARC_MAX_NEAR_SHARE = 0.01
 # The forward kernel's saved sim (absolute; cosines, summed in another
@@ -663,6 +687,19 @@ CLI_COUNT_ACCUM = 2
 # 32 images x 10 templates: vision B=32, text B=320 causal).
 EVAL_BATCH = 32
 EVAL_CROP_SAMPLES = 500
+# The drills phase (perf/'s hardware drills at full width on phase 8's
+# CLI_SAMPLES and its pack): learn-to-count ViT-B/32 32 x 4 for 3 epochs
+# (12 steps; the H100 read 1.000 after the first 4) with the learning gate
+# and a 40-sample CountBench fixture; preempt ViT-B/32 SPARC 32 x 1 for 2
+# epochs, SIGTERM after step 5; GradCache plain_a16 against gc_a16, one
+# step each; packed 32 x 8, one epoch. At 4 and 3 epochs the phase took
+# 139.5 s on an H100 (PERF.md), over its 120 s: every drill run pays a
+# random init, a build and a checkpoint save a cli/train.py call.
+DRILL_L2C_EPOCHS = 3
+DRILL_CB_SAMPLES = 40
+DRILL_MIN_GAIN = 0.25
+DRILL_PREEMPT_EPOCHS = 2
+DRILL_WAIT_STEPS = 5
 EVAL_ATTENTION_SHAPES = [("eval vision", 32, 197, 12, False),
                          ("eval text (causal)", 320, 77, 8, True)]
 # The card's fp32 evaluation against the port in fp32 on the CPU, same
@@ -790,6 +827,11 @@ TOOLS_ATTENTION_SHAPES = [  # (what, B, S, H, Dh, causal)
     ("ViT-B/32 text (train, causal)", 128, 77, 8, 64, True),
     ("ViT-L/14 vision (train)", 32, 257, 16, 64, False),
     ("ViT-L/14 text (train, causal)", 32, 77, 12, 64, True),
+]
+# #1 and #2 at ViT-L/14@336's vision tower (577 tokens, Sp = 584): its
+# train microbatch in bf16, and evaluation's batch (EVAL_BATCH) in fp32.
+L336_ATTENTION_SHAPES = [  # (what, B, S, H, Dh, causal)
+    ("ViT-L/14@336 vision", 32, 577, 16, 64, False),
 ]
 
 
@@ -1210,6 +1252,17 @@ def sparc_inputs(gen, B, T, P, D, edge=False):
     return v, l, mask, g
 
 
+def sparc_z(sim, mask):
+    """The min-max normalized similarities z [B, T, P] of the masked-in
+    token rows (0 elsewhere), as the SPARC pooling takes them."""
+    import torch
+    from clip_finegrained_alignment_tpu_torch.ops import sparc_kernel as sk
+    m = mask[:, :, None] > 0
+    mn = torch.where(m, sim, 2.0).amin(-1, keepdim=True)
+    mx = torch.where(m, sim, -2.0).amax(-1, keepdim=True)
+    return torch.where(m, (sim - mn) / (mx - mn + sk.EPS), 0.0)
+
+
 def sparc_near_rows(v, l, mask, tau):
     """[B, T] bool: masked-in token rows whose threshold decision or
     min/max choice lies within fp32 rounding (the plain version's numbers):
@@ -1236,6 +1289,7 @@ SPARC_SHAPES = [  # (what, B, P, D, edge batch)
     # The tools phase's train microbatches (perf/bench.py's regime).
     ("ViT-B/32 (train, B=128)", 128, 50, 512, False),
     ("ViT-L/14 (train)", TRAIN_B, 257, 768, False),
+    ("ViT-L/14@336 (train)", TRAIN_B, 577, 768, False),
 ]
 
 
@@ -1283,19 +1337,36 @@ def sparc_case(gen, what, B, P, edge=False, timed=True, D=512) -> tuple:
     check(max(res_err.values()) <= SPARC_RESIDUAL_TOL,
           f"SPARC {what}: saved sim, rl, rv off the plain version's by "
           f"{res_err} > {SPARC_RESIDUAL_TOL}")
+    # Every row against the plain version fed the kernel's saved sim, rl
+    # and rv: the same decisions, so no row is left out. A zero patch's dv
+    # is its normalization's singular gradient (scaled by its saved inverse
+    # norm, 1e12), held by neither comparison.
+    given = torch.einsum("btp,bpd->btd",
+                         sk.sparc_alignment_weights(res[0], mask, tau), v)
+    gdv, gdl = sk.sparc_pooling_backward_reference(v, l, mask, tau, g,
+                                                   residuals=res)
+    live = ((v * v).sum(-1) > 0)[:, :, None]
+    given_err = {"out": (out - given).abs().max().item(),
+                 "dl": (dl - gdl).abs().max().item(),
+                 "dv": ((dv - gdv).abs() * live).max().item()}
     n_near, n_rows = int(near.sum()), int((mask > 0).sum())
     common = {"shape": what, "B": B, "T": T, "P": P, "D": D, "tau": tau,
               "tol": SPARC_TOL, "near_decision_rows": n_near,
               "rows": n_rows, "near_decision_samples":
               int(near.any(-1).sum())}
-    check(n_near <= SPARC_MAX_NEAR_SHARE * n_rows,
-          f"SPARC {what}: {n_near} of {n_rows} rows near a decision")
-    fwd = dict(common, max_abs_err=errs["out"], residual_err=res_err)
+    # z from the kernel's sim against z from the plain one's: how near a
+    # threshold decision a row may flip (recorded, not held).
+    z_err = (sparc_z(res[0], mask) - sparc_z(rres[0], mask)).abs().max()
+    fwd = dict(common, max_abs_err=errs["out"], residual_err=res_err,
+               max_abs_err_given_sim=given_err["out"], z_err=z_err.item())
     bwd = dict(common, max_abs_err=max(errs["dl"], errs["dv"]),
-               max_abs_err_by={"dl": errs["dl"], "dv": errs["dv"]})
+               max_abs_err_by={"dl": errs["dl"], "dv": errs["dv"]},
+               max_abs_err_given_sim=max(given_err["dl"], given_err["dv"]))
     for kind, row in (("forward", fwd), ("backward", bwd)):
-        check(row["max_abs_err"] <= SPARC_TOL,
-              f"SPARC {kind} {what}: max abs err {row['max_abs_err']} "
+        check(max(row["max_abs_err"], row["max_abs_err_given_sim"])
+              <= SPARC_TOL,
+              f"SPARC {kind} {what}: max abs err {row['max_abs_err']}, "
+              f"given the kernel's sim {row['max_abs_err_given_sim']} "
               f"> {SPARC_TOL}")
     if timed:
         for row, fn in (
@@ -2533,20 +2604,26 @@ def quant_train_path(results: dict) -> dict:
 # Phase "tools": the measuring tools (perf/)
 # ---------------------------------------------------------------------------
 
-def expected_bench_launches(cfg, loss: str, accum: int, steps: int) -> dict:
-    """``perf/bench.py``'s run: the warm-up and ``steps`` steps, each
-    microbatch a forward and a backward of every encoder layer (the count
-    loss's counterfactual captions one more text tower) and, under SPARC,
-    one pooling forward and backward."""
+def expected_train_launches(steps: int, accum: int, layers: int,
+                            sparc: bool) -> dict:
+    """``steps`` optimizer steps of ``accum`` microbatches: every layer's
+    forward and backward a microbatch, and under SPARC one pooling forward
+    and backward."""
     from clip_finegrained_alignment_tpu_torch.ops import _build
+    want = {name: 0 for name in _build.SOURCES}
+    calls = steps * accum
+    want.update(attention_fwd=calls * layers, attention_bwd=calls * layers,
+                sparc_fwd=calls * sparc, sparc_bwd=calls * sparc)
+    return want
+
+
+def expected_bench_launches(cfg, loss: str, accum: int, steps: int) -> dict:
+    """``perf/bench.py``'s run: the warm-up and ``steps`` steps (the count
+    loss's counterfactual captions one more text tower)."""
     layers = cfg.vision.num_layers + cfg.text.num_layers * (
         2 if loss == "count" else 1)
-    calls = (1 + steps) * accum
-    want = {name: 0 for name in _build.SOURCES}
-    want.update(attention_fwd=calls * layers, attention_bwd=calls * layers)
-    if loss == "sparc":
-        want.update(sparc_fwd=calls, sparc_bwd=calls)
-    return want
+    return expected_train_launches(1 + steps, accum, layers,
+                                   loss == "sparc")
 
 
 def tools_path(results: dict) -> dict:
@@ -2934,14 +3011,6 @@ def train_cli_path(results: dict, keep_dir: str) -> dict:
         log(f"train cli run {name}: launches {launches}")
         return res, run
 
-    def expect(steps, accum, per_microbatch, sparc):
-        want = {n: 0 for n in _build.SOURCES}
-        want.update({"attention_fwd": steps * accum * per_microbatch,
-                     "attention_bwd": steps * accum * per_microbatch,
-                     "sparc_fwd": steps * accum * sparc,
-                     "sparc_bwd": steps * accum * sparc})
-        return want
-
     engine.Trainer.step, engine.Trainer.load_state_dict = spy_step, spy_load
     try:
         t0 = time.time()
@@ -2986,7 +3055,7 @@ def train_cli_path(results: dict, keep_dir: str) -> dict:
               and "pixel_values" not in a["batch_keys"],
               f"train cli A: batches carried {a['batch_keys']}")
         check(a["steps"] == 2 * spe, f"train cli A: {a['steps']} steps")
-        want = expect(a["steps"], TRAIN_ACCUM, layers, 1)
+        want = expected_train_launches(a["steps"], TRAIN_ACCUM, layers, 1)
         check(a["launches"] == want,
               f"train cli A: launches {a['launches']} != {want}")
         exp = os.path.join(ckpt, "sparc")
@@ -3021,7 +3090,8 @@ def train_cli_path(results: dict, keep_dir: str) -> dict:
         check(res["resumed_at_step"] == best_step and b["steps"] == 3 * spe,
               f"train cli B: resumed at {res['resumed_at_step']} (best/ "
               f"holds {best_step}), ended at {b['steps']}")
-        want = expect(b["steps"] - best_step, TRAIN_ACCUM, layers, 1)
+        want = expected_train_launches(b["steps"] - best_step, TRAIN_ACCUM,
+                                       layers, 1)
         check(b["launches"] == want,
               f"train cli B: launches {b['launches']} != {want}")
         del res
@@ -3084,7 +3154,8 @@ def train_cli_path(results: dict, keep_dir: str) -> dict:
             "start_epoch"] == best_step // spe,
               f"train cli F: steps {res['trainer'].global_step}, start "
               f"epoch {res['start_epoch']}")
-        want = expect(f["steps"] - best_step, TRAIN_ACCUM, layers, 1)
+        want = expected_train_launches(f["steps"] - best_step, TRAIN_ACCUM,
+                                       layers, 1)
         check(f["launches"] == want,
               f"train cli F: launches {f['launches']} != {want}")
         f["losses_equal_resume"] = f["epoch_losses"] == b["epoch_losses"]
@@ -3106,7 +3177,7 @@ def train_cli_path(results: dict, keep_dir: str) -> dict:
         check(res["trainer"].cfg.quant == "int8" and g["steps"] == spe,
               f"train cli G: quant {res['trainer'].cfg.quant}, "
               f"{g['steps']} steps")
-        want = expect(g["steps"], TRAIN_ACCUM, layers, 1)
+        want = expected_train_launches(g["steps"], TRAIN_ACCUM, layers, 1)
         q_want, how = expected_quant_launches(cfg, "int8",
                                               g["steps"] * TRAIN_ACCUM)
         want.update(q_want)
@@ -3146,8 +3217,8 @@ def train_cli_path(results: dict, keep_dir: str) -> dict:
         check("pixel_values" in c["batch_keys"]
               and "cf_input_ids" in c["batch_keys"],
               f"train cli C: batches carried {c['batch_keys']}")
-        want = expect(c["steps"], CLI_COUNT_ACCUM, layers + cfg.text.num_layers,
-                      0)
+        want = expected_train_launches(c["steps"], CLI_COUNT_ACCUM,
+                                       layers + cfg.text.num_layers, 0)
         # Before training and after its one epoch: an image tower and two
         # text towers (GT and counterfactual captions) each.
         want["attention_fwd"] += (2 if plots else 0) * (
@@ -3174,16 +3245,18 @@ def train_cli_path(results: dict, keep_dir: str) -> dict:
               f"train cli D: compute dtype {d['compute_dtype']}")
         check(d["steps"] == CLI_SAMPLES // (TRAIN_B * CLI_COUNT_ACCUM),
               f"train cli D: {d['steps']} steps")
-        want = expect(d["steps"], CLI_COUNT_ACCUM,
-                      layers + cfg.text.num_layers, 0)
+        want = expected_train_launches(d["steps"], CLI_COUNT_ACCUM,
+                                       layers + cfg.text.num_layers, 0)
         check(d["launches"] == want,
               f"train cli D: launches {d['launches']} != {want}")
         d["step_ms"] = [s / d["steps"] * 1e3 for s in d["epoch_s"]]
         del res
         gc.collect()
         torch.cuda.empty_cache()
-        # The packed dataset goes on to phase 10's run H.
+        # The packed dataset goes on to phase 10's run H, both to the
+        # drills phase.
         shutil.move(packed, os.path.join(keep_dir, "packed"))
+        shutil.move(data, os.path.join(keep_dir, "data"))
     finally:
         engine.Trainer.step = step
         engine.Trainer.load_state_dict = load_state_dict
@@ -3203,6 +3276,7 @@ def train_cli_path(results: dict, keep_dir: str) -> dict:
             "launches_interop": f["launches"],
             "launches_quant": g["launches"], "best_dir": kept,
             "packed_dir": os.path.join(keep_dir, "packed"),
+            "data_dir": os.path.join(keep_dir, "data"),
             "held_out": held_out}
 
 
@@ -4242,6 +4316,138 @@ def model_parallel_path(results: dict, packed_dir: str, oracle_dir: str,
     return {"launches": launches}
 
 
+# ---------------------------------------------------------------------------
+# Phase "drills": the hardware drills (perf/)
+# ---------------------------------------------------------------------------
+
+def drills_path(results: dict, data_dir: str, packed_dir: str) -> dict:
+    """The hardware drills at full width on phase 8's dataset and pack,
+    each drill's ``main`` in this process (the preempt drill's first run
+    in a child process, which a real SIGTERM stops), each run's launches
+    counted on its own and exact: ``perf/e2e_learn_to_count.py`` (ViT-B/32,
+    the count loss, 32 x 4, DRILL_L2C_EPOCHS epochs, every loss finite,
+    best - anchor >= DRILL_MIN_GAIN, a DRILL_CB_SAMPLES CountBench fixture
+    with random and trained weights); ``perf/preempt_rehearsal.py`` (ViT-B/32
+    SPARC 32 x 1, DRILL_PREEMPT_EPOCHS epochs, SIGTERM after step
+    DRILL_WAIT_STEPS: exit 0, ``preempt/`` committed, the resume step-exact
+    and its final weights equal to an unbroken run's bit for bit; the
+    child's launches are its own process's, so the count is the resume's
+    and the unbroken run's); ``perf/gradcache_rehearsal.py`` (``plain_a16``
+    against ``gc_a16``, one step each: the losses differ; both peak
+    memories); ``perf/packed_rehearsal.py`` (32 x 8, one epoch)."""
+    import torch
+    from clip_finegrained_alignment_tpu_torch.config import CLIPConfig
+    from clip_finegrained_alignment_tpu_torch.ops import _build
+    from clip_finegrained_alignment_tpu_torch.perf import (
+        e2e_learn_to_count, gradcache_rehearsal, packed_rehearsal,
+        preempt_rehearsal)
+
+    card = gpu_line()
+    t0 = time.time()
+    work = tempfile.mkdtemp(prefix="cfa_drills_")
+    out = {"launches": {}, "seconds_by_run": {}}
+    total = {name: 0 for name in _build.SOURCES}
+
+    def counted(name, drill, argv, want):
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        t = time.time()
+        try:
+            line = drill.main(argv + ["--out", os.path.join(work, name)])
+        except SystemExit as e:
+            raise SmokeFailure(f"drill {name}: {e}") from None
+        torch.cuda.synchronize()
+        out["seconds_by_run"][name] = time.time() - t
+        got = _build.launch_counts()
+        out["launches"][name] = got
+        for k, n in got.items():
+            total[k] += n
+        want = want(line)
+        check(got == want, f"drill {name}: launches {got} != {want}")
+        check(line["gpu"] == card, f"drill {name}: {line['gpu']} is not "
+              "the card")
+        log(f"drill {name}: {json.dumps(line)}")
+        out[name] = line
+        shutil.rmtree(os.path.join(work, name), ignore_errors=True)
+        return line
+
+    b32, b16 = CLIPConfig.from_name("ViT-B/32"), CLIPConfig.from_name(
+        "ViT-B/16")
+    layers32 = b32.vision.num_layers + b32.text.num_layers
+    layers16 = b16.vision.num_layers + b16.text.num_layers
+    try:
+        # Learn-to-count: 4 steps an epoch; the vision tower and two text
+        # towers (GT and counterfactual captions) a microbatch; the same a
+        # batch evaluation (step 0 and after every epoch); the scorer's
+        # vision and text towers a CountBench call, two sides.
+        B, accum = 32, 4
+        steps = DRILL_L2C_EPOCHS * (CLI_SAMPLES // (B * accum))
+
+        def l2c_want(line):
+            want = expected_train_launches(
+                steps, accum, layers32 + b32.text.num_layers, False)
+            want["attention_fwd"] += (
+                (DRILL_L2C_EPOCHS + 1) * (layers32 + b32.text.num_layers)
+                + 2 * -(-DRILL_CB_SAMPLES // EVAL_BATCH) * layers32)
+            return want
+        line = counted("learn_to_count", e2e_learn_to_count, [
+            "--data", data_dir, "--epochs", str(DRILL_L2C_EPOCHS),
+            "--cb-samples", str(DRILL_CB_SAMPLES), "--min-gain",
+            str(DRILL_MIN_GAIN), "--device", "cuda"], l2c_want)
+        check(line["trajectory"][-1][0] == steps and line["losses_finite"]
+              and line["gain"] >= DRILL_MIN_GAIN,
+              f"drill learn_to_count: {line['trajectory']}")
+
+        # Preempt: 16 steps an epoch at 32 x 1; the resume's remaining
+        # steps and the unbroken run's (the child's are its own process's).
+        spe = CLI_SAMPLES // 32
+        line = counted("preempt", preempt_rehearsal, [
+            "--data", data_dir, "--samples", str(CLI_SAMPLES), "--epochs",
+            str(DRILL_PREEMPT_EPOCHS), "--wait-steps", str(DRILL_WAIT_STEPS),
+            "--timeout", "300", "--device", "cuda"],
+            lambda line: expected_train_launches(
+                2 * spe * DRILL_PREEMPT_EPOCHS - line["resumed_at_step"], 1,
+                layers32, True))
+        check(line["ok"] and line["child_rc"] == 0
+              and line["preempt_meta"]["preempted"] is True
+              and line["weights_equal"], f"drill preempt: {line}")
+
+        # GradCache: one step of 32 x 16 each (phase 8's 512 samples).
+        def gc_want(line):
+            want = expected_train_launches(1, 16, layers16, True)
+            for k, n in expected_gradcache_launches(16, layers16).items():
+                want[k] += n
+            return want
+        line = counted("gradcache", gradcache_rehearsal, [
+            "--packed", packed_dir, "--samples", str(CLI_SAMPLES),
+            "--epochs", "1", "--runs", "plain_a16", "gc_a16", "--device",
+            "cuda"], gc_want)
+        check(line["objectives_differ"]
+              and all(r["steps"] == 1 for r in line["runs"].values()),
+              f"drill gradcache: {line['runs']}")
+        log("drill gradcache peak memory GB: " + json.dumps(
+            {k: r["peak_memory_gb"] for k, r in line["runs"].items()}))
+
+        # Packed: one epoch of 32 x 8 (2 steps).
+        line = counted("packed", packed_rehearsal, [
+            "--packed", packed_dir, "--samples", str(CLI_SAMPLES),
+            "--epochs", "1", "--device", "cuda"],
+            lambda line: expected_train_launches(
+                CLI_SAMPLES // (TRAIN_B * TRAIN_ACCUM), TRAIN_ACCUM,
+                layers16, True))
+        check(line["steps"] == CLI_SAMPLES // (TRAIN_B * TRAIN_ACCUM)
+              and line["pixel_bank"]["device"].startswith("cuda"),
+              f"drill packed: {line}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    out["seconds"] = time.time() - t0
+    log("drills:", json.dumps({k: out[k] for k in ("launches",
+                                                   "seconds_by_run",
+                                                   "seconds")}))
+    results["drills"] = out
+    return {"launches": total}
+
+
 def beside(background, foreground):
     """``foreground()`` while ``background()`` runs in a thread; returns
     ``foreground``'s result once both are done, and raises what either
@@ -4359,6 +4565,8 @@ def main(argv=None) -> int:
     attention_tools = check_attention_at(results, "attention_tools",
                                          TOOLS_ATTENTION_SHAPES,
                                          ("bfloat16",), SEED + 12)
+    check_attention_at(results, "attention_l336", L336_ATTENTION_SHAPES,
+                       ("bfloat16", "float32"), SEED + 13)
     sparc_fwd, sparc_bwd = check_sparc(results)
     quant = check_quant(results)
     lap("3 kernels")
@@ -4399,6 +4607,9 @@ def main(argv=None) -> int:
                                              train_cli["packed_dir"],
                                              keep_dir, int8_oracles)
         lap("11 model parallel")
+        drills = drills_path(results, train_cli["data_dir"],
+                             train_cli["packed_dir"])
+        lap("drills")
     finally:
         shutil.rmtree(keep_dir, ignore_errors=True)
     log("phase seconds:", json.dumps(phase_s))
@@ -4446,7 +4657,7 @@ def main(argv=None) -> int:
                "train_cli_quant": train_cli["launches_quant"],
                "data_parallel": data_parallel["launches"],
                "model_parallel": model_parallel["launches"],
-               "tools": tools["launches"]}
+               "tools": tools["launches"], "drills": drills["launches"]}
     # The int8 passes replace no Pallas kernel: what XLA fuses in the JAX
     # package's int8 path (_absmax_quant, int8_matmul's epilogue).
     qref = ref + "quant.py:"

@@ -411,10 +411,6 @@ def main(argv=None) -> Dict[str, Any]:
     # ---------------- engine ----------------
     ckpt_dir = os.path.join(args.checkpoint_dir, args.experiment_name)
     manager = CheckpointManager(ckpt_dir, save_every=cfg.save_every)
-    trainer = Trainer(cfg, state_dict, device=device,
-                      checkpoint_manager=manager,
-                      pixel_bank=pipeline.pixel_bank()
-                      if args.device_data else None, mesh=mesh)
 
     # Bare --resume = <ckpt-dir>/<exp>/best; --resume <path> = that
     # checkpoint directory (e.g. .../preempt).
@@ -428,6 +424,19 @@ def main(argv=None) -> Dict[str, Any]:
             os.path.basename(path)
     elif args.resume and os.path.isdir(os.path.join(ckpt_dir, "best")):
         resume_dir, resume_which = os.path.abspath(ckpt_dir), "best"
+    restored = None
+    if resume_which is not None:
+        src = manager if resume_dir == manager.directory else \
+            CheckpointManager(resume_dir, save_every=cfg.save_every)
+        restored = src.restore(resume_which, config=cfg)
+        # The model is built from the checkpoint's weights: no random draw
+        # for the restore to overwrite.
+        state_dict = restored[0]["model"]
+
+    trainer = Trainer(cfg, state_dict, device=device,
+                      checkpoint_manager=manager,
+                      pixel_bank=pipeline.pixel_bank()
+                      if args.device_data else None, mesh=mesh)
 
     start_epoch, resume_skip, resumed_at = 0, 0, None
     if args.import_optimizer_state:
@@ -441,10 +450,8 @@ def main(argv=None) -> Dict[str, Any]:
             + (", SPD anchors restored" if cfg.optimizer_type == "adamspd"
                else "") + f"); global step {trainer.global_step}, "
             f"resuming at epoch {start_epoch}")
-    if resume_which is not None:
-        src = manager if resume_dir == manager.directory else \
-            CheckpointManager(resume_dir, save_every=cfg.save_every)
-        state, meta = src.restore(resume_which, config=cfg)
+    if restored is not None:
+        state, meta = restored
         trainer.load_state_dict(state)
         trainer.global_step = meta.get("global_step", 0)
         trainer.best_loss = meta.get("best_loss", float("inf"))

@@ -48,6 +48,10 @@ STEPS = SAMPLES // (B * ACCUM)
 @pytest.fixture(autouse=True)
 def hash_tokenizer(monkeypatch):
     monkeypatch.setenv("CFA_ALLOW_HASH_TOKENIZER", "1")
+    # JAX's cli/evaluate.py would otherwise turn on a persistent compilation
+    # cache under HOME for the rest of the worker process
+    # (core/xla_flags.py::enable_persistent_compilation_cache).
+    monkeypatch.setenv("CFA_COMPILE_CACHE", "0")
 
 
 @pytest.fixture(scope="module")
