@@ -20,7 +20,7 @@ Endpoints (JSON in / JSON out):
   (``application/octet-stream``, N·S·S·3 bytes) → raw little-endian
   float32 embeddings with an ``X-Embed-Shape: N,P`` header.
 * ``GET /healthz`` · ``GET /stats`` (items, batches, mean batch fill,
-  stage latency quantiles).
+  stage latency quantiles, read from the batcher's spans).
 
 HTTP/1.1 keep-alive, with the connection closed whenever a request body
 was not read in full (a bad ``Content-Length``, or ``Transfer-Encoding:
@@ -37,16 +37,46 @@ from __future__ import annotations
 import argparse
 import base64
 import io
+import itertools
 import json
 import queue
 import threading
 import time
 from concurrent.futures import Future
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from ..utils.logging import inherited, quantile, record, span, spans
+
+
+_batch_ids = itertools.count()
+_request_ids = itertools.count()
+
+
+class _Waiting:
+    """One :meth:`DynamicBatcher.submit` call's items in the queue: its
+    ``serve.queue`` span is kept once the last of them is taken into a
+    group."""
+
+    __slots__ = ("rid", "parent", "thread", "start_ns", "left", "batches")
+
+    def __init__(self, rid, parent: int, items: int):
+        self.rid, self.parent, self.left = rid, parent, items
+        self.thread = threading.get_ident()
+        self.batches: List[int] = []
+        self.start_ns = time.time_ns()
+
+    def taken(self, batch: int, now_ns: int) -> None:
+        """One item taken into device batch ``batch``."""
+        if not self.batches or self.batches[-1] != batch:
+            self.batches.append(batch)
+        self.left -= 1
+        if self.left == 0:
+            record("serve.queue", self.start_ns, now_ns, self.parent,
+                   self.thread, rid=self.rid, batch=self.batches)
 
 
 class DynamicBatcher:
@@ -60,10 +90,14 @@ class DynamicBatcher:
     results and resolves the client futures, so the upload of batch k+1
     overlaps the compute and download of batch k.
 
-    Stats per device batch: ``queue_wait_ms`` (enqueue → group formed),
-    ``dispatch_ms`` (group formed → device work enqueued), ``latency_ms``
-    (dispatch → results on the host); ``batches_by_kind`` counts forwards
-    per tower.
+    ``stats`` counts ``items``, ``batches`` and, per tower,
+    ``batches_by_kind``. The stages are spans (``utils/logging.py``):
+    ``serve.submit`` around each blocking :meth:`submit`, and in it
+    ``serve.queue``, from the enqueue to the moment the request's last item
+    is taken into a group (attrs ``rid`` and the ``batch`` ids it joined);
+    per device batch ``serve.dispatch`` (the stack, the pad, the upload and
+    the enqueue; attrs ``id``, ``items``, ``bucket``) and ``serve.device``
+    (from the end of the dispatch to the results on the host).
     """
 
     _PIPELINE_DEPTH = 2  # dispatched-but-unfetched batches per kind
@@ -72,16 +106,15 @@ class DynamicBatcher:
         self._inf = inference
         self._window = window_ms / 1000.0
         self._lock = threading.Lock()
-        self._queues: Dict[str, List[Tuple[np.ndarray, Future, float]]] = {
-            "image": [], "text": []}
+        self._queues: Dict[str, List[Tuple[np.ndarray, Future, _Waiting]]] \
+            = {"image": [], "text": []}
         self._wakeups = {k: threading.Event() for k in self._queues}
         self._inflight = {k: queue.Queue(maxsize=self._PIPELINE_DEPTH)
                           for k in self._queues}
         self._stop = False
         self.stats = {"items": 0, "batches": 0,
-                      "batches_by_kind": {k: 0 for k in self._queues},
-                      "latency_ms": [], "queue_wait_ms": [],
-                      "dispatch_ms": []}
+                      "batches_by_kind": {k: 0 for k in self._queues}}
+        self.started_ns = time.time_ns()
         self._threads = [
             threading.Thread(target=fn, args=(k,), daemon=True)
             for k in self._queues
@@ -91,14 +124,15 @@ class DynamicBatcher:
 
     def submit(self, kind: str, arrays: Sequence[np.ndarray]) -> np.ndarray:
         """Blocking: enqueue ``arrays`` and return stacked embeddings."""
-        futures = [Future() for _ in arrays]
-        t_enq = time.monotonic()
-        with self._lock:
-            self._queues[kind].extend(
-                (a, f, t_enq) for a, f in zip(arrays, futures))
-        self._wakeups[kind].set()
-        return np.stack([f.result() for f in futures]) if futures \
-            else np.zeros((0,), np.float32)
+        with span("serve.submit") as sub:
+            futures = [Future() for _ in arrays]
+            waiting = _Waiting(inherited("rid"), sub.span_id, len(futures))
+            with self._lock:
+                self._queues[kind].extend(
+                    (a, f, waiting) for a, f in zip(arrays, futures))
+            self._wakeups[kind].set()
+            return np.stack([f.result() for f in futures]) if futures \
+                else np.zeros((0,), np.float32)
 
     def close(self, timeout: float = 5.0):
         """Stop the dispatcher and completion threads and join them."""
@@ -112,11 +146,6 @@ class DynamicBatcher:
                 pass
         for t in self._threads:
             t.join(timeout)
-
-    def _push(self, key: str, ms: float):
-        lst = self.stats[key]
-        lst.append(ms)
-        del lst[:-512]  # keep a bounded window
 
     def _run_dispatch(self, kind: str):
         bucket = self._inf.bucket
@@ -141,27 +170,28 @@ class DynamicBatcher:
                 del self._queues[kind][:bucket]
                 if not self._queues[kind]:
                     self._wakeups[kind].clear()
-            t0 = time.monotonic()
-            self._push("queue_wait_ms",
-                       (t0 - min(t for _, _, t in group)) * 1000.0)
+            batch = next(_batch_ids)
+            taken = time.time_ns()
+            for _, _, waiting in group:
+                waiting.taken(batch, taken)
             try:
-                handles = dispatch(np.stack([a for a, _, _ in group]))
+                with span("serve.dispatch", id=batch, items=len(group),
+                          bucket=bucket) as d:
+                    handles = dispatch(np.stack([a for a, _, _ in group]))
             except Exception as e:  # resolve, don't hang clients
                 for _, fut, _ in group:
                     if not fut.done():
                         fut.set_exception(e)
                 continue
-            t1 = time.monotonic()
-            self._push("dispatch_ms", (t1 - t0) * 1000.0)
             # Blocks when _PIPELINE_DEPTH batches are already in flight.
-            self._inflight[kind].put((group, handles, t1))
+            self._inflight[kind].put((group, handles, batch, d.end_ns))
 
     def _run_complete(self, kind: str):
         while True:
             item = self._inflight[kind].get()
             if item is None or self._stop:
                 return
-            group, handles, t1 = item
+            group, handles, batch, dispatched = item
             try:
                 out = self._inf.fetch(handles)
             except Exception as e:
@@ -170,11 +200,12 @@ class DynamicBatcher:
                         fut.set_exception(e)
                 continue
             # Stats first: a client that has its answer sees them counted.
+            record("serve.device", dispatched, time.time_ns(), id=batch,
+                   items=len(group))
             with self._lock:
                 self.stats["items"] += len(group)
                 self.stats["batches"] += 1
                 self.stats["batches_by_kind"][kind] += len(handles)
-            self._push("latency_ms", (time.monotonic() - t1) * 1000.0)
             for (_, fut, _), emb in zip(group, out):
                 fut.set_result(emb)
 
@@ -256,12 +287,15 @@ class ClipServer:
         probs = e / e.sum(axis=-1, keepdims=True)
         return labels, probs
 
-    def stats(self) -> dict:
+    def stats(self, since_ns: Optional[int] = None) -> dict:
+        """The counters, and the stages' quantiles over the spans that
+        started since ``since_ns`` (by default since the batcher started)."""
         s = self.batcher.stats
+        since = self.batcher.started_ns if since_ns is None else since_ns
 
-        def q(key, p):
-            lat = sorted(s[key])
-            return round(lat[int(p * (len(lat) - 1))], 2) if lat else None
+        def q(name, p):
+            v = quantile((x.ms for x in spans(name, since)), p)
+            return None if v is None else round(v, 2)
 
         return {
             "model": self.model_name,
@@ -270,12 +304,12 @@ class ClipServer:
             "batches_by_kind": dict(s["batches_by_kind"]),
             "mean_batch_fill": round(s["items"] / s["batches"], 2)
             if s["batches"] else None,
-            "queue_wait_ms_p50": q("queue_wait_ms", 0.5),
-            "queue_wait_ms_p95": q("queue_wait_ms", 0.95),
-            "dispatch_ms_p50": q("dispatch_ms", 0.5),
-            "dispatch_ms_p95": q("dispatch_ms", 0.95),
-            "device_batch_ms_p50": q("latency_ms", 0.5),
-            "device_batch_ms_p95": q("latency_ms", 0.95),
+            "queue_wait_ms_p50": q("serve.queue", 0.5),
+            "queue_wait_ms_p95": q("serve.queue", 0.95),
+            "dispatch_ms_p50": q("serve.dispatch", 0.5),
+            "dispatch_ms_p95": q("serve.dispatch", 0.95),
+            "device_batch_ms_p50": q("serve.device", 0.5),
+            "device_batch_ms_p95": q("serve.device", 0.95),
         }
 
     def close(self):
@@ -301,16 +335,21 @@ class _Handler(BaseHTTPRequestHandler):
     def log_message(self, fmt, *args):  # quiet by default
         pass
 
+    def send_response(self, code, message=None):
+        self._status = code
+        super().send_response(code, message)
+
     def _reply(self, code: int, obj: dict):
-        body = json.dumps(obj).encode()
-        self._started = True
-        self.send_response(code)
-        self.send_header("Content-Type", "application/json")
-        self.send_header("Content-Length", str(len(body)))
-        if self.close_connection:
-            self.send_header("Connection", "close")
-        self.end_headers()
-        self.wfile.write(body)
+        with span("serve.reply"):
+            body = json.dumps(obj).encode()
+            self._started = True
+            self.send_response(code)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(body)))
+            if self.close_connection:
+                self.send_header("Connection", "close")
+            self.end_headers()
+            self.wfile.write(body)
 
     def do_GET(self):
         if self.path == "/healthz":
@@ -342,22 +381,39 @@ class _Handler(BaseHTTPRequestHandler):
         return body
 
     def do_POST(self):
+        """One request inside its ``serve.request`` span (attrs ``rid``,
+        ``path``, ``images`` where it carries images, ``status``), from
+        entry to the last byte written; ``serve.read`` and ``serve.reply``
+        are its body's read and the answer's encoding and write."""
+        self._status = None
+        with span("serve.request", rid=next(_request_ids),
+                  path=self.path) as req:
+            try:
+                self._post(req)
+            finally:
+                req.attrs["status"] = self._status
+
+    def _post(self, req: span):
         self._started = False
         body_read = False
         try:
-            body = self._read_body()
+            with span("serve.read"):
+                body = self._read_body()
             body_read = True
             if self.path == "/v1/embed/image_raw":
                 emb = self.clip.embed_images_raw(body)
-                out = np.ascontiguousarray(emb, np.float32).tobytes()
-                self._started = True
-                self.send_response(200)
-                self.send_header("Content-Type", "application/octet-stream")
-                self.send_header("X-Embed-Shape",
-                                 ",".join(map(str, emb.shape)))
-                self.send_header("Content-Length", str(len(out)))
-                self.end_headers()
-                self.wfile.write(out)
+                req.attrs["images"] = len(emb)
+                with span("serve.reply"):
+                    out = np.ascontiguousarray(emb, np.float32).tobytes()
+                    self._started = True
+                    self.send_response(200)
+                    self.send_header("Content-Type",
+                                     "application/octet-stream")
+                    self.send_header("X-Embed-Shape",
+                                     ",".join(map(str, emb.shape)))
+                    self.send_header("Content-Length", str(len(out)))
+                    self.end_headers()
+                    self.wfile.write(out)
                 return
             payload = json.loads(body or b"{}")
             if self.path == "/v1/embed/text":
@@ -365,9 +421,11 @@ class _Handler(BaseHTTPRequestHandler):
                 self._reply(200, {"embeddings": emb.tolist()})
             elif self.path == "/v1/embed/image":
                 emb = self.clip.embed_images(payload)
+                req.attrs["images"] = len(emb)
                 self._reply(200, {"embeddings": emb.tolist()})
             elif self.path == "/v1/classify":
                 labels, probs = self.clip.classify(payload)
+                req.attrs["images"] = len(probs)
                 self._reply(200, {"labels": list(labels),
                                   "probs": probs.tolist()})
             else:

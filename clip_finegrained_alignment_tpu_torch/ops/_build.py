@@ -24,6 +24,8 @@ import threading
 from pathlib import Path
 from typing import Dict, Optional
 
+from ..utils.logging import Counter
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -59,28 +61,8 @@ _libs: Dict[str, ctypes.CDLL] = {}
 build_logs: Dict[str, str] = {}
 
 
-class LaunchCounter:
-    """Launches of one kernel since the last :meth:`reset`."""
-
-    def __init__(self) -> None:
-        self._lock = threading.Lock()
-        self._n = 0
-
-    def add(self) -> None:
-        with self._lock:
-            self._n += 1
-
-    def reset(self) -> None:
-        with self._lock:
-            self._n = 0
-
-    @property
-    def value(self) -> int:
-        return self._n
-
-
-LAUNCHES: Dict[str, LaunchCounter] = {name: LaunchCounter()
-                                      for name in SOURCES}
+# kernel name -> its launches since the last reset
+LAUNCHES: Dict[str, Counter] = {name: Counter() for name in SOURCES}
 
 
 def launch_counts() -> Dict[str, int]:

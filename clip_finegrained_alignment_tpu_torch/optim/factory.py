@@ -38,6 +38,7 @@ from typing import Callable, Dict, Iterable, List, Optional, Tuple, Union
 import torch
 
 from ..config import TrainConfig
+from ..utils.logging import span
 from .adamspd import AdamSPD
 
 
@@ -96,7 +97,17 @@ class ClippedOptimizer:
 
     @torch.no_grad()
     def step(self) -> torch.Tensor:
-        """Clip and update; returns the global norm before clipping."""
+        """Clip and update; returns the global norm before clipping. Spans
+        ``train.optimizer`` with its two parts, ``train.clip`` and
+        ``train.update``."""
+        with span("train.optimizer"):
+            with span("train.clip"):
+                norm = self._clip()
+            with span("train.update"):
+                self._update()
+        return norm
+
+    def _clip(self) -> torch.Tensor:
         layout = self.layout
         if layout is not None and layout.fsdp:
             grads = [s.grad for s in layout.shards]
@@ -114,6 +125,10 @@ class ClippedOptimizer:
                                     g / norm.to(g.dtype) * self.max_grad_norm))
         if layout is not None and not layout.fsdp:
             layout.shard_grads()
+        return norm
+
+    def _update(self) -> None:
+        layout = self.layout
         if self.schedule is not None:
             for group in self.optimizer.param_groups:
                 group["lr"] = self.schedule(self.count)
@@ -121,7 +136,6 @@ class ClippedOptimizer:
         self.count += 1
         if layout is not None and not layout.fsdp:
             layout.publish()
-        return norm
 
     def state_dict(self) -> dict:
         """The inner optimizer's state (whole tensors under a layout) and

@@ -20,7 +20,8 @@ endpoint, ``serve_http_bench.py``'s keys: ``requests_per_sec``,
 ``latency_ms_p50``, ``latency_ms_p95`` (host clock, request sent to
 answer read), ``mean_batch_fill`` (items over device batches),
 ``clients``, ``n``, and the batcher's ``stages`` (``clip.stats()``'s
-p50 and p95 of queue wait, dispatch and device batch, per endpoint); one
+p50 and p95 of queue wait, dispatch and device batch over the endpoint's
+spans); one
 line each, then one summary JSON line, each with ``device`` and ``gpu``
 (the card's name and power limit). ``--device cpu`` is for the tests.
 """
@@ -120,8 +121,7 @@ def _load(clip, port: int, path: str, payload, ctype: str, clients: int,
 
     stats = clip.batcher.stats
     items0, batches0 = stats["items"], stats["batches"]
-    for k in ("latency_ms", "queue_wait_ms", "dispatch_ms"):
-        stats[k].clear()                # this endpoint's stage windows
+    since = time.time_ns()              # this endpoint's stage spans
     threads = [threading.Thread(target=worker) for _ in range(clients)]
     t0 = time.perf_counter()
     for th in threads:
@@ -142,7 +142,7 @@ def _load(clip, port: int, path: str, payload, ctype: str, clients: int,
             "latency_ms_p50": q(0.5), "latency_ms_p95": q(0.95),
             "mean_batch_fill": items / max(batches, 1),
             "clients": clients, "n": len(lats),
-            "stages": {k: v for k, v in clip.stats().items()
+            "stages": {k: v for k, v in clip.stats(since).items()
                        if k.endswith(("p50", "p95"))}}
 
 

@@ -96,6 +96,7 @@ into any layout.
 
 from __future__ import annotations
 
+import itertools
 import time
 from typing import Any, Callable, Dict, Iterable, Mapping, Optional, Tuple
 
@@ -113,6 +114,7 @@ from ..parallel import collectives as C
 from ..parallel.mesh import Mesh, replicate, shard_batch_from_local
 from ..parallel.sequence import SeqParallelSpec
 from ..parallel.sharding_rules import before_gather, before_pipeline
+from ..utils.logging import span
 
 Batch = Mapping[str, torch.Tensor]
 
@@ -204,17 +206,18 @@ def accumulate_grads(model: m.CLIPModel, batch: Batch, cfg: TrainConfig,
     accum = batch["input_ids"].shape[0]
     totals: Dict[str, torch.Tensor] = {}
     for i in range(accum):
-        loss, losses = compute_loss(model, {k: x[i] for k, x in batch.items()},
-                                    cfg, model_cfg, dtype=dtype,
-                                    pixel_bank=pixel_bank, mesh=mesh,
-                                    seq=seq)
-        loss.backward()
-        if model.pipeline is not None:   # the stages' backward schedule
-            model.pipeline.backward()
+        with span("train.forward", micro=i):
+            loss, losses = compute_loss(
+                model, {k: x[i] for k, x in batch.items()}, cfg, model_cfg,
+                dtype=dtype, pixel_bank=pixel_bank, mesh=mesh, seq=seq)
+        with span("train.backward", micro=i):
+            loss.backward()
+            if model.pipeline is not None:   # the stages' backward schedule
+                model.pipeline.backward()
         for k, x in losses.items():
             totals[k] = totals[k] + x.detach() if k in totals else x.detach()
     inv = 1.0 / accum
-    with torch.no_grad():
+    with span("train.grad_mean"), torch.no_grad():
         for p in model.parameters():
             if p.grad is not None:
                 p.grad.mul_(inv)
@@ -365,7 +368,13 @@ def make_train_step(cfg: TrainConfig, model_cfg: CLIPConfig,
     pre_gather = [p for n, p in model.named_parameters()
                   if before_gather(n)] if sp else []
 
+    steps = itertools.count()
+
     def train_step(batch) -> Dict[str, torch.Tensor]:
+        with span("train.step", n=next(steps)):
+            return _step(batch)
+
+    def _step(batch) -> Dict[str, torch.Tensor]:
         batch = {k: torch.as_tensor(x).to(device, non_blocking=True)
                  for k, x in batch.items()}
         if fsdp:

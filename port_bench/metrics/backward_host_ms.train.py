@@ -1,0 +1,10 @@
+"""Host ms a train step in the autograd backward (``train.backward``, once
+a microbatch), in the traced slice."""
+
+from port_bench import program_spans
+
+UNIT = "ms"
+
+
+def read(ctx):
+    return program_spans.host_ms_per_step(ctx, "train.backward")
