@@ -517,6 +517,20 @@ QUANT_TIMED = 3
 # the CPU's tiny model); phase 3 holds the kernels bit-equal.
 QUANT_CHECK_LIMITS = {"bfloat16": (1e-4, 2e-2, 0.96),
                       "float32": (1e-4, 2e-2, 0.96)}
+# Phase 3's optimizer kernels (ops/optimizer.py) against their plain
+# versions on the card, each pass from the same inputs, at ViT-B/16's 398
+# fp32 tensors (the training cell's), each tensor's largest difference
+# over its largest magnitude:
+#   elementwise (p, m, v, max v, the clipped g): 1e-6. The same fp32 ops,
+#     but the plain version divides by sqrt(bc2) as torch does by a
+#     scalar on the card (a multiply by its reciprocal), the kernel by
+#     IEEE division: an ulp or two of the update, far under 1e-6 of p;
+#   sums and norm: 1e-5 of each sum's scale (Σ(p − pre)² and Σg² their
+#     own; the condition's sqrt(Σg² · Σ(p − pre)²)): the kernel adds in
+#     another order over up to 25.3 M elements (fp32's ~6e-8 a step,
+#     ~100 steps deep).
+OPT_TOL = {"elementwise": 1e-6, "sums": 1e-5}
+OPT_LR, OPT_BETAS, OPT_EPS, OPT_WD = 1e-3, (0.9, 0.98), 1e-6, 0.2
 # Phase 10: two ranks on the one card (gloo), each DP_B rows a microbatch
 # x DP_ACCUM (a global batch of 2 x 16 x accum 2), DP_STEPS steps a mode.
 DP_RANKS = 2
@@ -1611,6 +1625,242 @@ def check_quant(results: dict) -> dict:
     return timed
 
 
+def optimizer_bound(name: str, N: int, chunks: int, n: int,
+                    amsgrad: bool = False) -> dict:
+    """A kernel's bytes (each input read once, each output written once)
+    and fp32 operations at N parameters in ``chunks`` chunks of ``n``
+    tensors; ``adamspd_project`` with every tensor projecting."""
+    nbytes, flops = {
+        "clip_sumsq": (4 * N + 4 * chunks, 2 * N),
+        "clip_rows": (4 * chunks + 4 * n, chunks),
+        "clip_norm": (4 * n + 4, n),
+        "clip_scale": (8 * N, 2 * N),
+        "adamspd_update": ((40 if amsgrad else 32) * N + 12 * chunks,
+                           24 * N),
+        "adamspd_sums": (12 * chunks + 12 * n, 3 * chunks),
+        "adamspd_project": (12 * N + 12 * n, 3 * N)}[name]
+    return bound_ms(nbytes, flops, "float32")
+
+
+def check_optimizer(results: dict) -> dict:
+    """The optimizer kernels (``ops/optimizer.py``) against their plain
+    versions on the card at ViT-B/16's 398 tensors, each pass from the
+    same inputs (the plain side's state made the kernel's first), two
+    steps without and two with amsgrad: the rows and the norm, the clip
+    with the norm above the max and below it, AdamSPD's update (p, m, v,
+    max v, the sums) and projection; within ``OPT_TOL``. The gradients of
+    the three tensors SPARC leaves without one are None, ``logit_scale``
+    sits on its anchor (new == pre: the ``curr == 0`` guard), and both
+    signs of the condition occur. Then each kernel's time at those
+    tensors: its raw launch from a table built once (CUDA events, and
+    replayed from a CUDA graph), each wrapper call (its tables built
+    every call) and the plain version. Returns {kernel name: its row}."""
+    import torch
+    from clip_finegrained_alignment_tpu_torch.config import CLIPConfig
+    from clip_finegrained_alignment_tpu_torch.models import clip as tm
+    from clip_finegrained_alignment_tpu_torch.models import convert
+    from clip_finegrained_alignment_tpu_torch.ops import optimizer as to
+
+    cfg = CLIPConfig.vit_b16()
+    sd = convert.state_dict_from_jax(convert.random_params(cfg, SEED), cfg)
+    model = tm.build_train_model(cfg, sd, device="cuda")
+    names = [n for n, _ in model.named_parameters()]
+    params = [p.detach().clone() for p in model.parameters()]
+    del model, sd
+    none = {"logit_scale", "vision_model.post_layernorm.weight",
+            "vision_model.post_layernorm.bias"}
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 21)
+
+    def normal(like, scale):
+        return torch.randn(like.shape, device="cuda", generator=gen) * scale
+
+    anchors = [p.clone() if n == "logit_scale" else p + normal(p, 0.01)
+               for n, p in zip(names, params)]
+    n, N = len(params), sum(p.numel() for p in params)
+    chunks = sum(-(-p.numel() // to.CHUNK) for p in params)
+    out = {"gpu": gpu_line(), "tensors": n, "parameters": N,
+           "chunks": chunks, "tol": OPT_TOL, "cases": []}
+
+    def rel(got, want, scale=None):
+        scale = want.abs().max() if scale is None else scale
+        return ((got - want).abs().max() / scale.clamp_min(1e-30)).item() \
+            if got.numel() else 0.0
+
+    worst = {"elementwise": 0.0, "sums": 0.0}
+    signs = set()
+    for amsgrad in (False, True):
+        state = {k: [torch.zeros_like(p) for p in params]
+                 for k in ("m", "v", "vmax")}
+        kp = [p.clone() for p in params]
+        plain = {k: [t.clone() for t in v] for k, v in state.items()}
+        pp = [p.clone() for p in params]
+        for step in (1, 2):
+            case = {"amsgrad": amsgrad, "step": step}
+            grads = [None if nm in none else normal(p, 1e-4)
+                     for nm, p in zip(names, params)]
+            live = [g for g in grads if g is not None]
+            # The norm: each tensor's row, then the total.
+            rows, want_rows = to.sumsq_rows(live), to.sumsq_rows_reference(
+                live)
+            norm, want_norm = to.norm_of_rows(rows), to.global_norm_reference(
+                live)
+            case["rows"] = rel(rows, want_rows)
+            case["norm"] = rel(norm, want_norm)
+            case["norm_value"] = norm.item()
+            # The clip above the norm (nothing moves) and below it.
+            for max_norm, key in ((1e6, "clip_kept"), (1.0, "clip")):
+                got = [g.clone() for g in live]
+                want = [g.clone() for g in live]
+                to.clip_(got, norm, max_norm)
+                to.clip_reference(want, norm, max_norm)
+                case[key] = max(rel(a, b) for a, b in zip(got, want))
+                case[key + "_equal"] = all(torch.equal(a, b)
+                                           for a, b in zip(got, want))
+            check(case["norm_value"] >= 1.0 and case["clip_kept_equal"],
+                  f"optimizer clip: {case}")
+            clipped = got
+            grads = [None if g is None else clipped.pop(0) for g in grads]
+            # AdamSPD's update from the same state on both sides.
+            for src, dst in ((kp, pp), (state["m"], plain["m"]),
+                             (state["v"], plain["v"]),
+                             (state["vmax"], plain["vmax"])):
+                for a, b in zip(src, dst):
+                    b.copy_(a)
+            vmax_k = state["vmax"] if amsgrad else [None] * n
+            vmax_p = plain["vmax"] if amsgrad else [None] * n
+            hypers = [to.adam_hyper(OPT_LR, *OPT_BETAS, OPT_EPS, step)] * n
+            sums = to.adamspd_update(kp, grads, state["m"], state["v"],
+                                     vmax_k, anchors, hypers)
+            want_sums = to.adamspd_update_reference(
+                pp, grads, plain["m"], plain["v"], vmax_p, anchors, hypers)
+            elem = {"p": max(rel(a, b) for a, b in zip(kp, pp)),
+                    "m": max(rel(a, b) for a, b in zip(state["m"],
+                                                        plain["m"])),
+                    "v": max(rel(a, b) for a, b in zip(state["v"],
+                                                        plain["v"]))}
+            if amsgrad:
+                elem["vmax"] = max(rel(a, b) for a, b in zip(
+                    state["vmax"], plain["vmax"]))
+            g2 = torch.stack([torch.zeros((), device="cuda") if g is None
+                              else g.pow(2).sum() for g in grads])
+            scale = torch.stack([(want_sums[:, 2] * g2).sqrt(),
+                                 want_sums[:, 1], want_sums[:, 2]], 1)
+            case["sums"] = ((sums - want_sums).abs()
+                            / scale.clamp_min(1e-30)).max().item()
+            guard = names.index("logit_scale")
+            case["guard_row"] = sums[guard].tolist()
+            check(sums[guard, 1].item() == 0.0 and sums[guard, 2].item()
+                  == 0.0, f"optimizer: logit_scale left its anchor: {case}")
+            signs |= {bool(c < 0) for c in sums[:, 0].tolist() if c != 0}
+            # The projection from the same p and the kernel's sums.
+            for a, b in zip(kp, pp):
+                b.copy_(a)
+            wds = [OPT_WD] * n
+            to.adamspd_project(kp, anchors, sums, wds)
+            to.adamspd_project_reference(pp, anchors, sums, wds)
+            elem["p_projected"] = max(rel(a, b) for a, b in zip(kp, pp))
+            case.update(elem)
+            worst["elementwise"] = max(
+                [worst["elementwise"], case["clip"], case["clip_kept"]]
+                + list(elem.values()))
+            worst["sums"] = max(worst["sums"], case["rows"], case["norm"],
+                                case["sums"])
+            out["cases"].append(case)
+            log("optimizer kernels", json.dumps(case))
+    out["worst"] = worst
+    out["condition_signs"] = sorted(signs)
+    check(worst["elementwise"] <= OPT_TOL["elementwise"]
+          and worst["sums"] <= OPT_TOL["sums"] and signs == {False, True},
+          f"optimizer kernels differ from their plain versions: {worst}, "
+          f"condition signs {sorted(signs)}")
+
+    # Times at the cell's tensors (amsgrad off, the last state): the raw
+    # launches from tables built once, then each wrapper call.
+    del state["vmax"], plain, pp
+    torch.cuda.empty_cache()
+    grads = [normal(p, 1e-4) for p in params]
+    one = torch.ones((), device="cuda")      # !(1 < 1): every g is rewritten
+    hypers = [to.adam_hyper(OPT_LR, *OPT_BETAS, OPT_EPS, 3)] * n
+    wds = [OPT_WD] * n
+    dev = grads[0].device
+    gtable, gtotal = to._grad_table(grads, dev, "timing")
+    atable, atotal = to._adam_table(kp, grads, state["m"], state["v"],
+                                    [None] * n, anchors, hypers)
+    ptable, ptotal = to._project_table(kp, anchors, wds)
+    partial = torch.empty(atotal, 3, device="cuda")
+    rows = torch.empty(n, device="cuda")
+    norm = torch.empty((), device="cuda")
+    sums = torch.empty(n, 3, device="cuda")
+    forced = torch.zeros(n, 3, device="cuda")
+    forced[:, 0], forced[:, 1], forced[:, 2] = -1.0, 4.0, 1.0   # ratio 1/2
+    P, I, F = to._P, to._I, to._F
+    raw = {
+        "clip_sumsq": lambda: to._launch(to.SUMSQ_KERNEL, [P, I, I, P], dev,
+                                         gtable.data_ptr(), n, gtotal,
+                                         partial.data_ptr()),
+        "clip_rows": lambda: to._launch(to.ROWS_KERNEL, [P, I, I, P, P], dev,
+                                        gtable.data_ptr(), n, gtotal,
+                                        partial.data_ptr(), rows.data_ptr()),
+        "clip_norm": lambda: to._launch(to.NORM_KERNEL, [P, I, P], dev,
+                                        rows.data_ptr(), n, norm.data_ptr()),
+        "clip_scale": lambda: to._launch(to.SCALE_KERNEL, [P, I, I, P, F],
+                                         dev, gtable.data_ptr(), n, gtotal,
+                                         one.data_ptr(), 1.0),
+        "adamspd_update": lambda: to._launch(
+            to.UPDATE_KERNEL, [P, I, I, P], dev, atable.data_ptr(), n,
+            atotal, partial.data_ptr()),
+        "adamspd_sums": lambda: to._launch(
+            to.SUMS_KERNEL, [P, I, I, P, P], dev, atable.data_ptr(), n,
+            atotal, partial.data_ptr(), sums.data_ptr()),
+        "adamspd_project": lambda: to._launch(
+            to.PROJECT_KERNEL, [P, I, I, P], dev, ptable.data_ptr(), n,
+            ptotal, forced.data_ptr())}
+    calls = {
+        "global_norm": (lambda: to.global_norm(grads),
+                        lambda: to.global_norm_reference(grads)),
+        "clip_": (lambda: to.clip_(grads, one, 1.0),
+                  lambda: to.clip_reference(grads, one, 1.0)),
+        "adamspd_update": (
+            lambda: to.adamspd_update(kp, grads, state["m"], state["v"],
+                                      [None] * n, anchors, hypers),
+            lambda: to.adamspd_update_reference(
+                kp, grads, state["m"], state["v"], [None] * n, anchors,
+                hypers)),
+        "adamspd_project": (
+            lambda: to.adamspd_project(kp, anchors, forced, wds),
+            lambda: to.adamspd_project_reference(kp, anchors, forced, wds))}
+    call_of = {"clip_sumsq": "global_norm", "clip_rows": "global_norm",
+               "clip_norm": "global_norm", "clip_scale": "clip_",
+               "adamspd_update": "adamspd_update",
+               "adamspd_sums": "adamspd_update",
+               "adamspd_project": "adamspd_project"}
+    out["calls"] = {}
+    for name, (fn, plain_fn) in calls.items():
+        t0 = time.perf_counter()
+        fn()
+        host = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        out["calls"][name] = {"ms": cuda_time_ms(fn),
+                              "plain_ms": cuda_time_ms(plain_fn, reps=5,
+                                                       windows=3),
+                              "host_ms_one_call": host}
+        log("optimizer call", name, json.dumps(out["calls"][name]))
+    timed = {}
+    for name, fn in raw.items():
+        row = {"kernel": name, "shape": f"ViT-B/16's {n} fp32 tensors, "
+               f"{N} parameters, {atotal} chunks", "ms": cuda_time_ms(fn),
+               "graph_ms": graph_ms(fn),
+               "call": call_of[name], "call_ms": out["calls"][call_of[name]]
+               ["ms"], "plain_ms": out["calls"][call_of[name]]["plain_ms"],
+               "library_ms": None, "max_abs_err": worst["elementwise"],
+               **optimizer_bound(name, N, atotal, n)}
+        timed[name] = row
+        log("optimizer kernel", json.dumps(row))
+    out["timed"] = timed
+    results["optimizer"] = out
+    return timed
+
+
 # ---------------------------------------------------------------------------
 # Phase 4: the main path
 # ---------------------------------------------------------------------------
@@ -2026,7 +2276,8 @@ def train_main_path(results: dict) -> dict:
         * TRAIN_ACCUM,
         "attention_bwd": (cfg.vision.num_layers + cfg.text.num_layers)
         * TRAIN_ACCUM,
-        "sparc_fwd": TRAIN_ACCUM, "sparc_bwd": TRAIN_ACCUM})
+        "sparc_fwd": TRAIN_ACCUM, "sparc_bwd": TRAIN_ACCUM,
+        **expected_optimizer_launches(1)})
     log(f"train main path: launches {launches}, expected {expected}")
     check(launches == expected,
           f"train step launches {launches} != {expected}")
@@ -2127,15 +2378,29 @@ def train_main_path(results: dict) -> dict:
 # Phase 6b: GradCache training (train/gradcache.py)
 # ---------------------------------------------------------------------------
 
+def expected_optimizer_launches(steps: int, adamspd: bool = True) -> dict:
+    """``steps`` optimizer steps (``ops/optimizer.py``), whatever the
+    layout: the gradient norm's three kernels (each tensor's squares, their
+    rows, the total; a layout adds the rows over its ranks in between) and
+    the clip's one; AdamSPD's three (AdamW's update is
+    ``torch.optim.AdamW``'s)."""
+    return {"clip_sumsq": steps, "clip_rows": steps, "clip_norm": steps,
+            "clip_scale": steps, "adamspd_update": steps * adamspd,
+            "adamspd_sums": steps * adamspd,
+            "adamspd_project": steps * adamspd}
+
+
 def expected_gradcache_launches(accum: int, layers: int) -> dict:
     """One GradCache step: every chunk's forward twice (phase 1 without
-    grad, phase 3 with it), its backward once, and the SPARC pooling
-    forward and backward once over the whole pool (phase 2)."""
+    grad, phase 3 with it), its backward once, the SPARC pooling forward
+    and backward once over the whole pool (phase 2), and one AdamSPD
+    update."""
     from clip_finegrained_alignment_tpu_torch.ops import _build
     want = {name: 0 for name in _build.SOURCES}
     want.update({"attention_fwd": 2 * accum * layers,
                  "attention_bwd": accum * layers,
-                 "sparc_fwd": 1, "sparc_bwd": 1})
+                 "sparc_fwd": 1, "sparc_bwd": 1,
+                 **expected_optimizer_launches(1)})
     return want
 
 
@@ -2605,15 +2870,17 @@ def quant_train_path(results: dict) -> dict:
 # ---------------------------------------------------------------------------
 
 def expected_train_launches(steps: int, accum: int, layers: int,
-                            sparc: bool) -> dict:
+                            sparc: bool, adamspd: bool = True) -> dict:
     """``steps`` optimizer steps of ``accum`` microbatches: every layer's
-    forward and backward a microbatch, and under SPARC one pooling forward
-    and backward."""
+    forward and backward a microbatch, under SPARC one pooling forward
+    and backward, and the optimizer's kernels a step (AdamSPD's, or with
+    ``adamspd`` False AdamW's clip alone)."""
     from clip_finegrained_alignment_tpu_torch.ops import _build
     want = {name: 0 for name in _build.SOURCES}
     calls = steps * accum
     want.update(attention_fwd=calls * layers, attention_bwd=calls * layers,
-                sparc_fwd=calls * sparc, sparc_bwd=calls * sparc)
+                sparc_fwd=calls * sparc, sparc_bwd=calls * sparc,
+                **expected_optimizer_launches(steps, adamspd))
     return want
 
 
@@ -3218,7 +3485,8 @@ def train_cli_path(results: dict, keep_dir: str) -> dict:
               and "cf_input_ids" in c["batch_keys"],
               f"train cli C: batches carried {c['batch_keys']}")
         want = expected_train_launches(c["steps"], CLI_COUNT_ACCUM,
-                                       layers + cfg.text.num_layers, 0)
+                                       layers + cfg.text.num_layers, 0,
+                                       adamspd=False)
         # Before training and after its one epoch: an image tower and two
         # text towers (GT and counterfactual captions) each.
         want["attention_fwd"] += (2 if plots else 0) * (
@@ -3246,7 +3514,8 @@ def train_cli_path(results: dict, keep_dir: str) -> dict:
         check(d["steps"] == CLI_SAMPLES // (TRAIN_B * CLI_COUNT_ACCUM),
               f"train cli D: {d['steps']} steps")
         want = expected_train_launches(d["steps"], CLI_COUNT_ACCUM,
-                                       layers + cfg.text.num_layers, 0)
+                                       layers + cfg.text.num_layers, 0,
+                                       adamspd=False)
         check(d["launches"] == want,
               f"train cli D: launches {d['launches']} != {want}")
         d["step_ms"] = [s / d["steps"] * 1e3 for s in d["epoch_s"]]
@@ -3582,13 +3851,15 @@ def dp_env() -> dict:
 
 def expected_dp_launches(steps: int, layers: int) -> dict:
     """#1 and #2 on every encoder layer of every microbatch, #3 and #4 on
-    every microbatch, at B/W rows; nothing else."""
+    every microbatch, at B/W rows; the optimizer's kernels a step (on this
+    rank's shards under ZeRO-1 and FSDP); nothing else."""
     from clip_finegrained_alignment_tpu_torch.ops import _build
     want = {n: 0 for n in _build.SOURCES}
     want.update({"attention_fwd": steps * DP_ACCUM * layers,
                  "attention_bwd": steps * DP_ACCUM * layers,
                  "sparc_fwd": steps * DP_ACCUM,
-                 "sparc_bwd": steps * DP_ACCUM})
+                 "sparc_bwd": steps * DP_ACCUM,
+                 **expected_optimizer_launches(steps)})
     return want
 
 
@@ -3968,8 +4239,9 @@ def expected_mp_launches(mode: str, steps: int, layers: int) -> dict:
     its L/K layers on each of MP_MICRO microbatches; sequence parallelism
     none, its attention is PyTorch on this rank's queries against other
     ranks' keys, which #1 and #2 do not take); #3 and #4 once a train
-    microbatch on every rank (the loss is whole on every rank); the int8
-    modes' kernels by :func:`expected_split_launches`."""
+    microbatch on every rank (the loss is whole on every rank); the
+    optimizer's kernels a step (:func:`expected_optimizer_launches`); the
+    int8 modes' kernels by :func:`expected_split_launches`."""
     from clip_finegrained_alignment_tpu_torch.ops import _build
     from clip_finegrained_alignment_tpu_torch.perf import \
         model_parallel_check as mpc
@@ -3981,7 +4253,8 @@ def expected_mp_launches(mode: str, steps: int, layers: int) -> dict:
     want.update({"attention_fwd": steps * MP_ACCUM * per_micro,
                  "attention_bwd": steps * MP_ACCUM * per_micro,
                  "sparc_fwd": steps * MP_ACCUM,
-                 "sparc_bwd": steps * MP_ACCUM})
+                 "sparc_bwd": steps * MP_ACCUM,
+                 **expected_optimizer_launches(steps)})
     if extra.get("quant") == "int8":
         want.update(expected_split_launches(
             layers, steps * MP_ACCUM, tp=mesh["model"] > 1 and not sp,
@@ -4385,7 +4658,8 @@ def drills_path(results: dict, data_dir: str, packed_dir: str) -> dict:
 
         def l2c_want(line):
             want = expected_train_launches(
-                steps, accum, layers32 + b32.text.num_layers, False)
+                steps, accum, layers32 + b32.text.num_layers, False,
+                adamspd=False)
             want["attention_fwd"] += (
                 (DRILL_L2C_EPOCHS + 1) * (layers32 + b32.text.num_layers)
                 + 2 * -(-DRILL_CB_SAMPLES // EVAL_BATCH) * layers32)
@@ -4407,7 +4681,7 @@ def drills_path(results: dict, data_dir: str, packed_dir: str) -> dict:
             "--timeout", "300", "--device", "cuda"],
             lambda line: expected_train_launches(
                 2 * spe * DRILL_PREEMPT_EPOCHS - line["resumed_at_step"], 1,
-                layers32, True))
+                layers32, True, adamspd=False))
         check(line["ok"] and line["child_rc"] == 0
               and line["preempt_meta"]["preempted"] is True
               and line["weights_equal"], f"drill preempt: {line}")
@@ -4569,6 +4843,7 @@ def main(argv=None) -> int:
                        ("bfloat16", "float32"), SEED + 13)
     sparc_fwd, sparc_bwd = check_sparc(results)
     quant = check_quant(results)
+    optimizer = check_optimizer(results)
     lap("3 kernels")
     serve = serve_main_path(results)
     lap("4-5 serving")
@@ -4669,6 +4944,13 @@ def main(argv=None) -> int:
                                    ("absmax_cols", "54"),
                                    ("quant_rows_given", "55"),
                                    ("quant_cols_t_given", "55"))]
+    # The optimizer kernels replace no Pallas kernel either: XLA fuses the
+    # JAX package's jitted clip and AdamSPD update.
+    jref = "clip_finegrained_alignment_tpu/optim/"
+    entries += [(name, jref + ("factory.py" if name.startswith("clip")
+                               else "adamspd.py"), row, row["max_abs_err"],
+                 row["shape"] + " (the training cell's)")
+                for name, row in optimizer.items()]
     pool = TRAIN_B * TRAIN_ACCUM
     kernels = []
     for name, replaces, row, err, shape in entries:

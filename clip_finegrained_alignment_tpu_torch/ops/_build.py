@@ -50,6 +50,15 @@ SOURCES = {
     "absmax_cols": "quant.cu",
     "quant_rows_given": "quant.cu",
     "quant_cols_t_given": "quant.cu",
+    # ops/optimizer.py's seven entries, one library each as above: the
+    # norm's three and the clip, then AdamSPD's three.
+    "clip_sumsq": "optimizer.cu",
+    "clip_rows": "optimizer.cu",
+    "clip_norm": "optimizer.cu",
+    "clip_scale": "optimizer.cu",
+    "adamspd_update": "optimizer.cu",
+    "adamspd_sums": "optimizer.cu",
+    "adamspd_project": "optimizer.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -13,18 +13,21 @@ leaves per layer to the same effect.
 
 The anchors live in the optimizer state. A parameter whose ``.grad`` is
 None is updated with a zero gradient, as optax updates every leaf. The
-branch is a ``torch.where`` on a device scalar: no host sync. The step
-takes two passes: the Adam update and each tensor's three sums, then the
-projection, so that under ZeRO-1 and FSDP the sums of a tensor's shards
-are added over the ranks in between (``reduce_sums``).
+branch is taken on the device: no host sync. The step takes two passes
+over all the tensors at once (``ops/optimizer.py``: two kernels each on
+the card, the per-tensor loops on the CPU): the Adam update and each
+tensor's three sums, then the projection, so that under ZeRO-1 and FSDP
+the sums of a tensor's shards are added over the ranks in between
+(``reduce_sums``).
 """
 
 from __future__ import annotations
 
 from typing import Callable, Iterable, Optional
 
-import numpy as np
 import torch
+
+from ..ops import optimizer as ops
 
 
 class AdamSPD(torch.optim.Optimizer):
@@ -60,14 +63,11 @@ class AdamSPD(torch.optim.Optimizer):
     def step(self, closure=None):
         if closure is not None:
             raise ValueError("AdamSPD takes no closure")
-        # Pass 1: the Adam update in place, and each tensor's sums
-        # [−Σ g·(p − pre), Σ(new − pre)², Σ(p − pre)²].
-        todo, rows = [], []
+        params, grads, ms, vs, maxes, anchors, hypers, wds = (
+            [] for _ in range(8))
         for group in self.param_groups:
             b1, b2 = group["betas"]
-            eps, lr = group["eps"], group["lr"]
             for p in group["params"]:
-                g = p.grad if p.grad is not None else torch.zeros_like(p)
                 st = self.state[p]
                 if "step" not in st:
                     st["step"] = 0
@@ -76,37 +76,24 @@ class AdamSPD(torch.optim.Optimizer):
                     if group["amsgrad"]:
                         st["max_exp_avg_sq"] = torch.zeros_like(p)
                 st["step"] += 1
-                # Bias corrections in fp32, as the JAX package takes them.
-                count = np.float32(st["step"])
-                bc1 = np.float32(1.0) - np.float32(b1) ** count
-                bc2 = np.float32(1.0) - np.float32(b2) ** count
-                m, v = st["exp_avg"], st["exp_avg_sq"]
-                m.mul_(b1).add_(g, alpha=1 - b1)
-                v.mul_(b2).add_(g * g, alpha=1 - b2)
-                if group["amsgrad"]:
-                    torch.maximum(st["max_exp_avg_sq"], v,
-                                  out=st["max_exp_avg_sq"])
-                    v = st["max_exp_avg_sq"]
-                denom = v.sqrt() / float(np.sqrt(bc2)) + eps
-                pre = st["anchor"]
-                condition = -(g * (p - pre)).sum()
-                prev_sq = (p - pre).pow(2).sum()
-                p.copy_(p - float(np.float32(lr) / bc1) * m / denom)
-                rows.append(torch.stack([condition, (p - pre).pow(2).sum(),
-                                         prev_sq]))
-                todo.append((p, pre, group["weight_decay"]))
-        if not todo:
+                params.append(p)
+                grads.append(p.grad)
+                ms.append(st["exp_avg"])
+                vs.append(st["exp_avg_sq"])
+                maxes.append(st["max_exp_avg_sq"] if group["amsgrad"]
+                             else None)
+                anchors.append(st["anchor"])
+                hypers.append(ops.adam_hyper(group["lr"], b1, b2,
+                                             group["eps"], st["step"]))
+                wds.append(group["weight_decay"])
+        if not params:
             return
-        sums = torch.stack(rows)
+        # Pass 1: the Adam update in place, and each tensor's sums
+        # [−Σ g·(p − pre), Σ(new − pre)², Σ(p − pre)²].
+        sums = ops.adamspd_update(params, grads, ms, vs, maxes, anchors,
+                                  hypers)
         if self.reduce_sums is not None:
             sums = self.reduce_sums(sums)
         # Pass 2: the projection of the tensors whose gradient points away
         # from their anchor.
-        for (p, pre, wd), (condition, curr_sq, prev_sq) in zip(
-                todo, sums.unbind(0)):
-            curr, prev = curr_sq.sqrt(), prev_sq.sqrt()
-            safe = torch.where(curr == 0, torch.ones_like(curr), curr)
-            ratio = torch.where(curr == 0, torch.zeros_like(curr),
-                                (curr - prev) / safe).clamp(0.0, 1.0)
-            projected = p - wd * ratio * (p - pre)
-            p.copy_(torch.where(condition < 0, projected, p))
+        ops.adamspd_project(params, anchors, sums, wds)

@@ -8,7 +8,8 @@ when asked, optax's linear warmup from 0 over ``warmup_steps``).
   ever matches, so LayerNorm scales are decayed; the JAX package keeps that.
 * Clipping is optax's ``clip_by_global_norm``: ``g / ‖g‖ · max_norm``
   when ``‖g‖ ≥ max_norm``, else ``g`` (not ``clip_grad_norm_``'s
-  ``max / (‖g‖ + 1e-6)``).
+  ``max / (‖g‖ + 1e-6)``). On the card the norm and the clip are each one
+  pass over every gradient (``ops/optimizer.py``).
 * Gradients that are None (under SPARC, ``vision_model.post_layernorm``
   and ``logit_scale`` get none) are made zeros before the clip and the
   step: optax decays and moves every leaf, and ``torch.optim.AdamW``
@@ -38,6 +39,7 @@ from typing import Callable, Dict, Iterable, List, Optional, Tuple, Union
 import torch
 
 from ..config import TrainConfig
+from ..ops import optimizer as ops
 from ..utils.logging import span
 from .adamspd import AdamSPD
 
@@ -63,8 +65,9 @@ def make_schedule(cfg: TrainConfig, use_warmup: bool = False
 
 
 def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
-    """sqrt(Σ‖t‖²) in fp32 over all tensors (optax's ``global_norm``)."""
-    return torch.stack([t.float().pow(2).sum() for t in tensors]).sum().sqrt()
+    """sqrt(Σ‖t‖²) in fp32 over all tensors (optax's ``global_norm``): three
+    launches over every tensor on the card (``ops/optimizer.py``)."""
+    return ops.global_norm(tensors)
 
 
 class ClippedOptimizer:
@@ -119,10 +122,7 @@ class ClippedOptimizer:
             grads = [p.grad for p in params]
         norm = global_norm(grads) if layout is None else layout.grad_norm()
         if self.max_grad_norm and self.max_grad_norm > 0:
-            keep = norm < self.max_grad_norm
-            for g in grads:
-                g.copy_(torch.where(keep, g,
-                                    g / norm.to(g.dtype) * self.max_grad_norm))
+            ops.clip_(grads, norm, self.max_grad_norm)
         if layout is not None and not layout.fsdp:
             layout.shard_grads()
         return norm

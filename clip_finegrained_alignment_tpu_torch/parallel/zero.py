@@ -60,6 +60,7 @@ from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import torch
 
+from ..ops import optimizer as optimizer_ops
 from . import collectives as C
 from .mesh import Mesh
 from .sharding_rules import data_shard_dim, layer_index, tp_dim
@@ -247,10 +248,10 @@ class ShardLayout:
         parameters' whole-over-data ones)."""
         grads = [s.grad for s in self.shards] if self.fsdp else \
             [p.grad for p in self.params]
-        sq = torch.stack([g.float().pow(2).sum() for g in grads])
-        return self.reduce_rows(sq[:, None], range(len(grads)),
-                                split_over_data=self.fsdp,
-                                every=True)[:, 0].sum().sqrt()
+        sq = optimizer_ops.sumsq_rows(grads)
+        return optimizer_ops.norm_of_rows(self.reduce_rows(
+            sq[:, None], range(len(grads)), split_over_data=self.fsdp,
+            every=True)[:, 0])
 
     # -- checkpoints ---------------------------------------------------
 
